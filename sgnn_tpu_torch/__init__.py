@@ -1,0 +1,17 @@
+"""SG-NN scene completion in PyTorch with hand-written CUDA kernels.
+
+The port of ``sgnn_tpu`` (JAX/Pallas) to PyTorch on NVIDIA Hopper. Module
+names mirror the JAX package so each module's counterpart is easy to find:
+
+  config.py              SGNNConfig (a copy; tests hold it to the original)
+  params.py              init_params / load_jax_params
+  ops/folded.py          the folded FGrid layout and the fused sites
+  ops/kernels/*.py       one wrapper per CUDA kernel, each with its plain
+                         PyTorch version and a launch counter
+  csrc/*.cu              the CUDA C++ kernels (sm_90a), built at first use
+  ops/dense.py, ops/bn.py  the 1/8-resolution trunk's conv and BN
+  models/folded_flow.py  GenModelFolded, the only-surface serving forward
+  infer.py               SceneInferencer
+
+This package imports torch and numpy only: never jax, never sgnn_tpu.
+"""

@@ -1,0 +1,110 @@
+// Shared helpers of the sgnn_tpu_torch kernels.
+//
+// Layout every kernel reads and writes (sgnn_tpu/ops/folded.py:12-34): an
+// FGrid [B, Z+2, Y+2, xq, 128] with lane = slot * cpad + channel and
+// slot = x % (128 / cpad), block = x / (128 / cpad). Because
+// 128 = F * cpad, a row (b, z, y) is just Xs = xq * F voxel slots of cpad
+// contiguous channels, so voxel (b, z, y, x) starts at element
+// (((b * Zp + z) * Yp + y) * Xs + x) * cpad. The one-voxel z/y ring is
+// zero, dead lanes (channel >= real width) and x-tail slots are zero.
+//
+// Weights and affines arrive prepared by the Python side (ops/folded.py):
+// f32 arrays padded to MAXC channels whose values are already rounded to
+// the compute type, so the kernels read one layout for cpad 8 and 16.
+#pragma once
+
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+
+namespace sgnn {
+
+constexpr int LANES = 128;
+constexpr int MAXC = 16;  // channel padding of the prepared weight arrays
+constexpr int MAXG = 4;   // most input groups a site takes
+constexpr int THREADS = 256;
+
+// Input groups of one site, passed by value to the kernel.
+struct Groups {
+  const void* p[MAXG];
+  int cin[MAXG];
+  int n;
+};
+
+__device__ __forceinline__ float to_f(float v) { return v; }
+__device__ __forceinline__ float to_f(__nv_bfloat16 v) {
+  return __bfloat162float(v);
+}
+
+template <typename T>
+__device__ __forceinline__ T from_f(float v);
+template <>
+__device__ __forceinline__ float from_f<float>(float v) {
+  return v;
+}
+template <>
+__device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(float v) {
+  return __float2bfloat16_rn(v);
+}
+
+// Value after a round trip through the compute type.
+template <typename T>
+__device__ __forceinline__ float round_to(float v) {
+  return to_f(from_f<T>(v));
+}
+
+// relu(v * s + b) * m with every operation rounded on its own (no FMA
+// contraction), the order the plain PyTorch versions compute in.
+__device__ __forceinline__ float affine_relu_mask(float v, float s, float b,
+                                                  float m) {
+  const float r = fmaxf(__fadd_rn(__fmul_rn(v, s), b), 0.f);
+  return __fmul_rn(r, m);
+}
+
+// acc[0..C) += v * w[0..C); w is 16-byte aligned (rows of MAXC floats).
+template <int C>
+__device__ __forceinline__ void axpy(float* acc, float v,
+                                     const float* __restrict__ w) {
+  const float4* w4 = reinterpret_cast<const float4*>(w);
+#pragma unroll
+  for (int q = 0; q < C / 4; ++q) {
+    const float4 wv = __ldg(w4 + q);
+    acc[4 * q + 0] = fmaf(v, wv.x, acc[4 * q + 0]);
+    acc[4 * q + 1] = fmaf(v, wv.y, acc[4 * q + 1]);
+    acc[4 * q + 2] = fmaf(v, wv.z, acc[4 * q + 2]);
+    acc[4 * q + 3] = fmaf(v, wv.w, acc[4 * q + 3]);
+  }
+}
+
+template <typename T, int C>
+__device__ __forceinline__ void store_zero(T* o) {
+#pragma unroll
+  for (int c = 0; c < C; ++c) o[c] = from_f<T>(0.f);
+}
+
+inline unsigned blocks_for(long long n) {
+  return static_cast<unsigned>((n + THREADS - 1) / THREADS);
+}
+
+// Decoded position of a flat voxel index over [B, Zp, Yp, Xs].
+struct Voxel {
+  int b, z, y, x;
+};
+
+__device__ __forceinline__ Voxel decode(long long idx, int Zp, int Yp,
+                                        int Xs) {
+  Voxel v;
+  v.x = static_cast<int>(idx % Xs);
+  long long r = idx / Xs;
+  v.y = static_cast<int>(r % Yp);
+  r /= Yp;
+  v.z = static_cast<int>(r % Zp);
+  v.b = static_cast<int>(r / Zp);
+  return v;
+}
+
+__device__ __forceinline__ long long voxel_index(int b, int z, int y, int x,
+                                                 int Zp, int Yp, int Xs) {
+  return ((static_cast<long long>(b) * Zp + z) * Yp + y) * Xs + x;
+}
+
+}  // namespace sgnn
