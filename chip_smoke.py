@@ -10,16 +10,30 @@ where every phase passed prints the two JSON lines at the end):
 2. build: every kernel of sgnn_tpu_torch/csrc from the sources, with the
    compiler's registers/spills report;
 3. kernels: each hand-written kernel against its plain PyTorch version at
-   the shapes the serving path gives it (96x192x192 scene), in float32 and
-   bfloat16, with max |kernel - plain| beside its tolerance and both times;
+   the shapes the serving path gives it (96x192x192 scene; the surface
+   head also at 96x192x160), in float32 and bfloat16, with max
+   |kernel - plain| beside its tolerance and both times;
 4. forward: the full-width model (L=4, nf 16, bf16, seeded random
    weights) answers three synthetic sphere scenes through
-   sgnn_tpu_torch.infer.SceneInferencer; every kernel's launch counter
-   must be > 0 for that run; then one scene runs with impl="plain" and the
-   two surfaces are compared, in f32 and bf16; in bf16 the plain forward
-   also runs a second time on the card and once on the host CPU, which
-   shows how far the surface moves with no hand-written kernel involved;
-5. a JSON line of per-kernel results, then the status line
+   sgnn_tpu_torch.infer.SceneInferencer; every kernel of that path must
+   have been launched in that run (the summed surface head, head_sum, not
+   at all); then every kernel call of one forward is held against its
+   plain version on the forward's own inputs; one scene runs with
+   impl="plain" and the two surfaces are compared, in f32 and bf16; in
+   bf16 the plain forward also runs a second time on the card and once on
+   the host CPU, which shows how far the surface moves with no
+   hand-written kernel involved; one scene runs through the summed surface
+   head (surf_pack=False, head_sum's path); and with cuDNN at PyTorch's
+   process defaults, two kernel forwards of one scene must give the same
+   bits and the dense trunk's f32 output must match the host CPU's;
+5. serve: three reference-format scenes (.sdf/.knw) and a .ckpt written
+   by the port go through the CLI, sgnn_tpu_torch.tools.test_scene, on
+   the card; every scene must get an input mesh and a non-empty predicted
+   mesh inside its bounds, and the multi-scale surface head one launch;
+   then each scene's stages (read, forward, meshing) are timed one after
+   another, and every kernel call of the rooms' forwards (padded shapes
+   with Y != X) is held against its plain version on its own inputs;
+6. a JSON line of per-kernel results, then the status line
    {"ok": true, "device": {...}}.
 
 Imports torch, numpy and sgnn_tpu_torch only. Needs one card; fails when
@@ -28,21 +42,27 @@ torch.cuda.is_available() is false.
 
 from __future__ import annotations
 
+import copy
+import functools
 import json
+import os
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
 import torch
 
 SCENE = (96, 192, 192)  # bench.py:41, a 2 cm mp-rooms-sized room
+K5_DIMS = (96, 192, 160)  # a second surface-head case with Y != X
 FRACTIONS = (1.0, 0.4, 0.2, 0.1)
 N_SCENES = 3
-# expected launches per forward at L=4 (the TPU kernels' per-forward call
-# counts of the same path; head: 3 gated + 1 summed)
+# expected launches per forward at L=4 on the main path (the TPU kernels'
+# per-forward call counts of the same path); the summed surface head runs
+# only with surf_pack=False, once per forward
 EXPECTED = {"conv_site": 37, "downconv": 11, "upconv": 3, "head_gate": 3,
-            "head_sum": 1, "scatter": 1}
+            "head_sum": 0, "surf_head": 1, "scatter": 1}
 SOURCES = {
     "conv_site": ("sgnn_tpu_torch/csrc/conv_site.cu",
                   "sgnn_tpu/ops/pallas/conv3d_folded.py:593"),
@@ -54,6 +74,8 @@ SOURCES = {
                   "sgnn_tpu/ops/pallas/conv3d_folded.py:1687"),
     "head_sum": ("sgnn_tpu_torch/csrc/head.cu",
                  "sgnn_tpu/ops/pallas/conv3d_folded.py:1687"),
+    "surf_head": ("sgnn_tpu_torch/csrc/surf_head.cu",
+                  "sgnn_tpu/ops/pallas/conv3d_folded.py:1975"),
     "scatter": ("sgnn_tpu_torch/csrc/scatter.cu",
                 "sgnn_tpu/ops/pallas/scatter_folded.py:92"),
 }
@@ -76,6 +98,16 @@ FLIP_FRAC = 1e-4
 MIN_IOU_F32 = 0.999
 MAX_SDF_REL_F32 = 1e-3
 MIN_IOU_BF16 = 0.81
+# the summed surface head against the multi-scale one on one scene: same
+# mask, sdf within f32 summation order (1e-4 of the sdf scale)
+MAX_SDF_REL_SURF = 1e-4
+# the dense trunk in f32 on the card against the host CPU: cuDNN in full
+# f32 (no TF32), relative to the output's scale
+MAX_TRUNK_REL = 1e-5
+# serve: reference-format scenes whose dims are not multiples of 32 (the
+# dataset pads them and the inferencer crops back), one taller than
+# max_input_height (128, cropped in z)
+SERVE_DIMS = ((90, 181, 170), (128, 210, 150), (150, 160, 140))
 
 
 class SmokeError(RuntimeError):
@@ -173,12 +205,13 @@ def _slots(t, cpad):
 
 
 def _compare(what, outs_k, outs_p, values, masks=(), gate_cpad=0,
-             extra=0.0):
+             extra=0.0, dense=False):
     """Checks kernel outputs against the plain version's: zero z/y rings,
     ``masks`` outputs equal, ``values`` outputs within tolerance. With
     ``gate_cpad`` the last output is an occupancy gate at that lane
     budget: its flips must fit the budget and values are compared where
-    the two gates agree. Returns (max err, its tolerance, flips, active)."""
+    the two gates agree. ``dense``: the outputs are [B, Z, Y, X] arrays
+    without a halo ring. Returns (max err, its tolerance, flips, active)."""
     agree, flips, active = None, 0, 0
     if gate_cpad:
         gk, gp = (_slots(_interior(o[-1]), gate_cpad)[..., 0] > 0
@@ -191,12 +224,14 @@ def _compare(what, outs_k, outs_p, values, masks=(), gate_cpad=0,
     for i in masks:
         require(torch.equal(outs_k[i], outs_p[i]),
                 f"{what}: mask output {i} differs")
-    for k in outs_k:
+    for k in () if dense else outs_k:
         ring = torch.cat([k[:, [0, -1]].flatten(), k[:, :, [0, -1]].flatten()])
         require(not ring.any(), f"{what}: nonzero halo ring")
     err, tol = 0.0, 0.0
     for i in values:
-        k, p = _interior(outs_k[i]), _interior(outs_p[i])
+        k, p = outs_k[i], outs_p[i]
+        if not dense:
+            k, p = _interior(k), _interior(p)
         d = (k.float() - p.float()).abs()
         if agree is not None:
             d = _slots(d, gate_cpad) * agree
@@ -240,7 +275,7 @@ class KernelChecks:
         return self.FO.prep_affines(p, s, widths).to(self.dev)
 
     def run(self, name, label, make, values, masks=(), gate_cpad=0,
-            resid=None):
+            resid=None, dense=False):
         """make(dt) -> call(impl) -> output grids, inputs converted once;
         compared as _compare does (``resid``: the residual grid)."""
         extra = float(resid.data.abs().max()) if resid is not None else 0.0
@@ -249,7 +284,8 @@ class KernelChecks:
             outs_k, outs_p = call(None), call("plain")
             what = f"{name} {label} {str(dt)[6:]}"
             err, tol, flips, active = _compare(what, outs_k, outs_p, values,
-                                               masks, gate_cpad, extra)
+                                               masks, gate_cpad, extra,
+                                               dense)
             if gate_cpad:
                 log(f"[kernels] {what}: gate flips {flips} of {active} "
                     f"active")
@@ -378,15 +414,43 @@ class KernelChecks:
                 grp, m, ws, bs, affs, impl=impl).data,)
         self.run("head_sum", "G3", surf, [0])
 
+        # K5 at the serving shapes: groups at scales 1/2/4 (the surface
+        # U-Net's levels, each masked by a shell at its resolution), the
+        # fine mask, dense f32 sdf out; then with Y != X, where a swapped
+        # y/x stride or row length would show. The coarse grids' x tail-pad
+        # blocks (xq_g > ceil(xq / s)) are filled with junk the kernel must
+        # not read
+        from sgnn_tpu_torch.ops.kernels import surf_head as K_surf
+
+        for dims in (SCENE, K5_DIMS):
+            fm = self.mask(_shell(dims, 4.0), 16)
+            packed = []
+            for s, width in ((1, 4.0), (2, 2.0), (4, 1.0)):
+                sd = tuple(d // s for d in dims)
+                g = self.grid(sd, 16, 16, _shell(sd, width))
+                live = -(-fm.data.shape[3] // s)
+                if g.data.shape[3] > live:
+                    g.data[:, :, :, live:] = 7.0
+                packed.append(g)
+            label = "x".join(map(str, dims))
+            log(f"[kernels] surf_head {label} groups: x blocks "
+                f"{[g.data.shape[3] for g in packed]} for "
+                f"{fm.data.shape[3]} fine blocks")
+
+            def surf_ms(dt, packed=packed, fm=fm, dims=dims):
+                grp, m = [cast(g, dt).data for g in packed], cast(fm, dt)
+                return lambda impl: (K_surf.surf_head(
+                    grp, [1, 2, 4], m.data, ws, bs, affs, [16] * 3, 16,
+                    dims, impl=impl),)
+            self.run("surf_head", f"{label} G3 scales 1/2/4", surf_ms, [0],
+                     dense=True)
+
         # K6: the sphere scene's input rows into the level-0 grids (cpad 8);
         # kernel and plain version must agree bit for bit
         from sgnn_tpu_torch.infer import synthetic_scene
 
         sc = synthetic_scene(SCENE, seed=0, truncation=3.0)
-        locs = torch.zeros(len(sc["input_locs"]), 4, dtype=torch.int64)
-        locs[:, :3] = torch.from_numpy(sc["input_locs"].astype(np.int64))
-        locs = locs.to(self.dev)
-        feats = torch.from_numpy(sc["input_sdf"])[:, None].to(self.dev)
+        locs, feats = _rows(sc)
 
         def scat(dt):
             def call(impl):
@@ -409,24 +473,29 @@ class MainPathCheck:
     (_compare), so each kernel is checked on the main path's own data.
     Counters advance as usual: use it only after the counted run."""
 
-    # wrapper -> (indices of value outputs, of mask outputs, gate output?)
-    SPECS = {"conv_site": ([0], [], False), "downconv": ([0], [1], False),
-             "upconv": ([0], [], False), "head_gate": ([0, 1], [], True),
-             "head_sum": ([0], [], False), "scatter": ([0], [0, 1], False)}
+    # wrapper -> (indices of value outputs, of mask outputs, gate output?,
+    # dense output without a halo ring?)
+    SPECS = {"conv_site": ([0], [], False, False),
+             "downconv": ([0], [1], False, False),
+             "upconv": ([0], [], False, False),
+             "head_gate": ([0, 1], [], True, False),
+             "head_sum": ([0], [], False, False),
+             "surf_head": ([0], [], False, True),
+             "scatter": ([0], [0, 1], False, False)}
 
     def __init__(self):
         from sgnn_tpu_torch.ops.kernels import conv_site, downconv, head, \
-            scatter, upconv
+            scatter, surf_head, upconv
 
         self.mods = {"conv_site": conv_site, "downconv": downconv,
                      "upconv": upconv, "head_gate": head, "head_sum": head,
-                     "scatter": scatter}
+                     "surf_head": surf_head, "scatter": scatter}
         self.stats = {n: {"calls": 0, "err": 0.0, "ratio": 0.0, "flips": 0}
                       for n in self.SPECS}
         self.saved = {}
 
     def _wrap(self, name, orig):
-        values, masks, gate = self.SPECS[name]
+        values, masks, gate, dense = self.SPECS[name]
 
         def checked(*args, impl=None, **kw):
             out = orig(*args, impl=impl, **kw)
@@ -440,7 +509,7 @@ class MainPathCheck:
             st = self.stats[name]
             err, tol, flips, _ = _compare(
                 f"main path {name} call {st['calls']}", outs, refs, values,
-                masks, args[5] if gate else 0, extra)
+                masks, args[5] if gate else 0, extra, dense)
             st["calls"] += 1
             st["err"] = max(st["err"], err)
             st["ratio"] = max(st["ratio"], err / tol)
@@ -469,7 +538,8 @@ def _surface_agreement(a: dict, b: dict):
     return iou, diff, float(np.abs(b["surf_sdf"]).max())
 
 
-def phase_forward(results: dict) -> None:
+def phase_forward(results: dict) -> tuple:
+    """Phase 4; returns (model, weights) for the serve phase."""
     import dataclasses
 
     from sgnn_tpu_torch.config import SGNNConfig
@@ -514,7 +584,10 @@ def phase_forward(results: dict) -> None:
     for name, n in counts.items():
         log(f"[forward] {name}: {n} launches over {N_SCENES} scenes = "
             f"{n / N_SCENES:g} per forward (expected {EXPECTED[name]})")
-        require(n > 0, f"{name} was not launched by the main path")
+        if EXPECTED[name]:
+            require(n > 0, f"{name} was not launched by the main path")
+        else:
+            require(n == 0, f"{name} was launched by the main path")
         results[name]["launches"] = n
     for o in outs:
         require(len(o["surf_locs"]) > 0, f"{o['name']}: empty surface")
@@ -530,10 +603,7 @@ def phase_forward(results: dict) -> None:
 
     # device time of the forward alone, after warm-up
     s0 = scenes[0]
-    locs = torch.zeros(len(s0["input_locs"]), 4, dtype=torch.int64)
-    locs[:, :3] = torch.from_numpy(s0["input_locs"].astype(np.int64))
-    locs = locs.cuda()
-    feats = torch.from_numpy(s0["input_sdf"])[:, None].cuda()
+    locs, feats = _rows(s0)
     for impl in (None, "plain", None, "plain"):
         ms = _time_ms(lambda: model(locs, feats, SCENE, impl=impl), reps=3)
         log(f"[forward] forward {'kernels' if impl is None else 'plain'}: "
@@ -546,21 +616,23 @@ def phase_forward(results: dict) -> None:
         log(f"[forward] main-path inputs, {name}: {st['calls']} calls, max "
             f"|kernel - plain| {st['err']:.3e} (at most {st['ratio']:.2f} "
             f"of tol), gate flips {st['flips']}")
+        if EXPECTED[name]:
+            require(st["calls"] > 0, f"{name} unchecked on the main path")
 
     # whole forward, kernels vs plain versions on the card, f32 and bf16
     model32 = GenModelFolded(dataclasses.replace(
         cfg, compute_dtype="float32")).cuda()
     load_jax_params(model32, *weights)
+    trunk_in = {}
+    hook = model32.trunk.register_forward_pre_hook(
+        lambda mod, args: trunk_in.setdefault("x", args[0].clone()))
     iou, diff, scale = _agreement("float32", "kernels", "plain",
                                   SceneInferencer(model32)(s0),
                                   SceneInferencer(model32, impl="plain")(s0))
+    hook.remove()
     require(iou >= MIN_IOU_F32, f"f32 surface IoU {iou}")
     require(diff.max() <= MAX_SDF_REL_F32 * scale,
             f"f32 sdf diff {diff.max()}")
-    # the bf16 plain reference made reproducible: with cuDNN free to pick
-    # its algorithms, two plain runs of one scene on the card differed
-    # (IoU 0.886, PERF.md)
-    torch.backends.cudnn.deterministic = True
     host = GenModelFolded(cfg)
     load_jax_params(host, *weights)
     t0 = time.perf_counter()
@@ -582,6 +654,120 @@ def phase_forward(results: dict) -> None:
     require(worst >= MIN_IOU_BF16,
             f"bf16 surface IoU {worst} < {MIN_IOU_BF16}")
 
+    results["head_sum"]["launches"] = _summed_branch(cfg, weights, s0,
+                                                     runs["kernels"], model)
+    _trunk_repair(model, model32, trunk_in["x"], s0)
+    return model, weights
+
+
+def _rows(scene):
+    """A scene sample's input rows as the forward takes them, on the card."""
+    locs = torch.zeros(len(scene["input_locs"]), 4, dtype=torch.int64)
+    locs[:, :3] = torch.from_numpy(scene["input_locs"].astype(np.int64))
+    return locs.cuda(), torch.from_numpy(scene["input_sdf"])[:, None].cuda()
+
+
+def _summed_branch(cfg, weights, scene, packed, packed_model) -> int:
+    """One scene through the summed surface head (surf_pack=False: the
+    groups upsampled, then K4 summed mode), the counterpart of the JAX
+    package's SGNN_NO_SURFPACK branch; held against the multi-scale head's
+    surface (``packed``, from ``packed_model``), and the two forwards
+    timed. Returns head_sum's launches on that path."""
+    from sgnn_tpu_torch.infer import SceneInferencer
+    from sgnn_tpu_torch.models.folded_flow import GenModelFolded
+    from sgnn_tpu_torch.ops import kernels as K
+    from sgnn_tpu_torch.params import load_jax_params
+
+    model = GenModelFolded(cfg, surf_pack=False).cuda()
+    load_jax_params(model, *weights)
+    K.reset_launch_counts()
+    summed = SceneInferencer(model)(scene)
+    torch.cuda.synchronize()
+    counts = K.launch_counts()
+    log(f"[summed] launches with surf_pack=False: {counts}")
+    require(counts["head_sum"] == 1 and counts["surf_head"] == 0,
+            "the summed branch did not run head_sum once instead of "
+            "surf_head")
+    same_mask = np.array_equal(summed["surf_locs"], packed["surf_locs"])
+    require(same_mask, "summed vs packed surface head: masks differ")
+    diff = np.abs(summed["surf_sdf"] - packed["surf_sdf"])
+    scale = float(np.abs(packed["surf_sdf"]).max())
+    log(f"[summed] bfloat16 summed vs packed surface head: mask bit-equal "
+        f"({len(packed['surf_locs'])} voxels); sdf "
+        f"{'bit-equal' if not diff.any() else 'not bit-equal'}: max |diff| "
+        f"{diff.max():.3e} in {int((diff > 0).sum())} voxels (tol "
+        f"{MAX_SDF_REL_SURF * scale:.3e})")
+    require(diff.max() <= MAX_SDF_REL_SURF * scale,
+            f"summed vs packed sdf diff {diff.max()}")
+
+    # the forward's device time and peak memory with each surface head,
+    # in turns
+    locs, feats = _rows(scene)
+    for label, m in (("packed (K5)", packed_model), ("summed", model),
+                     ("summed", model), ("packed (K5)", packed_model)):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        ms = _time_ms(lambda: m(locs, feats, SCENE), reps=3)
+        log(f"[summed] forward with the {label} surface head: {ms:.2f} ms "
+            f"(CUDA events, mean of 3); peak device memory "
+            f"{torch.cuda.max_memory_allocated() / 2**20:.1f} MiB")
+    return counts["head_sum"]
+
+
+def _trunk_repair(model, model32, x32, scene) -> None:
+    """The dense trunk carries its own cuDNN flags (ops/dense.py). With the
+    process at PyTorch's defaults (TF32 allowed, nondeterministic
+    algorithms, here with autotuning on too), two kernel forwards of one
+    scene give the same bits, and the f32 trunk matches the host CPU's."""
+    from sgnn_tpu_torch.infer import SceneInferencer
+    from sgnn_tpu_torch.ops import dense
+
+    b = torch.backends.cudnn
+    saved = (b.allow_tf32, b.deterministic, b.benchmark)
+    b.allow_tf32, b.deterministic, b.benchmark = True, False, True
+    try:
+        a, c = SceneInferencer(model)(scene), SceneInferencer(model)(scene)
+        same = (np.array_equal(a["surf_locs"], c["surf_locs"])
+                and np.array_equal(a["surf_sdf"], c["surf_sdf"]))
+        log(f"[repair] bfloat16 kernels, two runs of {scene['name']}: "
+            f"surface {len(a['surf_locs'])} vs {len(c['surf_locs'])} "
+            f"voxels, {'bit-equal' if same else 'DIFFERENT'}")
+        require(same, "two kernel forwards of one scene differ")
+
+        host = copy.deepcopy(model32.trunk).cpu()
+        want = [t.double() for t in host(x32.cpu())]
+        repaired = dense._CUDNN
+        defaults = dict(repaired, allow_tf32=True, deterministic=False)
+        flags = {"repaired": repaired, "PyTorch's defaults": defaults}
+        errs = {}
+        for label in flags:
+            dense._CUDNN = flags[label]
+            try:
+                got = [t.double().cpu() for t in model32.trunk(x32)]
+            finally:
+                dense._CUDNN = repaired
+            errs[label] = max(float((g - w).abs().max() / w.abs().max())
+                              for g, w in zip(got, want))
+            log(f"[repair] float32 trunk on the card vs the host CPU, "
+                f"{label} flags: max |diff| / scale {errs[label]:.3e}")
+        require(errs["repaired"] <= MAX_TRUNK_REL,
+                f"f32 trunk vs CPU {errs['repaired']} > {MAX_TRUNK_REL}")
+
+        # what the deterministic, TF32-free algorithms cost (bf16 model),
+        # in turns: repaired, defaults, defaults, repaired
+        xb = x32.to(model.dtype)
+        for label in ("repaired", "PyTorch's defaults",
+                      "PyTorch's defaults", "repaired"):
+            dense._CUDNN = flags[label]
+            try:
+                ms = _time_ms(lambda: model.trunk(xb), reps=20)
+            finally:
+                dense._CUDNN = repaired
+            log(f"[repair] bfloat16 trunk, {label} flags: {ms:.3f} ms "
+                f"(CUDA events, mean of 20)")
+    finally:
+        b.allow_tf32, b.deterministic, b.benchmark = saved
+
 
 def _agreement(dt, name_a, name_b, a, b):
     """Logs and returns the surface agreement of two runs of one scene."""
@@ -591,6 +777,166 @@ def _agreement(dt, name_a, name_b, a, b):
         f"common surface: mean |diff| {diff.mean():.3e}, max "
         f"{diff.max():.3e}, scale {scale:.3e}")
     return iou, diff, scale
+
+
+# ------------------------------------------------------------------ phase 5
+
+
+def _room(dims, seed, truncation=3.0):
+    """A synthetic scanned room in voxel units: the TSDF of a box room
+    (floor, ceiling and walls 4 voxels in from the volume's faces) with
+    three boxes standing on its floor. Returns (target locs zyx, target
+    sdf) over the band |sdf| < truncation, and the partial input: the band
+    minus an unscanned corner of the room and four spherical holes."""
+    rng = np.random.RandomState(seed)
+    Z, Y, X = dims
+    z, y, x = (a.astype(np.float32) for a in np.ogrid[:Z, :Y, :X])
+    d = functools.reduce(np.minimum, [z - 4, Z - 5 - z, y - 4, Y - 5 - y,
+                                      x - 4, X - 5 - x])
+    for _ in range(3):
+        h = rng.uniform(6, 20, 3)
+        c = [4 + h[0], rng.uniform(h[1] + 8, Y - h[1] - 8),
+             rng.uniform(h[2] + 8, X - h[2] - 8)]
+        box = functools.reduce(np.maximum, [np.abs(z - c[0]) - h[0],
+                                            np.abs(y - c[1]) - h[1],
+                                            np.abs(x - c[2]) - h[2]])
+        d = np.minimum(d, box)
+    band = np.abs(d) < truncation
+    locs = np.stack(np.nonzero(band), -1).astype(np.int32)
+    sdf = d[band].astype(np.float32)
+    seen = ~((locs[:, 1] > 0.6 * Y) & (locs[:, 2] > 0.7 * X))
+    for _ in range(4):  # occlusion holes
+        c, r = rng.uniform(0, dims), rng.uniform(6, 12)
+        seen &= ((locs - c) ** 2).sum(1) > r * r
+    return locs, sdf, locs[seen], sdf[seen]
+
+
+def phase_serve(model, weights) -> dict:
+    """Reference-format scenes and a .ckpt, both written by the port,
+    through the CLI on the card. Returns the launch counts of that run."""
+    from sgnn_tpu_torch.checkpoint import save_checkpoint
+    from sgnn_tpu_torch.data import formats as F
+    from sgnn_tpu_torch.data.dataset import SceneDataset
+    from sgnn_tpu_torch.infer import SceneInferencer
+    from sgnn_tpu_torch.meshing.export import save_predictions
+    from sgnn_tpu_torch.meshing.ply import load_ply
+    from sgnn_tpu_torch.ops import kernels as K
+    from sgnn_tpu_torch.params import init_params, load_jax_params
+    from sgnn_tpu_torch.tools import test_scene
+
+    with tempfile.TemporaryDirectory() as tmp:
+        inp, tgt, out = (os.path.join(tmp, d) for d in ("in", "tgt", "out"))
+        os.makedirs(inp)
+        os.makedirs(tgt)
+        names = []
+        t0 = time.perf_counter()
+        for i, dims in enumerate(SERVE_DIMS):
+            name = f"room{i}"
+            t_locs, t_sdf, i_locs, i_sdf = _room(dims, seed=i)
+            w2g = np.eye(4, dtype=np.float32)
+            F.save_scene(os.path.join(inp, name + "__0__.sdf"),
+                         F.SceneVolume(i_locs, i_sdf, dims, 0.02, w2g))
+            F.save_scene(os.path.join(tgt, name + "__0__.sdf"),
+                         F.SceneVolume(t_locs, t_sdf, dims, 0.02, w2g))
+            F.save_known(os.path.join(tgt, name + "__0__.knw"), dims, 0.02,
+                         w2g, np.ones(dims, np.uint8))
+            names.append(name)
+            log(f"[serve] {name}: dims {dims}, {len(i_locs)} input and "
+                f"{len(t_locs)} target voxels")
+        lst = os.path.join(tmp, "scenes.txt")
+        with open(lst, "w") as fh:
+            fh.write("\n".join(names) + "\n")
+        log(f"[serve] wrote the scenes in {time.perf_counter() - t0:.1f} s")
+
+        # weights that leave a surface on the first room (as in phase 4)
+        cfg = model.cfg
+        files, _ = F.get_train_files(inp, lst)
+        sample = SceneDataset(files[:1], cfg.truncation,
+                              cfg.num_hierarchy_levels,
+                              max_input_height=128, target_path=tgt)[0]
+        for seed in (None, 1, 2, 3):
+            if seed is not None:
+                weights = init_params(cfg, seed)
+                load_jax_params(model, *weights)
+            if len(SceneInferencer(model)(sample)["surf_locs"]):
+                break
+        ckpt = os.path.join(tmp, "model.ckpt")
+        save_checkpoint(ckpt, *weights, epoch=0, iteration=0)
+
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        K.reset_launch_counts()
+        t0 = time.perf_counter()
+        stats = test_scene.main([
+            "--input_data_path", inp, "--target_data_path", tgt,
+            "--test_file_list", lst, "--model_path", ckpt, "--output", out,
+            "--max_input_height", "128", "--compute_dtype", "bfloat16"])
+        wall = time.perf_counter() - t0
+        counts = K.launch_counts()
+        peak = torch.cuda.max_memory_allocated()
+        log(f"[serve] CLI launches over {len(names)} scenes: {counts}")
+        require(stats["skipped"] == 0 and stats["num_meshed"] == len(names),
+                f"the CLI meshed {stats['num_meshed']} and skipped "
+                f"{stats['skipped']} of {len(names)} scenes")
+        require(counts["surf_head"] == len(names),
+                f"surf_head launched {counts['surf_head']} times for "
+                f"{len(names)} scenes")
+        for name, n in counts.items():
+            if EXPECTED[name]:
+                require(n > 0, f"{name} was not launched by the CLI")
+        for name, dims in zip(names, SERVE_DIMS):
+            bound = np.asarray(dims[::-1], np.float32) - 0.5  # x, y, z
+            for kind, need in (("input-mesh", 1), ("pred-mesh", 1)):
+                path = os.path.join(out, f"{name}__0__{kind}.ply")
+                require(os.path.exists(path), f"no {path}")
+                v, _, faces = load_ply(path)
+                require(len(faces) >= need, f"{path}: empty mesh")
+                require(((v >= -0.5) & (v <= bound)).all(),
+                        f"{path}: vertices outside the scene")
+                log(f"[serve] {name} {kind}: {len(v)} vertices, "
+                    f"{len(faces)} faces")
+        log(f"[serve] ms per scene, dispatch to collected surface: "
+            f"{' '.join(f'{t * 1e3:.1f}' for t in stats['scene_times'])}; "
+            f"the CLI from start to the last mesh written: "
+            f"{wall * 1e3 / len(names):.1f} ms per scene "
+            f"({wall:.2f} s for {len(names)}); peak device memory "
+            f"{peak / 2**20:.1f} MiB")
+
+        # where a scene's time goes: the CLI's stages one after another,
+        # without its overlap (host clock; the forward ends in a copy to
+        # the host)
+        ds = SceneDataset(files, cfg.truncation, cfg.num_hierarchy_levels,
+                          max_input_height=128, target_path=tgt)
+        infer = SceneInferencer(model)
+        for i in range(len(ds)):
+            t0 = time.perf_counter()
+            sample = ds[i]
+            t1 = time.perf_counter()
+            r = infer(sample)
+            t2 = time.perf_counter()
+            save_predictions(os.path.join(tmp, "stages"), r["name"],
+                             r["input_locs"], r["input_sdf"],
+                             tuple(int(d) for d in r["orig_dims"]),
+                             pred_surf=(r["surf_locs"], r["surf_sdf"]),
+                             truncation=cfg.truncation)
+            t3 = time.perf_counter()
+            log(f"[serve] stages of {r['name']} {sample['sdf'].shape}: read "
+                f"and pad {(t1 - t0) * 1e3:.1f} ms, forward to the host "
+                f"surface {(t2 - t1) * 1e3:.1f} ms, meshes and PLY files "
+                f"{(t3 - t2) * 1e3:.1f} ms")
+
+        # every kernel call of the three rooms (padded shapes with Y != X)
+        # against its plain version on the same inputs
+        with MainPathCheck() as chk:
+            for i in range(len(ds)):
+                infer(ds[i])
+        for name, st in chk.stats.items():
+            log(f"[serve] room inputs, {name}: {st['calls']} calls, max "
+                f"|kernel - plain| {st['err']:.3e} (at most "
+                f"{st['ratio']:.2f} of tol), gate flips {st['flips']}")
+            if EXPECTED[name]:
+                require(st["calls"] > 0, f"{name} unchecked on the rooms")
+        return counts
 
 
 # --------------------------------------------------------------------- main
@@ -610,7 +956,7 @@ def main() -> int:
         device = phase_device()
         phase_build()
         results = KernelChecks().all()
-        phase_forward(results)
+        phase_serve(*phase_forward(results))
     except SmokeError as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1

@@ -1,12 +1,17 @@
 """Whole-scene inference (port of ``sgnn_tpu/infer.py`` SceneInferencer).
 
-A slim inferencer: it takes the JAX package's scene sample dict (``sdf``
-for the dims, ``input_locs``, ``input_sdf``, ``orig_dims``, ``name``),
-sorts the rows, runs the only-surface serving forward and returns the
-surface voxels cropped to ``orig_dims``. The JAX inferencer's capacity
-refit and overflow refetch exist only because XLA shapes are static;
-PyTorch extracts the surface with a dynamic ``nonzero``, so neither is
-needed here.
+It takes a scene sample dict (``data.dataset.SceneDataset`` gives them:
+``sdf`` for the padded dims, ``input_locs``, ``input_sdf``, ``orig_dims``,
+``name``), sorts the rows, runs the only-surface serving forward and
+returns the surface voxels cropped to ``orig_dims``. One model serves
+every scene shape: the dims are checked per scene through
+``cfg.for_scene``. ``dispatch`` launches a scene's forward and returns a
+handle; ``collect`` crops, extracts and copies the surface to the host,
+so a driver overlaps scene i+1's forward with scene i's meshing
+(``tools/test_scene.py``). The JAX inferencer's capacity refit and
+overflow refetch exist only because XLA shapes are static; PyTorch
+extracts the surface with a dynamic ``nonzero``, so neither is needed
+here, and the input rows are not cut to a capacity.
 """
 
 from __future__ import annotations
@@ -44,7 +49,7 @@ def synthetic_scene(dims: tuple, seed: int = 0, truncation: float = 3.0,
 
 
 class SceneInferencer:
-    """Runs one scene sample through a loaded GenModelFolded.
+    """Runs scene samples through a loaded GenModelFolded.
 
     ``impl="plain"`` runs every kernel's plain PyTorch version (on the
     card too); the default launches the CUDA kernels for a model on the
@@ -53,9 +58,13 @@ class SceneInferencer:
     def __init__(self, model: GenModelFolded, impl: str | None = None):
         self.model = model
         self.impl = impl
+        self._side = None  # the card's stream for collect()
 
-    def __call__(self, sample: dict) -> dict:
+    def dispatch(self, sample: dict) -> dict:
+        """Launch one scene's forward (asynchronous on the card) and
+        return the handle for ``collect``."""
         dims = tuple(int(d) for d in sample["sdf"].shape)
+        self.model.cfg.for_scene(dims)  # raises for dims it cannot take
         device = self.model.trunk.occ_w.device
         locs3 = np.asarray(sample["input_locs"])
         if len(locs3) and ((locs3 < 0).any() or (locs3 >= dims).any()):
@@ -68,6 +77,32 @@ class SceneInferencer:
         feats = torch.from_numpy(in_sdf)[:, None]
         out = self.model(locs.to(device), feats.to(device), dims,
                          batch_size=1, impl=self.impl)
+        done = None
+        if device.type == "cuda":
+            done = torch.cuda.Event()
+            done.record()
+        return {"sample": sample, "out": out, "done": done,
+                "locs3": locs3, "in_sdf": in_sdf}
+
+    def collect(self, handle: dict) -> dict:
+        """Crop, extract and copy one dispatched scene to the host. On
+        the card this runs on a stream of its own that waits only for
+        this scene's forward, so a scene dispatched later keeps running."""
+        if handle["done"] is None:
+            return self._extract(handle)
+        if self._side is None:
+            self._side = torch.cuda.Stream(handle["out"].surf_mask.device)
+        self._side.wait_event(handle["done"])
+        with torch.cuda.stream(self._side):
+            return self._extract(handle)
+
+    def __call__(self, sample: dict) -> dict:
+        return self.collect(self.dispatch(sample))
+
+    @staticmethod
+    def _extract(handle: dict) -> dict:
+        sample, out = handle["sample"], handle["out"]
+        locs3, in_sdf = handle["locs3"], handle["in_sdf"]
         orig = np.asarray(sample["orig_dims"])
         sm = out.surf_mask[0].clone()
         sm[int(orig[0]):] = False

@@ -3,9 +3,12 @@
 Port of ``sgnn_tpu/models/folded_flow.py`` ``genmodel_apply_folded``
 (:126) in its serving form: ``want_level_outputs=False`` (no per-level
 raw head grids), every refinement level and the surface head active, no
-spatial sharding, no int8. The surface head takes the summed head site
-(``surf_head_fused``, the JAX package's ``SGNN_NO_SURFPACK`` branch, which
-it states is bitwise-equal to the multi-scale packed head).
+spatial sharding, no int8. The surface head is the multi-scale packed
+head (``surf_head_packed``, K5) over the surface U-Net's groups at their
+native resolutions; ``GenModelFolded(cfg, surf_pack=False)`` builds the
+counterpart of the JAX package's ``SGNN_NO_SURFPACK`` branch instead:
+the groups upsampled to full resolution and the summed head site
+(``surf_head_fused``, K4 summed mode).
 
 Each site module prepares its kernel-ready weights once, in ``load``
 (called by ``params.load_jax_params``), and keeps them as buffers; the
@@ -126,12 +129,14 @@ class HeadSite(nn.Module):
 
 
 class SurfHead(nn.Module):
-    """p3 BN + ReLU + mask per group and the summed SDF head (kernel K4,
-    summed mode)."""
+    """p3 BN + ReLU + mask per group and the SDF head -> (sdf, mask)
+    [B, Z, Y, X]: the multi-scale packed head over (group, scale) pairs
+    (kernel K5), or with ``pack=False`` the summed head over full-
+    resolution groups (kernel K4, summed mode)."""
 
-    def __init__(self, widths):
+    def __init__(self, widths, pack: bool):
         super().__init__()
-        self.widths = tuple(widths)
+        self.widths, self.pack = tuple(widths), pack
         G = len(self.widths)
         self.register_buffer("w", torch.zeros(G, MAXC, MAXC))
         self.register_buffer("bias", torch.zeros(MAXC))
@@ -143,11 +148,15 @@ class SurfHead(nn.Module):
         self.bias.copy_(FO.prep_bias(p["linear"]["bias"]))
         self.aff.copy_(FO.prep_affines(p["p3"], s["p3"], self.widths))
 
-    def forward(self, groups: list, fm: FGrid, impl: str | None = None
-                ) -> FGrid:
+    def forward(self, groups: list, fm: FGrid, impl: str | None = None):
+        if self.pack:
+            _check_widths([g for g, _ in groups], self.widths, "surface head")
+            return FO.surf_head_packed(groups, fm, self.w, self.bias,
+                                       self.aff, impl=impl)
         _check_widths(groups, self.widths, "surface head")
-        return FO.surf_head_fused(groups, fm, self.w, self.bias, self.aff,
-                                  impl=impl)
+        out = FO.surf_head_fused(groups, fm, self.w, self.bias, self.aff,
+                                 impl=impl)
+        return FO.unfold(out)[..., 0], FO.unfold(fm)[..., 0] > 0.5
 
 
 class BNFolded(nn.Module):
@@ -189,7 +198,9 @@ class ResBlock(nn.Module):
 
 class UNet(nn.Module):
     """FullyConvolutionalNet (reps=1, residual) over ``levels`` levels of
-    width nf; returns the GROUPS [x, up(deeper)...] at this resolution."""
+    width nf; returns the GROUPS [x, up(deeper)...] at this resolution, or
+    with ``defer`` the (group, scale) pairs at their native resolutions
+    (scale = the NN-upsample factor to this one; nothing is upsampled)."""
 
     def __init__(self, nf: int, levels: int = 3):
         super().__init__()
@@ -204,13 +215,15 @@ class UNet(nn.Module):
                            (p["down_bn"], s["down_bn"]))
             self.deeper.load(p["deeper"], s["deeper"], dtype)
 
-    def forward(self, fg: FGrid, fm: FGrid, impl: str | None = None
-                ) -> list:
+    def forward(self, fg: FGrid, fm: FGrid, impl: str | None = None,
+                defer: bool = False) -> list:
         x = self.block(fg, fm, impl=impl)
         if self.deeper is None:
-            return [x]
+            return [(x, 1)] if defer else [x]
         down, down_fm = self.down(x, fm, impl=impl)
-        deep = self.deeper(down, down_fm, impl=impl)
+        deep = self.deeper(down, down_fm, impl=impl, defer=defer)
+        if defer:
+            return [(x, 1), *[(d, 2 * s) for d, s in deep]]
         # no mask multiply on the upsampled groups: every consumer applies
         # the level mask in-kernel with its input affine
         return [x, *[FO.upsample2_folded(d) for d in deep]]
@@ -270,21 +283,23 @@ class Refinement(nn.Module):
 
 
 class SurfacePred(nn.Module):
-    def __init__(self, widths_in, nf: int):
+    """conv -> U-Net -> surface head; returns (sdf, mask) [B, Z, Y, X]."""
+
+    def __init__(self, widths_in, nf: int, pack: bool):
         super().__init__()
         self.p1 = ConvSite(widths_in, nf)
         self.p2 = UNet(nf)
-        self.head = SurfHead([nf] * 3)
+        self.head = SurfHead([nf] * 3, pack)
 
     def load(self, p: dict, s: dict, dtype: torch.dtype) -> None:
         self.p1.load(p["p1"], dtype)
         self.p2.load(p["p2"], s["p2"], dtype)
         self.head.load(p, s, dtype)
 
-    def forward(self, cur: list, cur_fm: FGrid, impl: str | None = None
-                ) -> FGrid:
+    def forward(self, cur: list, cur_fm: FGrid, impl: str | None = None):
         z = self.p1(cur, cur_fm, impl=impl)
-        return self.head(self.p2(z, cur_fm, impl=impl), cur_fm, impl=impl)
+        groups = self.p2(z, cur_fm, impl=impl, defer=self.head.pack)
+        return self.head(groups, cur_fm, impl=impl)
 
 
 @dataclasses.dataclass
@@ -319,9 +334,11 @@ def refine_widths(cfg: SGNNConfig) -> tuple[list, list]:
 
 
 class GenModelFolded(nn.Module):
-    """The serving forward. Weights enter through params.load_jax_params."""
+    """The serving forward. Weights enter through params.load_jax_params.
+    ``surf_pack=False`` takes the summed surface head (module docstring).
+    """
 
-    def __init__(self, cfg: SGNNConfig):
+    def __init__(self, cfg: SGNNConfig, surf_pack: bool = True):
         super().__init__()
         self.cfg = cfg
         self.dtype = getattr(torch, cfg.compute_dtype)
@@ -333,7 +350,7 @@ class GenModelFolded(nn.Module):
         self.trunk = DenseTrunk(cfg)
         ref_w, surf_w = refine_widths(cfg)
         self.refinement = nn.ModuleList(Refinement(w, cfg.nf) for w in ref_w)
-        self.surface = SurfacePred(surf_w, cfg.nf)
+        self.surface = SurfacePred(surf_w, cfg.nf, surf_pack)
 
     def load(self, params: dict, stats: dict) -> None:
         dt = self.dtype
@@ -399,6 +416,5 @@ class GenModelFolded(nn.Module):
         if cfg.use_skip_sparse:
             sk = skips[0][0]
             cur = [*cur, sk.with_data(sk.data * cur_fm.data)]
-        surf = FO.unfold(self.surface(cur, cur_fm, impl=impl))[..., 0]
-        surf_mask = FO.unfold(cur_fm)[..., 0] > 0.5
+        surf, surf_mask = self.surface(cur, cur_fm, impl=impl)
         return FoldedOutput(coarse_out, surf, surf_mask, active)

@@ -7,6 +7,16 @@ as the JAX package stores them. The JAX package leaves these to XLA
 outside any Pallas kernel, so they run as cuDNN convolutions here. The
 conv runs in f32 on operands already rounded to the compute type and the
 result is rounded back, which is where XLA rounds a bf16 convolution.
+
+Both calls run under fixed cuDNN flags (``_CUDNN``), scoped to the call:
+- ``allow_tf32=False``: PyTorch's default lets cuDNN round f32 operands
+  to TF32 (about three decimal digits) on the card, while the JAX trunk
+  computes in f32;
+- ``deterministic=True, benchmark=False``: with its default choice of
+  algorithms cuDNN may sum in a different order from run to run, and the
+  occupancy gates downstream turn a last-bit difference into a different
+  surface. One scene must give one surface, as it does on the TPU.
+At 1/8 resolution the deterministic algorithms cost little.
 """
 
 from __future__ import annotations
@@ -14,12 +24,16 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as nnf
 
+_CUDNN = dict(enabled=True, benchmark=False, deterministic=True,
+              allow_tf32=False)
+
 
 def conv3d(x: torch.Tensor, weight: torch.Tensor, *, stride: int = 1,
            padding: int = 0) -> torch.Tensor:
     """nn.Conv3d on channels-last input; ``weight`` already rounded."""
-    y = nnf.conv3d(x.permute(0, 4, 1, 2, 3).float(), weight, stride=stride,
-                   padding=padding)
+    with torch.backends.cudnn.flags(**_CUDNN):
+        y = nnf.conv3d(x.permute(0, 4, 1, 2, 3).float(), weight,
+                       stride=stride, padding=padding)
     return y.permute(0, 2, 3, 4, 1).to(x.dtype)
 
 
@@ -27,6 +41,7 @@ def conv_transpose3d(x: torch.Tensor, weight: torch.Tensor, *,
                      stride: int = 2, padding: int = 1) -> torch.Tensor:
     """nn.ConvTranspose3d on channels-last input; ``weight`` already
     rounded."""
-    y = nnf.conv_transpose3d(x.permute(0, 4, 1, 2, 3).float(), weight,
-                             stride=stride, padding=padding)
+    with torch.backends.cudnn.flags(**_CUDNN):
+        y = nnf.conv_transpose3d(x.permute(0, 4, 1, 2, 3).float(), weight,
+                                 stride=stride, padding=padding)
     return y.permute(0, 2, 3, 4, 1).to(x.dtype)

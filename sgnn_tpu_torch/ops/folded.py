@@ -13,7 +13,8 @@ replicated over the voxel's cpad lanes. Since 128 = F * cpad, a row
 (b, z, y) is also Xs = xq * F voxel slots of cpad channels: ``slots()``
 is that view, and every op here is written on it.
 
-The input scatter and the fused sites (conv, downconv, upconv, head) run
+The input scatter and the fused sites (conv, downconv, upconv, head,
+multi-scale surface head) run
 the CUDA kernels of ``ops/kernels``, or their plain versions on the CPU.
 The sites take kernel-ready weights prepared once by the ``prep_*``
 functions below (the port's replacement for the JAX package's
@@ -32,6 +33,7 @@ from sgnn_tpu_torch.ops.kernels import conv_site as K_conv
 from sgnn_tpu_torch.ops.kernels import downconv as K_down
 from sgnn_tpu_torch.ops.kernels import head as K_head
 from sgnn_tpu_torch.ops.kernels import scatter as K_scatter
+from sgnn_tpu_torch.ops.kernels import surf_head as K_surf
 from sgnn_tpu_torch.ops.kernels import upconv as K_up
 
 LANES = 128
@@ -358,3 +360,33 @@ def surf_head_fused(groups: list, fm: FGrid, w: torch.Tensor,
     out = K_head.head_sum([g.data for g in groups], fm.data, w, bias, aff,
                           [g.real_c for g in groups], g0.cpad, impl=impl)
     return FGrid(out, g0.dims, 1, g0.cpad)
+
+
+def surf_head_packed(groups: list, fm: FGrid, w: torch.Tensor,
+                     bias: torch.Tensor, aff: torch.Tensor, *,
+                     impl: str | None = None
+                     ) -> tuple[torch.Tensor, torch.Tensor]:
+    """Multi-scale surface tail -> (sdf [B, Z, Y, X] f32, mask
+    [B, Z, Y, X] bool) (K5).
+
+    ``groups`` holds (FGrid, scale) pairs at their native resolutions
+    (the deferred U-Net output; scale = NN-upsample factor to ``fm``'s
+    resolution, 1 for the first). Per group: eval-BN + ReLU + head at
+    native resolution; the NN expansion, sum, mask and bias happen per
+    fine voxel, so the upsampled groups never exist. Matches
+    [upsample2_folded* -> surf_head_fused -> unfold] (the summed form).
+    """
+    dims = fm.dims
+    if groups[0][1] != 1:
+        raise ValueError("surf_head_packed: the first group is at scale 1")
+    for g, s in groups:
+        if (g.cpad != fm.cpad or any(d % s for d in dims)
+                or g.dims != tuple(d // s for d in dims)):
+            raise ValueError(f"surf_head_packed: group {g.dims} at scale {s}"
+                             f" (cpad {g.cpad}) does not fit {dims} (cpad "
+                             f"{fm.cpad})")
+    sdf = K_surf.surf_head(
+        [g.data for g, _ in groups], [s for _, s in groups], fm.data, w,
+        bias, aff, [g.real_c for g, _ in groups], fm.cpad, dims, impl=impl,
+    )
+    return sdf, unfold(fm)[..., 0] > 0.5

@@ -8,7 +8,7 @@ and a launch counter that only the kernel launch advances.
 from __future__ import annotations
 
 from sgnn_tpu_torch.ops.kernels import (conv_site, downconv, head, scatter,
-                                        upconv)
+                                        surf_head, upconv)
 
 # counter name -> (module, attribute holding its launch count)
 _COUNTERS = {
@@ -17,6 +17,7 @@ _COUNTERS = {
     "upconv": (upconv, "launches"),
     "head_gate": (head, "gate_launches"),
     "head_sum": (head, "sum_launches"),
+    "surf_head": (surf_head, "launches"),
     "scatter": (scatter, "launches"),
 }
 

@@ -1,6 +1,9 @@
 """Build, load and launch the CUDA kernels of ``sgnn_tpu_torch/csrc``.
 
-All ``csrc/*.cu`` files compile in one ``nvcc`` call for ``sm_90a`` into a
+Each ``csrc/*.cu`` file compiles in its own ``nvcc`` process for ``sm_90a``
+(all started together, so a cold build takes the time of the slowest
+source rather than the sum, which keeps ``chip_smoke.py`` inside its time
+limit as sources are added), and one more call links the objects into a
 shared library with a plain C interface, loaded with ``ctypes``. The build
 runs the first time a CUDA tensor reaches a kernel (importing this module
 builds nothing), into ``build/kernels-<hash>/`` at the repository root,
@@ -29,7 +32,7 @@ CSRC = PKG / "csrc"
 BUILD_ROOT = PKG.parent / "build"
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-    "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+    "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
 LIB_NAME = "libsgnn_kernels.so"
 
@@ -48,6 +51,8 @@ SIGNATURES = {
                        _I, _I, _I, _I, _I, _I, _I, _I, _I, _P],
     "sgnn_head_sum": [_PP, _IP, _I, _P, _P, _P, _P, _P,
                       _I, _I, _I, _I, _I, _I, _P],
+    "sgnn_surf_head": [_PP, _IP, _IP, _IP, _I, _P, _P, _P, _P, _P,
+                       _I, _I, _I, _I, _I, _I, _I, _P],
     "sgnn_scatter": [_P, _P, _I, _F, _P, _P, _I, _I, _I, _I, _I, _I,
                      _I, _P],
 }
@@ -91,19 +96,36 @@ def build() -> Path:
         ptxas_log = log_path.read_text() if log_path.exists() else ""
         return lib_path
     out_dir.mkdir(parents=True, exist_ok=True)
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=out_dir)
-    os.close(fd)
-    cmd = [_nvcc(), *NVCC_FLAGS, "-I", str(CSRC), "-o", tmp,
-           *map(str, sources())]
-    res = subprocess.run(cmd, capture_output=True, text=True)
-    ptxas_log = res.stdout + res.stderr
-    log_path.write_text(ptxas_log)
-    if res.returncode != 0:
-        os.unlink(tmp)
-        raise RuntimeError(
-            f"nvcc failed ({res.returncode}):\n{' '.join(cmd)}\n{ptxas_log}"
-        )
-    os.replace(tmp, lib_path)
+    nvcc = _nvcc()
+    with tempfile.TemporaryDirectory(dir=out_dir) as tmp_dir:
+        jobs = []
+        for src in sources():
+            obj = Path(tmp_dir) / f"{src.stem}.o"
+            cmd = [nvcc, *NVCC_FLAGS, "-I", str(CSRC), "-c", "-o", str(obj),
+                   str(src)]
+            jobs.append((cmd, obj, subprocess.Popen(
+                cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                text=True)))
+        logs, failed = [], []
+        for cmd, _, proc in jobs:
+            out, _ = proc.communicate()
+            logs.append(out)
+            if proc.returncode != 0:
+                failed.append(f"{' '.join(cmd)} ({proc.returncode})")
+        tmp = Path(tmp_dir) / LIB_NAME
+        if not failed:
+            cmd = [nvcc, "-shared", "-o", str(tmp),
+                   *[str(obj) for _, obj, _ in jobs]]
+            res = subprocess.run(cmd, capture_output=True, text=True)
+            logs.append(res.stdout + res.stderr)
+            if res.returncode != 0:
+                failed.append(f"{' '.join(cmd)} ({res.returncode})")
+        ptxas_log = "".join(logs)
+        log_path.write_text(ptxas_log)
+        if failed:
+            raise RuntimeError("nvcc failed: " + "; ".join(failed) + "\n"
+                               + ptxas_log)
+        os.replace(tmp, lib_path)
     return lib_path
 
 

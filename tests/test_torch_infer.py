@@ -75,13 +75,21 @@ def test_rejects_locs_outside_scene(inferencer):
 
 
 def test_port_imports_without_jax():
-    """The port and chip_smoke.py import with jax and sgnn_tpu blocked."""
+    """The port, its CLI and chip_smoke.py import (and the CLI parses its
+    flags) with jax and sgnn_tpu blocked."""
     code = (
         "import sys\n"
         "sys.modules['jax'] = None\n"
         "sys.modules['sgnn_tpu'] = None\n"
         "import sgnn_tpu_torch.infer, sgnn_tpu_torch.params\n"
         "import sgnn_tpu_torch.ops.kernels.build\n"
+        "import sgnn_tpu_torch.checkpoint, sgnn_tpu_torch.utils.ckpt_convert\n"
+        "import sgnn_tpu_torch.data.dataset, sgnn_tpu_torch.data.formats\n"
+        "import sgnn_tpu_torch.meshing.export, sgnn_tpu_torch.meshing.native\n"
+        "from sgnn_tpu_torch.tools import test_scene\n"
+        "test_scene.parse_args(['--input_data_path', 'i',\n"
+        "    '--target_data_path', 't', '--test_file_list', 'l',\n"
+        "    '--model_path', 'm.ckpt'])\n"
         "import chip_smoke\n"
         "assert 'jax' not in [m.split('.')[0] for m in sys.modules\n"
         "                     if sys.modules[m] is not None]\n"

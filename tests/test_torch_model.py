@@ -3,6 +3,8 @@ genmodel_apply_folded(want_level_outputs=False) on a tiny model.
 
 The JAX params (genmodel_init, PRNGKey(0)) go through jax.device_get into
 load_jax_params; the same surface-like input goes to both forwards. The
+port's forward is checked with its default surface head (K5) and with the
+summed one (``surf_pack=False``); JAX's with its default. The
 JAX forward runs its Pallas kernels in interpret mode, once per module.
 Tolerances are the repo's own between its executions
 (tests/test_folded_model.py:94-115): coarse_out 1e-4, surf_sdf on the
@@ -21,6 +23,7 @@ from sgnn_tpu.models import sgnn as JM
 from sgnn_tpu.ops.sparse import make_sparse
 from sgnn_tpu_torch.config import SGNNConfig
 from sgnn_tpu_torch.models.folded_flow import GenModelFolded
+from sgnn_tpu_torch.ops import dense
 from sgnn_tpu_torch.params import load_jax_params
 
 CFG = dict(encoder_dim=4, input_dim=(16, 16, 16), nf_coarse=8, nf=8,
@@ -49,7 +52,8 @@ def _surface_rows(dims, truncation, cap, seed=0, keep=0.85):
 
 
 @pytest.fixture(scope="module")
-def forwards():
+def jax_forward():
+    """(JAX's default forward output, its params, the input rows)."""
     import jax.experimental.pallas as pl
 
     import sgnn_tpu.ops.pallas.conv3d_folded as PC
@@ -70,11 +74,22 @@ def forwards():
         )
     finally:
         PC.pl.pallas_call = orig
-    model = GenModelFolded(SGNNConfig(**CFG))
-    load_jax_params(model, jax.device_get(params), jax.device_get(stats))
-    got = model(torch.from_numpy(locs[:n]), torch.from_numpy(feats[:n]),
-                CFG["input_dim"])
-    return jax.device_get(ref), got
+    weights = (jax.device_get(params), jax.device_get(stats))
+    return jax.device_get(ref), weights, (locs[:n], feats[:n])
+
+
+def _port_forward(jax_forward, surf_pack: bool):
+    _, weights, (locs, feats) = jax_forward
+    model = GenModelFolded(SGNNConfig(**CFG), surf_pack=surf_pack)
+    load_jax_params(model, *weights)
+    return model(torch.from_numpy(locs), torch.from_numpy(feats),
+                 CFG["input_dim"])
+
+
+@pytest.fixture(scope="module")
+def forwards(jax_forward):
+    """The default forward (multi-scale surface head) beside JAX's."""
+    return jax_forward[0], _port_forward(jax_forward, True)
 
 
 def test_coarse_out(forwards):
@@ -100,3 +115,57 @@ def test_surface_sdf(forwards):
                                np.asarray(ref.surf_sdf)[m], rtol=2e-3,
                                atol=2e-3)
     assert np.isfinite(got.surf_sdf.numpy()).all()
+
+
+@pytest.mark.parametrize("surf_pack", [True, False],
+                         ids=["packed", "summed"])
+def test_surface_forms(jax_forward, surf_pack):
+    """Both surface heads (K5, and the SGNN_NO_SURFPACK counterpart: the
+    groups upsampled, then K4 summed mode) against JAX's default forward,
+    at the tolerances above."""
+    ref = jax_forward[0]
+    got = _port_forward(jax_forward, surf_pack)
+    m = np.asarray(ref.surf_mask)
+    np.testing.assert_allclose(got.coarse_out.numpy(),
+                               np.asarray(ref.coarse_out), rtol=1e-4,
+                               atol=1e-4)
+    np.testing.assert_array_equal(got.surf_mask.numpy(), m)
+    np.testing.assert_allclose(got.surf_sdf.numpy()[m],
+                               np.asarray(ref.surf_sdf)[m], rtol=2e-3,
+                               atol=2e-3)
+
+
+@pytest.mark.parametrize("fn", ["conv3d", "conv_transpose3d"])
+def test_trunk_cudnn_flags(monkeypatch, fn):
+    """The dense trunk's convolutions run with cuDNN's TF32 off and its
+    deterministic algorithms on, scoped to the call: the process-wide
+    flags are as before afterwards."""
+    seen = {}
+    orig = getattr(dense.nnf, fn)
+
+    def spy(*a, **k):
+        b = torch.backends.cudnn
+        seen.update(enabled=b.enabled, benchmark=b.benchmark,
+                    deterministic=b.deterministic, allow_tf32=b.allow_tf32)
+        return orig(*a, **k)
+
+    monkeypatch.setattr(dense.nnf, fn, spy)
+    before = (torch.backends.cudnn.allow_tf32,
+              torch.backends.cudnn.deterministic,
+              torch.backends.cudnn.benchmark)
+    torch.backends.cudnn.allow_tf32 = True
+    torch.backends.cudnn.deterministic = False
+    try:
+        x = torch.randn(1, 4, 4, 4, 3)
+        if fn == "conv3d":
+            y = dense.conv3d(x, torch.randn(5, 3, 3, 3, 3), padding=1)
+        else:
+            y = dense.conv_transpose3d(x, torch.randn(3, 5, 4, 4, 4))
+        assert seen == dict(enabled=True, benchmark=False,
+                            deterministic=True, allow_tf32=False)
+        assert y.shape[-1] == 5
+        assert torch.backends.cudnn.allow_tf32
+        assert not torch.backends.cudnn.deterministic
+    finally:
+        (torch.backends.cudnn.allow_tf32, torch.backends.cudnn.deterministic,
+         torch.backends.cudnn.benchmark) = before
