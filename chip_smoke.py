@@ -33,8 +33,21 @@ where every phase passed prints the two JSON lines at the end):
    then each scene's stages (read, forward, meshing) are timed one after
    another, and every kernel call of the rooms' forwards (padded shapes
    with Y != X) is held against its plain version on its own inputs;
-6. a JSON line of per-kernel results, then the status line
-   {"ok": true, "device": {...}}.
+6. train: synthetic .sdfs chunks (128x64x64, cut from box rooms) written
+   by the port; one full-level f32 train step with the kernels and one
+   with the plain versions from the same weights and batch (loss,
+   gradients, running stats compared); one bf16 step at full width and
+   batch 8 whose every kernel call is held against its plain version,
+   with each kernel's launches per step required; the training CLI,
+   sgnn_tpu_torch.tools.train, in-process for 12 steps on one chunk (the
+   reference's overfit mode), whose loss must fall over the full-level
+   steps and whose .ckpt must load into the serving model and serve a
+   room; ms per step with kernels and with plain versions, samples/s and
+   peak device memory;
+7. the card's name and power limit again, a JSON line of per-kernel
+   results (launches, error, ms against the plain version and against one
+   PyTorch call where one computes the same function, and the card's bound
+   for the same work), then the status line {"ok": true, "device": {...}}.
 
 Imports torch, numpy and sgnn_tpu_torch only. Needs one card; fails when
 torch.cuda.is_available() is false.
@@ -42,6 +55,7 @@ torch.cuda.is_available() is false.
 
 from __future__ import annotations
 
+import contextlib
 import copy
 import functools
 import json
@@ -62,7 +76,8 @@ N_SCENES = 3
 # per-forward call counts of the same path); the summed surface head runs
 # only with surf_pack=False, once per forward
 EXPECTED = {"conv_site": 37, "downconv": 11, "upconv": 3, "head_gate": 3,
-            "head_sum": 0, "surf_head": 1, "scatter": 1}
+            "head_gate_raw": 0, "head_sum": 0, "surf_head": 1, "scatter": 1,
+            "conv_raw": 0}
 SOURCES = {
     "conv_site": ("sgnn_tpu_torch/csrc/conv_site.cu",
                   "sgnn_tpu/ops/pallas/conv3d_folded.py:593"),
@@ -72,13 +87,35 @@ SOURCES = {
                "sgnn_tpu/ops/pallas/conv3d_folded.py:1055"),
     "head_gate": ("sgnn_tpu_torch/csrc/head.cu",
                   "sgnn_tpu/ops/pallas/conv3d_folded.py:1687"),
+    "head_gate_raw": ("sgnn_tpu_torch/csrc/head.cu",
+                      "sgnn_tpu/ops/pallas/conv3d_folded.py:1687"),
     "head_sum": ("sgnn_tpu_torch/csrc/head.cu",
                  "sgnn_tpu/ops/pallas/conv3d_folded.py:1687"),
     "surf_head": ("sgnn_tpu_torch/csrc/surf_head.cu",
                   "sgnn_tpu/ops/pallas/conv3d_folded.py:1975"),
     "scatter": ("sgnn_tpu_torch/csrc/scatter.cu",
                 "sgnn_tpu/ops/pallas/scatter_folded.py:92"),
+    "conv_raw": ("sgnn_tpu_torch/csrc/conv_raw.cu",
+                 "sgnn_tpu/ops/pallas/conv3d_folded.py:213"),
 }
+# the card's peaks for the bound of a kernel's timed (bf16) case: NVIDIA's
+# H100 SXM data sheet, dense bf16 tensor rate and HBM3 bandwidth
+PEAK_BF16_FLOPS = 989e12
+PEAK_BYTES = 3.35e12
+# training: the JAX package's training configuration at full width
+# (SGNNConfig defaults, tools/train.py: 128x64x64 chunks, batch 8)
+TRAIN_DIMS = (128, 64, 64)
+TRAIN_BATCH = 8
+N_CHUNKS = 24
+# f32 train step, kernels vs plain versions: the loss to 1e-4 relative,
+# the running stats to 1e-4 of their scale; gradients (|a - b| / max |b|
+# per parameter, the largest and the median over parameters) to 5e-3, or
+# to twice what the plain step itself moves when its input features move
+# by one f32 rounding, where that is more: the loss is not smooth (hard
+# gates and ReLUs), so two f32 summation orders agree only that far
+TRAIN_LOSS_REL = 1e-4
+TRAIN_GRAD_REL = 5e-3
+TRAIN_STATS_REL = 1e-4
 # tolerances of kernel vs plain (same inputs, same rounding points; only
 # the f32 summation order differs): f32 outputs 1e-4 of the output scale;
 # bf16 outputs 2 bf16 ulps of the output scale; gate flips (an occupancy
@@ -199,6 +236,46 @@ def _interior(t):
     return t[:, 1:-1, 1:-1]
 
 
+def _nbytes(*ts) -> int:
+    return sum(t.numel() * t.element_size() for t in ts)
+
+
+def _active(grid, cpad) -> int:
+    """Voxels of a folded mask grid whose value is non-zero."""
+    return int((_slots(grid, cpad)[..., 0] != 0).sum())
+
+
+def _bound(nbytes: int, flops: float) -> dict:
+    """The least time for the work on the card: the larger of the bytes
+    over its memory rate and the operations over its bf16 rate."""
+    t_bytes = nbytes / PEAK_BYTES * 1e3
+    t_ops = flops / PEAK_BF16_FLOPS * 1e3
+    return {"bound_ms": max(t_bytes, t_ops),
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
+
+
+def _library_conv(dense_shape, cout, k, stride=1, padding=0,
+                  transpose=False):
+    """dt -> one cuDNN call (F.conv3d or F.conv_transpose3d under the
+    port's trunk flags) over a dense [B, C, Z, Y, X] tensor."""
+    import torch.nn.functional as nnf
+
+    from sgnn_tpu_torch.ops import dense
+
+    def make(dt):
+        x = torch.randn(*dense_shape, device="cuda").to(dt)
+        cin = dense_shape[1]
+        w = torch.randn(*((cin, cout) if transpose else (cout, cin)),
+                        k, k, k, device="cuda").to(dt)
+        fn = nnf.conv_transpose3d if transpose else nnf.conv3d
+
+        def call():
+            with torch.backends.cudnn.flags(**dense._CUDNN):
+                return fn(x, w, stride=stride, padding=padding)
+        return call
+    return make
+
+
 def _slots(t, cpad):
     """[..., xq, 128] -> [..., xq * F, cpad]: one row per voxel."""
     return t.reshape(*t.shape[:-2], -1, cpad)
@@ -208,13 +285,14 @@ def _compare(what, outs_k, outs_p, values, masks=(), gate_cpad=0,
              extra=0.0, dense=False):
     """Checks kernel outputs against the plain version's: zero z/y rings,
     ``masks`` outputs equal, ``values`` outputs within tolerance. With
-    ``gate_cpad`` the last output is an occupancy gate at that lane
-    budget: its flips must fit the budget and values are compared where
-    the two gates agree. ``dense``: the outputs are [B, Z, Y, X] arrays
-    without a halo ring. Returns (max err, its tolerance, flips, active)."""
+    ``gate_cpad`` output 2 is an occupancy gate at that lane budget (the
+    gated head's new mask): its flips must fit the budget and values are
+    compared where the two gates agree. ``dense``: the outputs have no
+    halo ring ([B, Z, Y, X] arrays, or K7's unpadded grid). Returns (max
+    err, its tolerance, flips, active)."""
     agree, flips, active = None, 0, 0
     if gate_cpad:
-        gk, gp = (_slots(_interior(o[-1]), gate_cpad)[..., 0] > 0
+        gk, gp = (_slots(_interior(o[2]), gate_cpad)[..., 0] > 0
                   for o in (outs_k, outs_p))
         flips, active = int((gk != gp).sum()), int(gp.sum())
         budget = max(2, int(FLIP_FRAC * active))
@@ -275,11 +353,17 @@ class KernelChecks:
         return self.FO.prep_affines(p, s, widths).to(self.dev)
 
     def run(self, name, label, make, values, masks=(), gate_cpad=0,
-            resid=None, dense=False):
+            resid=None, dense=False, work=None, library=None,
+            dtypes=(torch.float32, torch.bfloat16)):
         """make(dt) -> call(impl) -> output grids, inputs converted once;
-        compared as _compare does (``resid``: the residual grid)."""
+        compared as _compare does (``resid``: the residual grid). The
+        kernel's first bf16 case is timed against its plain version and,
+        with ``library`` (dt -> a call), one PyTorch call computing the
+        same function; ``work(dt)`` gives that case's (bytes each input
+        read once and each output written once, operations its data
+        needs), from which the card's bound follows."""
         extra = float(resid.data.abs().max()) if resid is not None else 0.0
-        for dt in (torch.float32, torch.bfloat16):
+        for dt in dtypes:
             call = make(dt)
             outs_k, outs_p = call(None), call("plain")
             what = f"{name} {label} {str(dt)[6:]}"
@@ -302,6 +386,19 @@ class KernelChecks:
                 rec["ms"], rec["plain_ms"] = (tk1 + tk2) / 2, (tp1 + tp2) / 2
                 msg += (f"; kernel {rec['ms']:.3f} ms, plain "
                         f"{rec['plain_ms']:.3f} ms")
+                rec["library_ms"] = None
+                if library is not None:
+                    lib = library(dt)
+                    rec["library_ms"] = _time_ms(lib)
+                    msg += f", one PyTorch call {rec['library_ms']:.3f} ms"
+                outs = call(None)
+                nbytes, flops = work(dt)
+                nbytes += _nbytes(*outs)
+                del outs
+                rec.update(_bound(nbytes, flops))
+                msg += (f"; bound {rec['bound_ms']:.4f} ms by "
+                        f"{rec['bound_by']} ({nbytes / 1e6:.1f} MB, "
+                        f"{flops / 1e9:.2f} GFLOP)")
             log(f"[kernels] {name} {label} {str(dt)[6:]}: {msg}")
 
     def all(self):
@@ -327,8 +424,15 @@ class KernelChecks:
                 cast(res16, dt)
             return lambda impl: (FO.subm_conv_fused(
                 grp, m, w, 16, aff=aff, residual=r, impl=impl).data,)
+        n16 = _active(fm16.data, 16)
+
+        def conv16_work(dt):
+            ins = [cast(g, dt).data for g in (*g16, fm16, res16)]
+            return _nbytes(*ins, w, aff), 2 * 27 * sum(widths) * 16 * n16
         self.run("conv_site", "cpad16 G3 affine+residual", conv16, [0],
-                 resid=res16)
+                 resid=res16, work=conv16_work,
+                 library=_library_conv((1, sum(widths), *SCENE), 16, 3,
+                                       padding=1))
 
         # K1 at level 0: cpad 8
         fm8 = self.mask(fine, 8)
@@ -356,7 +460,13 @@ class KernelChecks:
                                           impl=impl)
                 return o.data, om.data
             return call
-        self.run("downconv", "cross cpad8->16", down_cross, [0], masks=[1])
+        def down_cross_work(dt):
+            o, om = down_cross(dt)(None)
+            return (_nbytes(cast(x8, dt).data, cast(fm8, dt).data, wd),
+                    2 * 8 * 8 * 8 * _active(om, 16))
+        self.run("downconv", "cross cpad8->16", down_cross, [0], masks=[1],
+                 work=down_cross_work,
+                 library=_library_conv((1, 8, *SCENE), 8, 2, stride=2))
         wd16 = FO.prep_downconv_weights(self.weights(8, 16, 16), 16,
                                         torch.float32).to(self.dev)
         affd = self.affines([16])[0]
@@ -382,7 +492,13 @@ class KernelChecks:
             grp, m = [cast(g, dt) for g in cg], cast(cfm, dt)
             return lambda impl: (FO.upconv_fused(
                 grp, m, None, wu, 16, aff=affu, impl=impl).data,)
-        self.run("upconv", "G3 fmask=None", up, [0])
+        def up_work(dt):
+            ins = [cast(g, dt).data for g in (*cg, cfm)]
+            return _nbytes(*ins, wu, affu), 2 * 8 * 48 * 16 * 8 * _active(
+                cfm.data, 16)
+        self.run("upconv", "G3 fmask=None", up, [0], work=up_work,
+                 library=_library_conv((1, 48, *cd), 16, 4, stride=2,
+                                       padding=1, transpose=True))
 
         # K4 gated at the finest level, mask from the coarse level
         wh = FO.prep_head_weights(self.weights(16, 2), [16],
@@ -399,7 +515,11 @@ class KernelChecks:
                                           impl=impl)
                 return tuple(o.data for o in outs)
             return call
-        self.run("head_gate", "mask_scale 2", gate, [0, 1], gate_cpad=16)
+        def gate_work(dt):
+            return (_nbytes(cast(upg, dt).data, cast(cfm, dt).data, wh, bh,
+                            affh), 2 * 16 * 2 * 8 * _active(cfm.data, 16))
+        self.run("head_gate", "mask_scale 2", gate, [0, 1], gate_cpad=16,
+                 work=gate_work)
 
         # K4 summed (the surface head), 3 groups
         ws = FO.prep_head_weights(self.weights(48, 1), [16] * 3,
@@ -412,7 +532,10 @@ class KernelChecks:
                 cast(fm16, dt)
             return lambda impl: (FO.surf_head_fused(
                 grp, m, ws, bs, affs, impl=impl).data,)
-        self.run("head_sum", "G3", surf, [0])
+        def surf_work(dt):
+            ins = [cast(g, dt).data for g in (g16[0], res16, upg, fm16)]
+            return _nbytes(*ins, ws, bs, affs), 2 * 48 * n16
+        self.run("head_sum", "G3", surf, [0], work=surf_work)
 
         # K5 at the serving shapes: groups at scales 1/2/4 (the surface
         # U-Net's levels, each masked by a shell at its resolution), the
@@ -442,8 +565,12 @@ class KernelChecks:
                 return lambda impl: (K_surf.surf_head(
                     grp, [1, 2, 4], m.data, ws, bs, affs, [16] * 3, 16,
                     dims, impl=impl),)
+            def surf_ms_work(dt, packed=packed, fm=fm):
+                ins = [cast(g, dt).data for g in (*packed, fm)]
+                return _nbytes(*ins, ws, bs, affs), 2 * 48 * _active(
+                    fm.data, 16)
             self.run("surf_head", f"{label} G3 scales 1/2/4", surf_ms, [0],
-                     dense=True)
+                     dense=True, work=surf_ms_work)
 
         # K6: the sphere scene's input rows into the level-0 grids (cpad 8);
         # kernel and plain version must agree bit for bit
@@ -460,8 +587,80 @@ class KernelChecks:
                 return fg.data, fm.data
             return call
         self.run("scatter", f"{len(locs)} rows cpad8", scat, [0],
-                 masks=[0, 1])
+                 masks=[0, 1], work=lambda dt: (_nbytes(locs, feats), 0))
+        self.training_cases()
         return self.results
+
+    def training_cases(self):
+        """K7 and K4's raw mode at the training shapes: batch 8 at
+        128x64x64, the input masked by a shell per sample."""
+        FO = self.FO
+        from sgnn_tpu_torch.ops.kernels import conv_raw as K_raw
+        from sgnn_tpu_torch.ops.kernels import head as K_head
+
+        B = TRAIN_BATCH
+
+        def masked(dims, c, cpad):
+            m = _shell(dims, 4.0).expand(B, *dims)
+            d = torch.randn(B, *dims, c, device=self.dev, generator=self.gen)
+            return FO.fold(d * m.to(self.dev)[..., None], cpad).data, m
+
+        def conv_case(label, dims, cpad, cin, cout, dtypes, flipped=False,
+                      timed=False):
+            x, _ = masked(dims, cin, cpad)
+            w27 = torch.from_numpy(self.weights(27, cin, cout))
+            if flipped:  # the input gradient's call: flipped, transposed
+                w27 = torch.flip(w27.reshape(3, 3, 3, cin, cout), (0, 1, 2))
+                w27 = w27.reshape(27, cin, cout).transpose(1, 2)
+                cin, cout = cout, cin
+                # a cotangent: non-zero at every interior voxel
+                g = torch.randn(B, *dims, cin, device=self.dev,
+                                generator=self.gen)
+                x = FO.fold(g, cpad).data
+            w = FO._prep_taps(w27, torch.float32).to(self.dev)
+
+            def make(dt):
+                xd, wd = x.to(dt), FO._prep_taps(w27, dt).to(self.dev)
+                return lambda impl: (K_raw.conv_raw(xd, wd, cin, cpad,
+                                                    impl=impl),)
+
+            def work(dt):
+                nz = int((_slots(x, cpad)[..., :cin] != 0).any(-1).sum())
+                return _nbytes(x.to(dt), w), 2 * 27 * cin * cout * nz
+            self.run("conv_raw", label, make, [0], dense=True, dtypes=dtypes,
+                     work=work if timed else None,
+                     library=_library_conv((B, cin, *dims), cout, 3,
+                                           padding=1) if timed else None)
+
+        full = TRAIN_DIMS
+        conv_case("cpad16 16->16 B8 128x64x64", full, 16, 16, 16,
+                  (torch.float32, torch.bfloat16), timed=True)
+        conv_case("cpad8 8->8 B8 128x64x64", full, 8, 8, 8,
+                  (torch.bfloat16,))
+        conv_case("cpad16 12->9 B8 128x48x64 (Y != X)", (128, 48, 64), 16,
+                  12, 9, (torch.float32, torch.bfloat16))
+        conv_case("input gradient: flipped taps 16->12", full, 16, 12, 16,
+                  (torch.float32, torch.bfloat16), flipped=True)
+
+        # K4 with the raw output at the finest training level: mask_scale
+        # 1 with the materialized fine mask, as the training step calls it
+        up, m = masked(full, 16, 16)
+        fm = FO.fold_mask(m.to(self.dev), 16, torch.float32).data
+        wh = FO.prep_head_weights(self.weights(16, 2), [16],
+                                  torch.float32)[0].to(self.dev)
+        bh = FO.prep_bias(np.array([0.1, -0.2], np.float32)).to(self.dev)
+        affh = self.affines([16])[0]
+
+        def raw(dt):
+            u, mm = up.to(dt), fm.to(dt)
+            return lambda impl: K_head.head_gate(u, mm, wh, bh, affh, 16,
+                                                 emit_raw=True, impl=impl)
+
+        def raw_work(dt):
+            return (_nbytes(up.to(dt), fm.to(dt), wh, bh, affh),
+                    2 * 16 * 2 * _active(fm, 16))
+        self.run("head_gate_raw", "B8 128x64x64 mask_scale 1", raw,
+                 [0, 1, 3], gate_cpad=16, work=raw_work)
 
 
 # ------------------------------------------------------------------ phase 4
@@ -479,28 +678,34 @@ class MainPathCheck:
              "downconv": ([0], [1], False, False),
              "upconv": ([0], [], False, False),
              "head_gate": ([0, 1], [], True, False),
+             "head_gate_raw": ([0, 1, 3], [], True, False),
              "head_sum": ([0], [], False, False),
              "surf_head": ([0], [], False, True),
-             "scatter": ([0], [0, 1], False, False)}
+             "scatter": ([0], [0, 1], False, False),
+             "conv_raw": ([0], [], False, True)}
 
     def __init__(self):
-        from sgnn_tpu_torch.ops.kernels import conv_site, downconv, head, \
-            scatter, surf_head, upconv
+        from sgnn_tpu_torch.ops.kernels import conv_raw, conv_site, \
+            downconv, head, scatter, surf_head, upconv
 
+        # wrapper function (module attribute) -> its module; the gated
+        # head's calls with the raw output count under head_gate_raw
         self.mods = {"conv_site": conv_site, "downconv": downconv,
                      "upconv": upconv, "head_gate": head, "head_sum": head,
-                     "surf_head": surf_head, "scatter": scatter}
+                     "surf_head": surf_head, "scatter": scatter,
+                     "conv_raw": conv_raw}
         self.stats = {n: {"calls": 0, "err": 0.0, "ratio": 0.0, "flips": 0}
                       for n in self.SPECS}
         self.saved = {}
 
-    def _wrap(self, name, orig):
-        values, masks, gate, dense = self.SPECS[name]
+    def _wrap(self, fn_name, orig):
 
         def checked(*args, impl=None, **kw):
             out = orig(*args, impl=impl, **kw)
             if impl is not None:
                 return out
+            name = "head_gate_raw" if kw.get("emit_raw") else fn_name
+            values, masks, gate, dense = self.SPECS[name]
             ref = orig(*args, impl="plain", **kw)
             outs = out if isinstance(out, tuple) else (out,)
             refs = ref if isinstance(ref, tuple) else (ref,)
@@ -782,12 +987,12 @@ def _agreement(dt, name_a, name_b, a, b):
 # ------------------------------------------------------------------ phase 5
 
 
-def _room(dims, seed, truncation=3.0):
-    """A synthetic scanned room in voxel units: the TSDF of a box room
-    (floor, ceiling and walls 4 voxels in from the volume's faces) with
-    three boxes standing on its floor. Returns (target locs zyx, target
-    sdf) over the band |sdf| < truncation, and the partial input: the band
-    minus an unscanned corner of the room and four spherical holes."""
+def _room_field(dims, seed):
+    """A synthetic scanned room in voxel units: (the signed distance of a
+    box room, floor, ceiling and walls 4 voxels in from the volume's
+    faces, with three boxes standing on its floor; the scanned voxels: the
+    volume minus an unscanned corner of the room and four spherical
+    holes), both [Z, Y, X]."""
     rng = np.random.RandomState(seed)
     Z, Y, X = dims
     z, y, x = (a.astype(np.float32) for a in np.ogrid[:Z, :Y, :X])
@@ -801,14 +1006,25 @@ def _room(dims, seed, truncation=3.0):
                                             np.abs(y - c[1]) - h[1],
                                             np.abs(x - c[2]) - h[2]])
         d = np.minimum(d, box)
+    zi, yi, xi = np.ogrid[:Z, :Y, :X]
+    seen = ~((yi > 0.6 * Y) & (xi > 0.7 * X)) & np.ones(dims, bool)
+    for _ in range(4):  # occlusion holes
+        c, r = rng.uniform(0, dims), rng.uniform(6, 12)
+        seen &= ((zi - c[0]) ** 2 + (yi - c[1]) ** 2
+                 + (xi - c[2]) ** 2) > r * r
+    return d, seen
+
+
+def _room(dims, seed, truncation=3.0):
+    """The room of _room_field as rows: (target locs zyx, target sdf) over
+    the band |sdf| < truncation, and the partial input, the band's scanned
+    voxels."""
+    d, seen = _room_field(dims, seed)
     band = np.abs(d) < truncation
     locs = np.stack(np.nonzero(band), -1).astype(np.int32)
     sdf = d[band].astype(np.float32)
-    seen = ~((locs[:, 1] > 0.6 * Y) & (locs[:, 2] > 0.7 * X))
-    for _ in range(4):  # occlusion holes
-        c, r = rng.uniform(0, dims), rng.uniform(6, 12)
-        seen &= ((locs - c) ** 2).sum(1) > r * r
-    return locs, sdf, locs[seen], sdf[seen]
+    keep = seen[band]
+    return locs, sdf, locs[keep], sdf[keep]
 
 
 def phase_serve(model, weights) -> dict:
@@ -939,6 +1155,328 @@ def phase_serve(model, weights) -> dict:
         return counts
 
 
+# ------------------------------------------------------------------ phase 6
+
+
+class PlainKernels:
+    """While active, every kernel wrapper runs its plain PyTorch version
+    (on the card): the whole training step without a hand-written
+    kernel."""
+
+    NAMES = {"conv_site": "conv_site", "downconv": "downconv",
+             "upconv": "upconv", "head_gate": "head", "head_sum": "head",
+             "surf_head": "surf_head", "scatter": "scatter",
+             "conv_raw": "conv_raw"}
+
+    def __enter__(self):
+        import importlib
+
+        self.saved = []
+        for fn, mod in self.NAMES.items():
+            m = importlib.import_module(f"sgnn_tpu_torch.ops.kernels.{mod}")
+            orig = getattr(m, fn)
+            self.saved.append((m, fn, orig))
+            setattr(m, fn, functools.partial(_plain_call, orig))
+        return self
+
+    def __exit__(self, *exc):
+        for m, fn, orig in self.saved:
+            setattr(m, fn, orig)
+
+
+def _plain_call(orig, *args, impl=None, **kw):
+    return orig(*args, impl="plain", **kw)
+
+
+def train_launches(cfg) -> dict:
+    """Kernel launches of one full-level train step, from the code
+    (models/folded_train.py, ops/folded.py): every U-Net has 3 levels of
+    two fused BN -> conv sites (K1) and a down site (K2) between levels;
+    each refinement level has an upsample site (K3, over the U-Net's 3
+    groups) and a head with the raw output (K4); the surface a summed head
+    (K4). K7 runs each training conv site's forward, once per input
+    group; in the backward K7 gives the input gradient of every conv site
+    whose input needs one (all but the encoder's first, over the scatter's
+    grid), of every fused BN -> conv site (one group each), and of the
+    upsample sites' composed backward, which recomputes their 3-group conv
+    (3 launches) and takes its input gradient (3 more)."""
+    from sgnn_tpu_torch.models.folded_flow import refine_widths
+
+    L = cfg.num_hierarchy_levels
+    enc, ref = L - 1, L - 1
+    ref_w, surf_w = refine_widths(cfg)
+    unet_k1, unet_k2 = 2 * 3, 3 - 1
+    k7_fwd = enc + sum(len(w) for w in ref_w) + len(surf_w)
+    k1 = 2 * enc + (ref + 1) * unet_k1
+    k7_bwd = (k7_fwd - 1) + k1 + ref * 2 * 3
+    return {"conv_site": k1, "downconv": enc + (ref + 1) * unet_k2,
+            "upconv": ref, "head_gate": 0, "head_gate_raw": ref,
+            "head_sum": 1, "surf_head": 0, "scatter": 1,
+            "conv_raw": k7_fwd + k7_bwd}
+
+
+def _write_chunks(root, n, dims=TRAIN_DIMS, truncation=3.0):
+    """``n`` .sdfs chunks of ``dims`` cut from box rooms of
+    (dims[0], 2 dims[1], 2 dims[2]), four per room: the input is 40% of
+    the room's scanned voxels within the truncation (a sparse scan: a
+    chunk's rows stay below the input capacity's share, 1/8 of its
+    voxels); the target and its 3 hierarchy levels (factors 2, 4, 8) the
+    distance within twice the truncation; known 255 off the scan, else 0.
+    Written by the port's save_train_file; returns the paths."""
+    from sgnn_tpu_torch.data import formats as F
+
+    Z, Y, X = dims
+    paths = []
+    rng = np.random.RandomState(0)
+    for room in range(-(-n // 4)):
+        d, seen = _room_field((Z, 2 * Y, 2 * X), seed=100 + room)
+        d = d.astype(np.float32)
+        for q in range(4):
+            if len(paths) == n:
+                break
+            y0, x0 = (q // 2) * Y, (q % 2) * X
+            dc = d[:, y0:y0 + Y, x0:x0 + X]
+            sc = seen[:, y0:y0 + Y, x0:x0 + X]
+            inp = (np.abs(dc) < truncation) & sc & (rng.rand(*dims) < 0.4)
+            locs = np.stack(np.nonzero(inp), -1).astype(np.int32)
+
+            def band(g):
+                return np.where(np.abs(g) < 2 * truncation, g, -np.inf)
+            hier = [band(dc[::f, ::f, ::f] / f).astype(np.float32)
+                    for f in (8, 4, 2)]
+            known = np.where(sc, 0, 255).astype(np.uint8)
+            chunk = F.TrainChunk(locs, dc[inp], band(dc), dims, 0.02,
+                                 np.eye(4, dtype=np.float32), known, hier)
+            path = os.path.join(root, f"room{room}_{q}.sdfs")
+            F.save_train_file(path, chunk)
+            paths.append(path)
+    return paths
+
+
+def _step(model, batch, lw, plain=False):
+    """One full-level train step (lr 1e-3) on a device batch, with the
+    kernels or (``plain``) their plain versions; returns its metrics and
+    the gradients."""
+    from sgnn_tpu_torch.train import state as ST
+    from sgnn_tpu_torch.train import step as TS
+
+    opt = ST.make_optimizer(model)
+    with PlainKernels() if plain else contextlib.nullcontext():
+        m = TS.train_step(model, opt, batch, lw, 1e-3,
+                          num_refine_active=model.cfg.num_refine_levels,
+                          do_surf=True)
+    if batch["input_locs"].is_cuda:
+        torch.cuda.synchronize()
+    return m, [p.grad.clone() for p in model.weights]
+
+
+def _profile_step(model, batch, lw, top: int = 14) -> None:
+    """Where one bf16 train step's device time goes: torch.profiler's
+    CUDA time per kernel name (the hand-written kernels and PyTorch's
+    own), the largest first."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    acts = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
+    with profile(activities=acts) as prof:
+        _step(model, batch, lw)
+    # the device's own events (kernels, copies), not the host ops above
+    rows = [(e.self_device_time_total / 1e3, e.count, e.key)
+            for e in prof.key_averages()
+            if e.device_type == DeviceType.CUDA
+            and e.self_device_time_total > 0]
+    rows.sort(reverse=True)
+    total = sum(r[0] for r in rows)
+    ours = sum(r[0] for r in rows if "sgnn::" in r[2])
+    log(f"[train] profile of one bfloat16 step: {total:.1f} ms of device "
+        f"time (torch.profiler), {ours:.1f} ms of it in the hand-written "
+        f"kernels; the largest:")
+    for t, n, key in rows[:top]:
+        log(f"[train]   {t:9.2f} ms {n:5d} x {key[:90]}")
+
+
+def phase_train(results: dict) -> None:
+    """Phase 6."""
+    import dataclasses
+
+    from sgnn_tpu_torch.config import SGNNConfig
+    from sgnn_tpu_torch.data.capacity import estimate_row_capacities
+    from sgnn_tpu_torch.data.dataset import SceneDataset, collate_sparse
+    from sgnn_tpu_torch.infer import SceneInferencer
+    from sgnn_tpu_torch.models.folded_flow import GenModelFolded
+    from sgnn_tpu_torch.models.folded_train import GenModelFoldedTrain
+    from sgnn_tpu_torch.ops import kernels as K
+    from sgnn_tpu_torch.params import init_params, load_jax_params, \
+        tree_items
+    from sgnn_tpu_torch.tools import train as train_cli
+    from sgnn_tpu_torch.train import step as TS
+
+    cfg32 = SGNNConfig(input_dim=TRAIN_DIMS, batch_size=TRAIN_BATCH,
+                       compute_dtype="float32")
+    cfg16 = dataclasses.replace(cfg32, compute_dtype="bfloat16")
+    L, B, trunc = cfg32.num_hierarchy_levels, TRAIN_BATCH, cfg32.truncation
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        files = _write_chunks(tmp, N_CHUNKS)
+        caps = estimate_row_capacities(files, L, trunc, B)
+        ds = SceneDataset(files, trunc, L, sparse_targets=True)
+        batch = collate_sparse([ds[i] for i in range(B)], cfg32.input_cap,
+                               *caps)
+        log(f"[train] {len(files)} chunks {TRAIN_DIMS} written and batch "
+            f"{B} collated in {time.perf_counter() - t0:.1f} s: "
+            f"{int(batch['input_num_valid'])} input rows, "
+            f"{int(batch['target_num_valid'])} target rows (capacities "
+            f"{caps[0]}, {caps[1]})")
+        dev = TS.to_device(batch, "cuda")
+        weights = init_params(cfg32, seed=0)
+        lw = np.ones(L + 1, np.float32)  # every level and the surface
+
+        # f32: kernels vs plain versions, same weights and batch; and the
+        # plain versions again with the input features moved by one f32
+        # rounding (relative 1e-6 noise), which shows how far the step's
+        # gradients move with no hand-written kernel involved
+        noisy = dict(dev)
+        g = torch.Generator(device="cuda").manual_seed(1)
+        noisy["input_sdf"] = dev["input_sdf"] * (1 + 1e-6 * torch.randn(
+            dev["input_sdf"].shape, device="cuda", generator=g))
+        runs = {}
+        for label, plain, b in (("kernels", False, dev), ("plain", True, dev),
+                                ("plain, inputs moved", True, noisy)):
+            model = GenModelFoldedTrain(cfg32).cuda()
+            load_jax_params(model, *weights)
+            m, grads = _step(model, b, lw, plain=plain)
+            runs[label] = (float(m["loss"]), m["per_level"].cpu().numpy(),
+                           grads, [t.cpu() for _, t in
+                                   tree_items(model.stat_tree())])
+            del model
+        keys = GenModelFoldedTrain(cfg32).param_keys
+        lp, pp, gp, sp = runs["plain"]
+        ratios = {}
+        for label in ("kernels", "plain, inputs moved"):
+            lk, pk, gk, sk = runs[label]
+            r = sorted((float((a - b).abs().max())
+                        / max(float(b.abs().max()), 1e-12), k)
+                       for a, b, k in zip(gk, gp, keys))
+            st_err = max(float((a - b).abs().max())
+                         / max(float(b.abs().max()), 1.0)
+                         for a, b in zip(sk, sp))
+            ratios[label] = (r[-1][0], r[len(r) // 2][0])
+            log(f"[train] float32 step, {label} vs plain: loss {lk:.6f} vs "
+                f"{lp:.6f}; per level {np.round(pk, 5).tolist()} vs "
+                f"{np.round(pp, 5).tolist()}; gradients, |a - b| / max |b| "
+                f"per parameter: largest {r[-1][0]:.3e} ({r[-1][1]}), "
+                f"median {r[len(r) // 2][0]:.3e}; running stats "
+                f"{st_err:.3e} of scale")
+            if label == "kernels":
+                require(np.isfinite(lk)
+                        and abs(lk - lp) <= TRAIN_LOSS_REL * abs(lp),
+                        f"f32 train loss {lk} vs plain {lp}")
+                require(st_err <= TRAIN_STATS_REL,
+                        f"f32 running stats {st_err}")
+        (k_max, k_med), (n_max, n_med) = (ratios["kernels"],
+                                          ratios["plain, inputs moved"])
+        for what, k, n in (("largest", k_max, n_max),
+                           ("median", k_med, n_med)):
+            bound = max(TRAIN_GRAD_REL, 2 * n)
+            require(k <= bound, f"f32 gradients, kernels vs plain: {what} "
+                                f"{k:.3e} > {bound:.3e}")
+        del runs, gp
+
+        # bf16 at full width: the counted main-path step, then every
+        # kernel call of a second step held against its plain version
+        model = GenModelFoldedTrain(cfg16).cuda()
+        load_jax_params(model, *weights)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        K.reset_launch_counts()
+        m, _ = _step(model, dev, lw)
+        counts = K.launch_counts()
+        peak = torch.cuda.max_memory_allocated()
+        want = train_launches(cfg16)
+        log(f"[train] bfloat16 step: loss {float(m['loss']):.5f}; launches "
+            f"{counts} (expected {want}); peak device memory "
+            f"{peak / 2**20:.1f} MiB")
+        for name, n in counts.items():
+            require(n == want[name], f"{name}: {n} launches per train step, "
+                                     f"expected {want[name]}")
+        for name in ("conv_raw", "head_gate_raw"):
+            results[name]["launches"] = counts[name]
+        with MainPathCheck() as chk:
+            _step(model, dev, lw)
+        for name, st in chk.stats.items():
+            log(f"[train] step inputs, {name}: {st['calls']} calls, max "
+                f"|kernel - plain| {st['err']:.3e} (at most "
+                f"{st['ratio']:.2f} of tol), gate flips {st['flips']}")
+            require(st["calls"] == want[name],
+                    f"{name}: {st['calls']} checked calls, expected "
+                    f"{want[name]}")
+
+        # ms per step: kernels, plain, plain, kernels (full-level steps)
+        times = {"kernels": [], "plain": []}
+        for label in ("kernels", "plain", "plain", "kernels"):
+            for _ in range(2):
+                a = torch.cuda.Event(enable_timing=True)
+                b = torch.cuda.Event(enable_timing=True)
+                a.record()
+                _step(model, dev, lw, plain=label == "plain")
+                b.record()
+                b.synchronize()
+                times[label].append(a.elapsed_time(b))
+        _profile_step(model, dev, lw)
+        ms = {k: float(np.median(v)) for k, v in times.items()}
+        each = {k: " ".join(f"{t:.1f}" for t in v) for k, v in times.items()}
+        log(f"[train] bfloat16 step, batch {B} at {TRAIN_DIMS}: kernels "
+            f"{ms['kernels']:.1f} ms (CUDA events, median of "
+            f"{each['kernels']}), {B / ms['kernels'] * 1e3:.1f} samples/s; "
+            f"plain versions {ms['plain']:.1f} ms (median of "
+            f"{each['plain']}); peak device memory {peak / 2**20:.1f} MiB")
+        del model
+
+        # the training CLI, in-process, on one chunk (overfit mode)
+        lst = os.path.join(tmp, "one.txt")
+        with open(lst, "w") as fh:
+            fh.write(os.path.basename(files[0]) + "\n")
+        save = os.path.join(tmp, "logs")
+        K.reset_launch_counts()
+        t0 = time.perf_counter()
+        trainer = train_cli.main([
+            "--data_path", tmp, "--train_file_list", lst, "--save", save,
+            "--execution", "folded", "--compute_dtype", "bfloat16",
+            "--batch_size", str(B), "--num_iters_per_level", "1",
+            "--max_steps", "12"])
+        wall = time.perf_counter() - t0
+        losses = [loss for _, loss in trainer.loss_history]
+        log(f"[train] CLI: {len(losses)} steps in {wall:.1f} s; losses "
+            f"{' '.join(f'{v:.4f}' for v in losses)}; launches "
+            f"{K.launch_counts()}")
+        require(len(losses) == 12 and np.isfinite(losses).all(),
+                f"CLI losses {losses}")
+        require(losses[11] < losses[4], f"the full-level loss did not fall: "
+                f"step 4 {losses[4]}, step 11 {losses[11]}")
+        ckpt = os.path.join(save, "model-epoch-0.ckpt")
+        require(os.path.exists(os.path.join(save, "log.csv"))
+                and os.path.exists(ckpt), f"no log.csv or .ckpt in {save}")
+
+        # the checkpoint serves a room
+        from sgnn_tpu_torch.tools.test_scene import load_params
+
+        dims = (96, 128, 128)
+        serve_cfg = dataclasses.replace(cfg16, batch_size=1)
+        served = GenModelFolded(serve_cfg).cuda()
+        load_jax_params(served, *load_params(ckpt, serve_cfg))
+        _, _, i_locs, i_sdf = _room(dims, seed=7)
+        r = SceneInferencer(served)({
+            "name": "room7", "sdf": np.zeros(dims, np.float32),
+            "input_locs": i_locs, "input_sdf": i_sdf,
+            "orig_dims": np.asarray(dims), "world2grid": np.eye(4)})
+        require(np.isfinite(r["levels"][0]["dense_out"]).all()
+                and np.isfinite(r["surf_sdf"]).all(),
+                "the trained checkpoint served non-finite values")
+        log(f"[train] the CLI's checkpoint served a {dims} room: active per "
+            f"level {r['level_active']}, surface {len(r['surf_locs'])} "
+            f"voxels")
+
+
 # --------------------------------------------------------------------- main
 
 
@@ -957,6 +1495,7 @@ def main() -> int:
         phase_build()
         results = KernelChecks().all()
         phase_serve(*phase_forward(results))
+        phase_train(results)
     except SmokeError as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1
@@ -966,8 +1505,12 @@ def main() -> int:
         kernels.append({"name": name, "route": "cuda", "source": src,
                         "replaces": replaces, "launches": r["launches"],
                         "max_abs_err": r["max_abs_err"], "ms": r["ms"],
-                        "plain_ms": r["plain_ms"]})
+                        "plain_ms": r["plain_ms"],
+                        "bound_ms": r["bound_ms"],
+                        "bound_by": r["bound_by"],
+                        "library_ms": r["library_ms"]})
     log(f"[done] {time.time() - t0:.1f} s")
+    log(device["card"])  # name, power.limit, as nvidia-smi prints them
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": device["kind"],

@@ -11,8 +11,9 @@ jax key-path string, plus a JSON manifest:
     __meta__                                         uint8 JSON bytes
 
 (with weight decay the JAX optimizer is a chain and its Adam state sits at
-``.opt_state[1]``). The trees are the numpy ``(params, stats)`` trees of
-``params.init_params``, which ``params.load_jax_params`` takes.
+``.opt_state[1]``; the reader takes either, the writer writes the one its
+``weight_decay`` gives). The trees are the numpy ``(params, stats)`` trees
+of ``params.init_params``, which ``params.load_jax_params`` takes.
 """
 
 from __future__ import annotations
@@ -24,7 +25,7 @@ import os
 import numpy as np
 
 from sgnn_tpu_torch.config import SGNNConfig
-from sgnn_tpu_torch.params import init_params
+from sgnn_tpu_torch.params import init_params, tree_build, tree_items
 
 _ADAM_PREFIXES = (".opt_state", ".opt_state[1]")
 
@@ -40,34 +41,17 @@ class Checkpoint:
     meta: dict  # __meta__: epoch, iteration and any extra keys
 
 
-def _paths(tree, prefix: str):
-    """(key-path string, leaf) pairs of a dict/list tree, in the form
-    ``jax.tree_util.keystr`` gives them."""
-    if isinstance(tree, dict):
-        for k in sorted(tree):
-            yield from _paths(tree[k], f"{prefix}['{k}']")
-    elif isinstance(tree, (list, tuple)):
-        for i, v in enumerate(tree):
-            yield from _paths(v, f"{prefix}[{i}]")
-    else:
-        yield prefix, tree
-
-
 def _read_tree(data, template, prefix: str, path: str):
     """A tree shaped like ``template`` with the leaves under ``prefix``."""
-    if isinstance(template, dict):
-        return {k: _read_tree(data, v, f"{prefix}['{k}']", path)
-                for k, v in template.items()}
-    if isinstance(template, (list, tuple)):
-        return [_read_tree(data, v, f"{prefix}[{i}]", path)
-                for i, v in enumerate(template)]
-    if prefix not in data.files:
-        raise KeyError(f"{path}: checkpoint missing leaf {prefix}")
-    val = data[prefix]
-    if val.shape != template.shape:
-        raise ValueError(f"{path}: shape mismatch at {prefix}: ckpt "
-                         f"{val.shape} vs template {template.shape}")
-    return val
+    def leaf(key, ref):
+        if prefix + key not in data.files:
+            raise KeyError(f"{path}: checkpoint missing leaf {prefix + key}")
+        val = data[prefix + key]
+        if val.shape != ref.shape:
+            raise ValueError(f"{path}: shape mismatch at {prefix + key}: "
+                             f"ckpt {val.shape} vs template {ref.shape}")
+        return val
+    return tree_build(template, leaf)
 
 
 def load_checkpoint(path, cfg: SGNNConfig) -> Checkpoint:
@@ -93,18 +77,21 @@ def load_checkpoint(path, cfg: SGNNConfig) -> Checkpoint:
 def save_checkpoint(path, params: dict, stats: dict, *, epoch: int,
                     iteration: int, step: int = 0, mu: dict | None = None,
                     nu: dict | None = None, count: int = 0,
+                    weight_decay: float = 0.0,
                     extra: dict | None = None) -> None:
     """Write a ``.ckpt`` that the JAX package's ``load_checkpoint`` reads
-    (the Adam state of an optimizer without weight decay; moments zero
-    unless given). Written to a temporary file, then renamed."""
-    zeros = {k: np.zeros_like(v) for k, v in _paths(params, "")}
+    into the TrainState of an optimizer with this ``weight_decay``: Adam's
+    state at ``.opt_state`` without decay, at ``.opt_state[1]`` (the
+    optax chain's second state) with it. Moments are zero unless given.
+    Written to a temporary file, then renamed."""
+    adam = _ADAM_PREFIXES[1] if weight_decay > 0 else _ADAM_PREFIXES[0]
     payload = {}
-    for name, tree in (("params", params), ("stats", stats),
-                       ("opt_state.mu", mu), ("opt_state.nu", nu)):
-        for key, leaf in _paths(params if tree is None else tree, ""):
-            payload[f".{name}{key}"] = (zeros[key] if tree is None
-                                        else np.asarray(leaf, np.float32))
-    payload[".opt_state.count"] = np.asarray(count, np.int32)
+    for name, tree in ((".params", params), (".stats", stats),
+                       (f"{adam}.mu", mu), (f"{adam}.nu", nu)):
+        for key, leaf in tree_items(params if tree is None else tree):
+            payload[name + key] = (np.zeros_like(leaf) if tree is None
+                                   else np.asarray(leaf, np.float32))
+    payload[f"{adam}.count"] = np.asarray(count, np.int32)
     payload[".step"] = np.asarray(step, np.int32)
     meta = {"epoch": epoch, "iteration": iteration, **(extra or {})}
     payload["__meta__"] = np.frombuffer(json.dumps(meta).encode(), np.uint8)

@@ -75,6 +75,39 @@ __device__ __forceinline__ void axpy(float* acc, float v,
   }
 }
 
+// v[0..C) = one voxel's C channels at p, read as 16-byte vectors (a voxel
+// row of C values starts on a 16-byte boundary: C * sizeof(T) >= 16).
+template <typename T, int C>
+__device__ __forceinline__ void load_voxel(const T* __restrict__ p,
+                                           float* v) {
+  constexpr int E = 16 / sizeof(T);  // values per 16-byte vector
+  const uint4* q = reinterpret_cast<const uint4*>(p);
+#pragma unroll
+  for (int i = 0; i < C / E; ++i) {
+    const uint4 u = __ldg(q + i);
+    const T* t = reinterpret_cast<const T*>(&u);
+#pragma unroll
+    for (int e = 0; e < E; ++e) v[i * E + e] = to_f(t[e]);
+  }
+}
+
+// o[0..C) = v[0..C) rounded to T, written as 16-byte vectors (one voxel
+// row; 16-byte aligned as in load_voxel).
+template <typename T, int C>
+__device__ __forceinline__ void store_voxel(T* __restrict__ o,
+                                            const float* v) {
+  constexpr int E = 16 / sizeof(T);
+  uint4* q = reinterpret_cast<uint4*>(o);
+#pragma unroll
+  for (int i = 0; i < C / E; ++i) {
+    uint4 u;
+    T* t = reinterpret_cast<T*>(&u);
+#pragma unroll
+    for (int e = 0; e < E; ++e) t[e] = from_f<T>(v[i * E + e]);
+    q[i] = u;
+  }
+}
+
 template <typename T, int C>
 __device__ __forceinline__ void store_zero(T* o) {
 #pragma unroll

@@ -4,21 +4,27 @@
 // body _kernel_head (:1487); called by ops/folded.py head_site_fused
 // (:914, gate mode) and surf_head_fused (:977, summed mode).
 //
-// Gate mode (a refinement level's tail; emit_raw=False):
+// Gate mode (a refinement level's tail):
 //   lhs  = round(relu(in * scale + bias) * m)            m: the level mask
 //   out2 = lhs @ W + b                                   (f32; occ = ch 0)
 //   g    = m if out2[0] > 0 else 0                        (strict gate)
 //   upm  = round(lhs * g), o2m = round(round(out2) * g), mask = g
 // with mask_scale 2 expanding m from the coarse level's grid in place
-// (z, y, x each halved), so the fine mask never exists in memory.
+// (z, y, x each halved), so the fine mask never exists in memory. With a
+// raw output (emit_raw=True, the training path: the loss reads every
+// level's heads) out2 is also written as an f32 grid at every interior
+// slot, before the gate (b where the lhs is masked); its z/y ring is
+// unspecified by contract and is written zero here. Serving passes no raw
+// grid and writes exactly what it did before.
 // Summed mode (the surface head): out = sum_g lhs_g @ W_g + b in f32, not
 // masked; the z/y ring of this output is unspecified by contract and is
 // written zero here.
 //
 // What bounds it on Hopper: a per-voxel 16x16 GEMV, so the pass is
 // bandwidth bound: read the input grid(s) and the mask, write three grids
-// (gate) or one f32 grid (summed). Design: one thread per voxel holding
-// its cpad channels in registers; inactive voxels skip the arithmetic.
+// (gate; and the f32 raw grid when asked) or one f32 grid (summed).
+// Design: one thread per voxel holding its cpad channels in registers;
+// inactive voxels skip the arithmetic.
 #include "common.cuh"
 
 namespace sgnn {
@@ -30,8 +36,10 @@ __global__ void __launch_bounds__(THREADS)
                      const float* __restrict__ bias,  // [MAXC]
                      const float* __restrict__ aff,   // [2, MAXC]
                      int mask_scale, T* __restrict__ upm,
-                     T* __restrict__ o2m, T* __restrict__ fmn, int B, int Zp,
-                     int Yp, int Xs, int Zmp, int Ymp, int Xms) {
+                     T* __restrict__ o2m, T* __restrict__ fmn,
+                     float* __restrict__ raw,  // null: no raw output
+                     int B, int Zp, int Yp, int Xs, int Zmp, int Ymp,
+                     int Xms) {
   const long long idx =
       static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
   if (idx >= static_cast<long long>(B) * Zp * Yp * Xs) return;
@@ -40,7 +48,8 @@ __global__ void __launch_bounds__(THREADS)
   T* oo = o2m + idx * CPAD;
   T* om = fmn + idx * CPAD;
   float m = 0.f;
-  if (!(v.z == 0 || v.z == Zp - 1 || v.y == 0 || v.y == Yp - 1)) {
+  const bool ring = v.z == 0 || v.z == Zp - 1 || v.y == 0 || v.y == Yp - 1;
+  if (!ring) {
     if (mask_scale == 1) {
       m = to_f(mask[idx * CPAD]);
     } else {
@@ -56,6 +65,12 @@ __global__ void __launch_bounds__(THREADS)
     store_zero<T, CPAD>(ou);
     store_zero<T, CPAD>(oo);
     store_zero<T, CPAD>(om);
+    if (raw != nullptr) {  // a masked lhs is zero: out2 is the bias alone
+      float b[CPAD];
+#pragma unroll
+      for (int c = 0; c < CPAD; ++c) b[c] = ring ? 0.f : bias[c];
+      store_voxel<float, CPAD>(raw + idx * CPAD, b);
+    }
     return;
   }
   const T* xv = x + idx * CPAD;
@@ -71,6 +86,7 @@ __global__ void __launch_bounds__(THREADS)
 #pragma unroll
   for (int c = 0; c < CPAD; ++c) out2[c] += bias[c];
   const float g = out2[0] > 0.f ? m : 0.f;
+  if (raw != nullptr) store_voxel<float, CPAD>(raw + idx * CPAD, out2);
 #pragma unroll
   for (int c = 0; c < CPAD; ++c) {
     ou[c] = from_f<T>(lhs[c] * g);
@@ -120,14 +136,14 @@ template <typename T, int CPAD>
 static int launch_head_gate(const void* x, const void* mask, const float* w,
                             const float* bias, const float* aff,
                             int mask_scale, void* upm, void* o2m, void* fmn,
-                            int B, int Zp, int Yp, int xq, int Zmp, int Ymp,
-                            int xqm, cudaStream_t stream) {
+                            float* raw, int B, int Zp, int Yp, int xq,
+                            int Zmp, int Ymp, int xqm, cudaStream_t stream) {
   const int F = LANES / CPAD;
   const long long n = static_cast<long long>(B) * Zp * Yp * xq * F;
   head_gate_kernel<T, CPAD><<<blocks_for(n), THREADS, 0, stream>>>(
       static_cast<const T*>(x), static_cast<const T*>(mask), w, bias, aff,
       mask_scale, static_cast<T*>(upm), static_cast<T*>(o2m),
-      static_cast<T*>(fmn), B, Zp, Yp, xq * F, Zmp, Ymp, xqm * F);
+      static_cast<T*>(fmn), raw, B, Zp, Yp, xq * F, Zmp, Ymp, xqm * F);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -149,29 +165,31 @@ using namespace sgnn;
 
 // mask: the level mask at this resolution (mask_scale 1) or the coarse
 // level's mask grid [B, Zmp, Ymp, xqm, 128] (mask_scale 2), same cpad.
+// raw: a float32 grid of x's shape, or null for no raw output.
 extern "C" int sgnn_head_gate(const void* x, const void* mask, const float* w,
                               const float* bias, const float* aff,
                               int mask_scale, void* upm, void* o2m, void* fmn,
-                              int B, int Zp, int Yp, int xq, int Zmp, int Ymp,
-                              int xqm, int cpad, int bf16, void* stream) {
+                              float* raw, int B, int Zp, int Yp, int xq,
+                              int Zmp, int Ymp, int xqm, int cpad, int bf16,
+                              void* stream) {
   if (mask_scale != 1 && mask_scale != 2)
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (cpad == 8) {
     return bf16 ? launch_head_gate<__nv_bfloat16, 8>(
                       x, mask, w, bias, aff, mask_scale, upm, o2m, fmn,
-                      B, Zp, Yp, xq, Zmp, Ymp, xqm, s)
+                      raw, B, Zp, Yp, xq, Zmp, Ymp, xqm, s)
                 : launch_head_gate<float, 8>(x, mask, w, bias, aff,
-                                             mask_scale, upm, o2m, fmn, B, Zp,
-                                             Yp, xq, Zmp, Ymp, xqm, s);
+                                             mask_scale, upm, o2m, fmn, raw,
+                                             B, Zp, Yp, xq, Zmp, Ymp, xqm, s);
   }
   if (cpad == 16) {
     return bf16 ? launch_head_gate<__nv_bfloat16, 16>(
                       x, mask, w, bias, aff, mask_scale, upm, o2m, fmn,
-                      B, Zp, Yp, xq, Zmp, Ymp, xqm, s)
+                      raw, B, Zp, Yp, xq, Zmp, Ymp, xqm, s)
                 : launch_head_gate<float, 16>(x, mask, w, bias, aff,
-                                              mask_scale, upm, o2m, fmn, B,
-                                              Zp, Yp, xq, Zmp, Ymp, xqm, s);
+                                              mask_scale, upm, o2m, fmn, raw,
+                                              B, Zp, Yp, xq, Zmp, Ymp, xqm, s);
   }
   return static_cast<int>(cudaErrorInvalidValue);
 }

@@ -2,6 +2,9 @@
 ``sgnn_tpu/models/dense_flow.py:328`` ``dense_trunk`` and
 ``models/sgnn.py:94`` ``_dense_cbr``): a small conv / transposed-conv
 U-Net over the encoder's last level, then the occupancy and SDF heads.
+``DenseTrunk`` serves with prepared eval constants; ``dense_trunk_train``
+is the same trunk over parameter tensors, with batch-moment BN when
+training.
 """
 
 from __future__ import annotations
@@ -93,3 +96,35 @@ class DenseTrunk(nn.Module):
         occ = D.conv3d(y, self.occ_w)
         sdf = D.conv3d(y, self.sdf_w)
         return y, torch.cat([occ, sdf], -1).float()
+
+
+def dense_trunk_train(enc_p: dict, enc_s: dict, cfg: SGNNConfig,
+                      x: torch.Tensor, *, training: bool):
+    """dense_trunk(training=...) over the encoder's parameter tensors:
+    returns (features y, coarse_out f32, new stats of the trunk's BNs).
+    Weights are rounded to x's type, as ``w.astype(x.dtype)`` does."""
+    dt = x.dtype
+    layers = {name: (stride, pad, tr)
+              for name, _, _, _, stride, pad, tr in trunk_layers(cfg)}
+    s = {}
+
+    def cbr(name, inp):
+        stride, pad, tr = layers[name]
+        conv = D.conv_transpose3d if tr else D.conv3d
+        y = conv(inp, enc_p[name]["conv"].to(dt).float(), stride=stride,
+                 padding=pad)
+        y, bn_s = BN.batch_norm_dense(enc_p[name]["bn"], enc_s[name]["bn"],
+                                      y, training=training)
+        s[name] = {"bn": bn_s}
+        return y
+
+    skip = cfg.use_skip_dense
+    enc0 = cbr("encode_dense0", x)
+    enc1 = cbr("encode_dense1", enc0)
+    bott = cbr("bottleneck_dense2", enc1)
+    dec0 = cbr("decode_dense3", torch.cat([bott, enc1], -1) if skip else bott)
+    y = cbr("decode_dense4", torch.cat([dec0, enc0], -1) if skip else dec0)
+    y = cbr("final", y)
+    occ = D.conv3d(y, enc_p["occpred"].to(dt).float())
+    sdf = D.conv3d(y, enc_p["sdfpred"].to(dt).float())
+    return y, torch.cat([occ, sdf], -1).float(), s

@@ -8,7 +8,8 @@ outside any Pallas kernel, so they run as cuDNN convolutions here. The
 conv runs in f32 on operands already rounded to the compute type and the
 result is rounded back, which is where XLA rounds a bf16 convolution.
 
-Both calls run under fixed cuDNN flags (``_CUDNN``), scoped to the call:
+Both calls and their backward run under fixed cuDNN flags (``_CUDNN``),
+scoped to the call:
 - ``allow_tf32=False``: PyTorch's default lets cuDNN round f32 operands
   to TF32 (about three decimal digits) on the card, while the JAX trunk
   computes in f32;
@@ -28,12 +29,35 @@ _CUDNN = dict(enabled=True, benchmark=False, deterministic=True,
               allow_tf32=False)
 
 
+class _Conv(torch.autograd.Function):
+    """A 3-D convolution (or transposed convolution) whose backward runs
+    under ``_CUDNN`` as its forward does (autograd would run it later,
+    outside the forward's flags)."""
+
+    @staticmethod
+    def forward(ctx, x, w, stride, padding, transposed):
+        ctx.save_for_backward(x, w)
+        ctx.conf = ([stride] * 3, [padding] * 3, transposed)
+        fn = nnf.conv_transpose3d if transposed else nnf.conv3d
+        with torch.backends.cudnn.flags(**_CUDNN):
+            return fn(x, w, stride=stride, padding=padding)
+
+    @staticmethod
+    def backward(ctx, g):
+        x, w = ctx.saved_tensors
+        stride, padding, transposed = ctx.conf
+        with torch.backends.cudnn.flags(**_CUDNN):
+            gx, gw, _ = torch.ops.aten.convolution_backward(
+                g, x, w, None, stride, padding, [1] * 3, transposed, [0] * 3,
+                1, [ctx.needs_input_grad[0], ctx.needs_input_grad[1], False])
+        return gx, gw, None, None, None
+
+
 def conv3d(x: torch.Tensor, weight: torch.Tensor, *, stride: int = 1,
            padding: int = 0) -> torch.Tensor:
     """nn.Conv3d on channels-last input; ``weight`` already rounded."""
-    with torch.backends.cudnn.flags(**_CUDNN):
-        y = nnf.conv3d(x.permute(0, 4, 1, 2, 3).float(), weight,
-                       stride=stride, padding=padding)
+    y = _Conv.apply(x.permute(0, 4, 1, 2, 3).float(), weight, stride,
+                    padding, False)
     return y.permute(0, 2, 3, 4, 1).to(x.dtype)
 
 
@@ -41,7 +65,6 @@ def conv_transpose3d(x: torch.Tensor, weight: torch.Tensor, *,
                      stride: int = 2, padding: int = 1) -> torch.Tensor:
     """nn.ConvTranspose3d on channels-last input; ``weight`` already
     rounded."""
-    with torch.backends.cudnn.flags(**_CUDNN):
-        y = nnf.conv_transpose3d(x.permute(0, 4, 1, 2, 3).float(), weight,
-                                 stride=stride, padding=padding)
+    y = _Conv.apply(x.permute(0, 4, 1, 2, 3).float(), weight, stride,
+                    padding, True)
     return y.permute(0, 2, 3, 4, 1).to(x.dtype)

@@ -19,6 +19,14 @@ the CUDA kernels of ``ops/kernels``, or their plain versions on the CPU.
 The sites take kernel-ready weights prepared once by the ``prep_*``
 functions below (the port's replacement for the JAX package's
 record/replay weight stream).
+
+The training sites at the end of the module (port of
+``sgnn_tpu/ops/folded.py:1135-1769``) are ``torch.autograd.Function``s
+with the JAX package's custom-VJP contracts: the 3^3 conv runs K7
+(``conv_raw``) forward and for its input gradient; the fused BN -> conv
+site runs K1 forward with a hand-written backward; every other site runs
+its serving kernel forward and differentiates the plain composition at
+the saved inputs.
 """
 
 from __future__ import annotations
@@ -29,6 +37,7 @@ import numpy as np
 import torch
 import torch.nn.functional as nnf
 
+from sgnn_tpu_torch.ops.kernels import conv_raw as K_raw
 from sgnn_tpu_torch.ops.kernels import conv_site as K_conv
 from sgnn_tpu_torch.ops.kernels import downconv as K_down
 from sgnn_tpu_torch.ops.kernels import head as K_head
@@ -39,6 +48,7 @@ from sgnn_tpu_torch.ops.kernels import upconv as K_up
 LANES = 128
 MAXC = 16  # channel padding of every prepared weight/affine array
 BN_EPS = 1e-4  # scn's BatchNormReLU eps (not torch's 1e-5)
+BN_MOMENTUM = 0.9  # running stats: new = m * old + (1 - m) * batch
 
 
 @dataclasses.dataclass
@@ -390,3 +400,528 @@ def surf_head_packed(groups: list, fm: FGrid, w: torch.Tensor,
         bias, aff, [g.real_c for g, _ in groups], fm.cpad, dims, impl=impl,
     )
     return sdf, unfold(fm)[..., 0] > 0.5
+
+
+# ============================================================== training
+#
+# Port of sgnn_tpu/ops/folded.py:1135-1769. Parameters enter as the f32
+# tensors of the JAX tree (weights [27 | 8, cin, cout], heads [cin, cout]);
+# each Function pads and rounds them to the compute type in its forward,
+# as ``w.astype(dt)`` does there, and returns their gradients in f32.
+# BN moments and the affine built from them stay outside the Functions,
+# so autograd produces the BN backward's moment terms, as in JAX. Clamps
+# at zero are torch.relu, whose gradient at exactly 0 is 0 as that of
+# jnp.maximum(x, 0) is (clamp_min's is 1): a dead channel's variance and
+# an all-zero voxel's logit sit exactly there.
+
+
+def _sv(t: torch.Tensor, cpad: int) -> torch.Tensor:
+    """[B, Zp, Yp, xq, 128] -> slot view [B, Zp, Yp, xq * F, cpad]."""
+    B, Zp, Yp, xq, _ = t.shape
+    return t.view(B, Zp, Yp, xq * (LANES // cpad), cpad)
+
+
+def _rehalo(t: torch.Tensor, xq: int) -> torch.Tensor:
+    """[B, Z, Y, xb, 128] -> [B, Z+2, Y+2, xq, 128] with a zero ring."""
+    return nnf.pad(t, (0, 0, 0, xq - t.shape[3], 1, 1, 1, 1))
+
+
+def _pad_to(w: torch.Tensor, shape: tuple) -> torch.Tensor:
+    """``w`` zero-padded at the end of each dim to ``shape``, contiguous."""
+    pad = []
+    for have, want in zip(reversed(w.shape), reversed(shape)):
+        pad += [0, want - have]
+    return nnf.pad(w, pad).contiguous()
+
+
+def _prep_taps(w: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    """[K, cin, cout] -> [K, 16, 16] f32 holding values rounded to dtype."""
+    return _rounded(_pad_to(w.detach(), (w.shape[0], MAXC, MAXC)), dtype)
+
+
+def _prep_aff(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """Per-channel affine vectors [cpad] -> [2, 16] f32."""
+    return _pad_to(torch.stack([a.detach(), b.detach()]).float(), (2, MAXC))
+
+
+# ------------------------------------------------- the 3^3 conv (K7)
+
+
+def _conv_dx(g: torch.Tensor, w27: torch.Tensor, cpad: int, xq: int,
+             dtype: torch.dtype) -> torch.Tensor:
+    """Input gradient of the folded 3^3 conv: K7 on the re-halo'd
+    cotangent with flipped, in/out-transposed taps. Returns a halo'd grid
+    whose ring is zero (conv_folded_train's note)."""
+    K, cin, cout = w27.shape
+    wt = torch.flip(w27.reshape(3, 3, 3, cin, cout), (0, 1, 2))
+    wt = wt.reshape(27, cin, cout).transpose(1, 2)  # [27, cout, cin]
+    dxi = K_raw.conv_raw(_rehalo(g.to(dtype), xq), _prep_taps(wt, dtype),
+                         cout, cpad)
+    return _rehalo(dxi, xq)
+
+
+def _conv_dw(xf: torch.Tensor, g: torch.Tensor, w_shape: tuple,
+             cpad: int) -> torch.Tensor:
+    """Weight gradient [27, cin, cout] f32 of the folded 3^3 conv: per tap
+    the reduce-GEMM of the shifted input slots with the cotangent slots,
+    over every slot of every row (_conv_dw's 18 lane GEMMs and their
+    slot-pattern adjoint, in the slot view: the same sums). ``xf``: the
+    halo'd conv input; ``g``: the unpadded cotangent. Both are upcast, so
+    bf16 products sum in f32 (cuDNN's weight gradient of the same conv was
+    the slowest part of the step: PERF.md, PR 3)."""
+    K, cin, cout = w_shape
+    B, Z, Y, xq, _ = g.shape
+    Xs = xq * (LANES // cpad)
+    x = nnf.pad(_sv(xf, cpad)[..., :cin].float(), (0, 0, 1, 1))
+    gs = g.view(B, Z, Y, Xs, cpad)[..., :cout].float().reshape(-1, cout)
+    return torch.stack([
+        x[:, dz:dz + Z, dy:dy + Y, dx:dx + Xs].reshape(-1, cin).T @ gs
+        for dz in range(3) for dy in range(3) for dx in range(3)])
+
+
+class _ConvTrain(torch.autograd.Function):
+    """conv_folded_train (ops/folded.py:1164): halo'd xf -> unpadded f32
+    [B, Z, Y, xq, 128]. The input gradient is zero on the halo ring."""
+
+    @staticmethod
+    def forward(ctx, xf, w27, cpad):
+        ctx.save_for_backward(xf, w27)
+        ctx.cpad = cpad
+        # K7 with the taps rounded to xf's type, f32 out (_conv_train_impl)
+        return K_raw.conv_raw(xf, _prep_taps(w27, xf.dtype), w27.shape[1],
+                              cpad).float()
+
+    @staticmethod
+    def backward(ctx, g):
+        xf, w27 = ctx.saved_tensors
+        cpad, dt = ctx.cpad, xf.dtype
+        g = g.to(dt)
+        dx = dw = None
+        if ctx.needs_input_grad[0]:
+            dx = _conv_dx(g, w27, cpad, xf.shape[3], dt)
+        if ctx.needs_input_grad[1]:
+            dw = _conv_dw(xf, g, tuple(w27.shape), cpad)
+        return dx, dw, None
+
+
+def conv_folded_train(xf: torch.Tensor, w27: torch.Tensor, cpad: int
+                      ) -> torch.Tensor:
+    return _ConvTrain.apply(xf, w27, cpad)
+
+
+def subm_conv_folded_train(groups: list, fm: FGrid, w27: torch.Tensor,
+                           cout: int) -> FGrid:
+    """Training conv site: per-group conv_folded_train summed, re-halo'd,
+    masked (ops/folded.py:1249)."""
+    acc, off = None, 0
+    for fg in groups:
+        y = conv_folded_train(fg.data, w27[:, off:off + fg.real_c], fg.cpad)
+        acc = y if acc is None else acc + y
+        off += fg.real_c
+    if off != w27.shape[1]:
+        raise ValueError(f"conv weight {tuple(w27.shape)} vs groups {off}")
+    g0 = groups[0]
+    out = _rehalo(acc.to(g0.data.dtype), g0.data.shape[3]) * fm.data
+    return FGrid(out, g0.dims, cout, g0.cpad)
+
+
+# ------------------------------------------------------------ batch norm
+
+
+def bn_moments(fg: FGrid, fm: FGrid):
+    """Masked per-channel batch moments (f32, differentiable): (mean [C],
+    biased var [C], count) in one pass, E[x^2] - E[x]^2 (_bn_moments)."""
+    cpad, C = fg.cpad, fg.real_c
+    xf = fg.data.float() * fm.data.float()
+    s = _sv(xf, cpad).sum((0, 1, 2, 3))
+    sq = _sv(xf * xf, cpad).sum((0, 1, 2, 3))
+    cnt = (fm.data.float().sum() / cpad).clamp_min(1.0)
+    mean = (s / cnt)[:C]
+    var = torch.relu((sq / cnt)[:C] - mean * mean)
+    return mean, var, cnt
+
+
+def bn_stats_update(stats: dict, mean, var, cnt) -> dict:
+    """Running stats: unbiased variance, retain factor BN_MOMENTUM;
+    detached (the caller stores them after the step)."""
+    m = BN_MOMENTUM
+    unbiased = var * (cnt / (cnt - 1.0).clamp_min(1.0))
+    return {"mean": (m * stats["mean"] + (1 - m) * mean).detach(),
+            "var": (m * stats["var"] + (1 - m) * unbiased).detach()}
+
+
+def _vec(v: torch.Tensor, cpad: int) -> torch.Tensor:
+    return nnf.pad(v.float(), (0, cpad - v.shape[0]))
+
+
+def bn_folded_train(params: dict, stats: dict, fg: FGrid, fm: FGrid, *,
+                    training: bool):
+    """Masked BN + ReLU in folded layout (bn_folded:599): batch moments
+    when training (with the updated running stats), running stats else."""
+    C, cpad = fg.real_c, fg.cpad
+    if training:
+        mean, var, cnt = bn_moments(fg, fm)
+        new_stats = bn_stats_update(stats, mean, var, cnt)
+    else:
+        mean, var, new_stats = stats["mean"][:C], stats["var"][:C], stats
+    inv = torch.rsqrt(var + BN_EPS) * params["scale"][:C]
+    y = torch.relu((_sv(fg.data, cpad).float() - _vec(mean, cpad))
+                   * _vec(inv, cpad) + _vec(params["bias"][:C], cpad))
+    out = y.to(fg.data.dtype).view(fg.data.shape) * fm.data
+    return fg.with_data(out), new_stats
+
+
+def train_affine(params: dict, stats: dict, fg: FGrid, fm: FGrid, *,
+                 off: int = 0, training: bool = True):
+    """One group's BN as an affine (a, b [cpad] f32) and its new running
+    stats (_train_affine:1430): batch moments when training, else the
+    running stats (the eval affine, stats unchanged)."""
+    c, cpad = fg.real_c, fg.cpad
+    scale, bias = params["scale"][off:off + c], params["bias"][off:off + c]
+    st = {k: stats[k][off:off + c] for k in ("mean", "var")}
+    if training:
+        mean, var, cnt = bn_moments(fg, fm)
+        ns = bn_stats_update(st, mean, var, cnt)
+    else:
+        mean, var, ns = st["mean"], st["var"], st
+    inv = torch.rsqrt(var + BN_EPS) * scale
+    return _vec(inv, cpad), _vec(bias - mean * inv, cpad), ns
+
+
+def _cat_stats(parts: list) -> dict:
+    return {k: torch.cat([p[k] for p in parts]) for k in ("mean", "var")}
+
+
+def _affine_relu(x: torch.Tensor, m: torch.Tensor, a, b, cpad: int
+                 ) -> torch.Tensor:
+    """round(relu(x * a + b)) * m on a halo'd grid (a, b per channel)."""
+    u = torch.relu(_sv(x, cpad).float() * a + b)
+    return u.to(x.dtype).view(x.shape) * m
+
+
+# ------------------------------------------- fused BN -> conv (K1 + K7)
+
+
+class _BnConvCore(torch.autograd.Function):
+    """_bnconv_core (ops/folded.py:1300): relu(x_g * a_g + b_g) * m ->
+    sum_g conv3 -> * m, halo'd. Forward K1; backward by hand, the input
+    gradient of each group through K7."""
+
+    @staticmethod
+    def forward(ctx, cpad, cout, m, *arrs):
+        G = len(arrs) // 4
+        xs, a_s, b_s, ws = (arrs[i * G:(i + 1) * G] for i in range(4))
+        ctx.save_for_backward(m, *arrs)
+        ctx.cpad, ctx.G = cpad, G
+        dt = xs[0].dtype
+        w = torch.stack([_prep_taps(wg, dt) for wg in ws])
+        aff = torch.stack([_prep_aff(a, b) for a, b in zip(a_s, b_s)])
+        return K_conv.conv_site(list(xs), m, w, [wg.shape[1] for wg in ws],
+                                cpad, aff=aff)
+
+    @staticmethod
+    def backward(ctx, g):
+        m, *arrs = ctx.saved_tensors
+        cpad, G = ctx.cpad, ctx.G
+        xs, a_s, b_s, ws = (arrs[i * G:(i + 1) * G] for i in range(4))
+        dt, xq = xs[0].dtype, xs[0].shape[3]
+        # adjoint of out = rehalo(acc) * m: m's ring is zero, so the
+        # interior of g * m is the cotangent of the conv sums
+        d_acc = (g * m).to(dt)[:, 1:-1, 1:-1]
+        mf = _sv(m, cpad).float()
+        dxs, das, dbs, dws = [], [], [], []
+        for x, a, b, w in zip(xs, a_s, b_s, ws):
+            xv = _sv(x, cpad).float()
+            pre = xv * a + b
+            gate = torch.where(pre > 0, mf, torch.zeros_like(mf))
+            u = _affine_relu(x, m, a, b, cpad)
+            g_u = _sv(_conv_dx(d_acc, w, cpad, xq, dt), cpad).float()
+            g_pre = g_u * gate
+            dxs.append((g_pre * a).to(dt).view(x.shape))
+            das.append((g_pre * xv).sum((0, 1, 2, 3)))
+            dbs.append(g_pre.sum((0, 1, 2, 3)))
+            dws.append(_conv_dw(u, d_acc, tuple(w.shape), cpad))
+        # the mask comes from comparisons: no gradient (as in JAX)
+        return (None, None, None, *dxs, *das, *dbs, *dws)
+
+
+def bn_conv_folded_train(bn_params: dict, bn_stats: dict, groups: list,
+                         fm: FGrid, w27: torch.Tensor, cout: int, *,
+                         training: bool = True):
+    """Fused BN(+ReLU) -> 3^3 conv site (bn_conv_folded_train:1341):
+    (FGrid, new stats)."""
+    g0 = groups[0]
+    a_s, b_s, ws, parts, off = [], [], [], [], 0
+    for fg in groups:
+        a, b, ns = train_affine(bn_params, bn_stats, fg, fm, off=off,
+                                training=training)
+        a_s.append(a)
+        b_s.append(b)
+        parts.append(ns)
+        ws.append(w27[:, off:off + fg.real_c])
+        off += fg.real_c
+    if off != w27.shape[1]:
+        raise ValueError(f"conv weight {tuple(w27.shape)} vs groups {off}")
+    out = _BnConvCore.apply(g0.cpad, cout, fm.data,
+                            *[g.data for g in groups], *a_s, *b_s, *ws)
+    return FGrid(out, g0.dims, cout, g0.cpad), _cat_stats(parts)
+
+
+# --------------------------- the other sites: kernel forward, composed VJP
+
+
+class _Site(torch.autograd.Function):
+    """_site_train_core (ops/folded.py:1404): ``kernel_fn`` forward (the
+    serving kernel), backward by autograd through ``plain_fn``, the
+    unfused composition, recomputed at the saved inputs. ``masks``: the
+    indices of outputs that are masks (no gradient)."""
+
+    @staticmethod
+    def forward(ctx, kernel_fn, plain_fn, masks, *arrs):
+        ctx.plain_fn = plain_fn
+        ctx.save_for_backward(*arrs)
+        outs = kernel_fn(*arrs)
+        ctx.mark_non_differentiable(*[outs[i] for i in masks])
+        return outs
+
+    @staticmethod
+    def backward(ctx, *gs):
+        arrs = ctx.saved_tensors
+        need = ctx.needs_input_grad[3:]
+        with torch.enable_grad():
+            ins = [a.detach().requires_grad_(n) for a, n in zip(arrs, need)]
+            outs = ctx.plain_fn(*ins)
+            pairs = [(o, g) for o, g in zip(outs, gs) if o.requires_grad]
+            want = [i for i in ins if i.requires_grad]
+            got = iter(torch.autograd.grad(
+                [o for o, _ in pairs], want, [g for _, g in pairs],
+                allow_unused=True))
+        return (None, None, None,
+                *[next(got) if i.requires_grad else None for i in ins])
+
+
+def _site(kernel_fn, plain_fn, masks: tuple, *arrs):
+    return _Site.apply(kernel_fn, plain_fn, masks, *arrs)
+
+
+def _strided_plain(u: torch.Tensor, m: torch.Tensor, w8: torch.Tensor,
+                   cin: int, cpad: int, cpad_out: int, xqc: int):
+    """The stride-2 2^3 conv of a halo'd grid and maxpool2 of its mask,
+    composed (strided_conv_folded:423 + mask_down_folded:463, and with
+    cpad_out = 2 * cpad strided_conv_cross_folded:1451): f32 sums rounded
+    to u's type, times the coarse mask; (coarse grid, coarse mask) halo'd
+    at cpad_out with xqc x blocks."""
+    dt = u.dtype
+    B, Zp, Yp, xq, _ = u.shape
+    Zc, Yc, Xh = (Zp - 2) // 2, (Yp - 2) // 2, xq * (LANES // cpad) // 2
+    t = _sv(u, cpad)[:, 1:-1, 1:-1, :, :cin].float()
+    t = t.reshape(B, Zc, 2, Yc, 2, Xh, 2, cin).permute(0, 1, 3, 5, 2, 4, 6, 7)
+    y = t.reshape(B, Zc, Yc, Xh, 8 * cin) @ _rounded(
+        w8, dt).reshape(8 * cin, -1)
+    mf = _sv(m, cpad)[:, 1:-1, 1:-1, :, 0].float()
+    mc = nnf.max_pool3d(mf[:, None], 2)[:, 0][..., None]
+    Xsc = xqc * (LANES // cpad_out)
+    n = min(Xh, Xsc)
+    res = _pad_to((y * mc).to(dt)[:, :, :, :n], (B, Zc, Yc, n, cpad_out))
+    mco = mc[:, :, :, :n].expand(B, Zc, Yc, n, cpad_out).to(dt)
+    shape = (B, Zc + 2, Yc + 2, xqc, LANES)
+    return tuple(nnf.pad(r, (0, 0, 0, Xsc - n, 1, 1, 1, 1)).reshape(shape)
+                 for r in (res, mco))
+
+
+def downconv_folded_train(fg: FGrid, fm: FGrid, w8: torch.Tensor, cout: int,
+                          *, affine: tuple | None = None,
+                          cpad_out: int | None = None):
+    """Stride-2 down site (downconv_folded_train:1497): [affine + ReLU +
+    fine mask] -> 2^3 stride-2 conv -> coarse mask; K2 forward."""
+    cpad, cin = fg.cpad, fg.real_c
+    co = cpad_out or cpad
+    xqc = K_down.coarse_xq(fg.data.shape[3], cpad, co)
+    has_aff = affine is not None
+    w8 = w8[:, :cin]
+
+    def split(arrs):
+        return arrs if has_aff else (arrs[0], arrs[1], None, None, arrs[2])
+
+    def kernel_fn(*arrs):
+        x, m, a, b, w = split(arrs)
+        aff = _prep_aff(a, b) if has_aff else None
+        return K_down.downconv(x, m, _prep_taps(w, x.dtype), cin, cpad, co,
+                               aff=aff)
+
+    def plain_fn(*arrs):
+        x, m, a, b, w = split(arrs)
+        u = _affine_relu(x, m, a, b, cpad) if has_aff else x
+        return _strided_plain(u, m, w, cin, cpad, co, xqc)
+
+    arrs = (fg.data, fm.data, *(affine if has_aff else ()), w8)
+    out, mout = _site(kernel_fn, plain_fn, (1,), *arrs)
+    dims = tuple(d // 2 for d in fg.dims)
+    return FGrid(out, dims, cout, co), FGrid(mout, dims, co, co)
+
+
+def bn_downconv_folded_train(bn_params: dict, bn_stats: dict, fg: FGrid,
+                             fm: FGrid, w8: torch.Tensor, cout: int, *,
+                             cpad_out: int | None = None,
+                             training: bool = True):
+    """BN + ReLU -> stride-2 conv -> coarse mask (:1551)."""
+    a, b, ns = train_affine(bn_params, bn_stats, fg, fm, training=training)
+    down, down_fm = downconv_folded_train(fg, fm, w8, cout, affine=(a, b),
+                                          cpad_out=cpad_out)
+    return down, down_fm, ns
+
+
+def bn_upconv_folded_train(bn_params: dict, bn_stats: dict, groups: list,
+                           cfm: FGrid, ffm: FGrid, w27: torch.Tensor,
+                           cout: int, *, training: bool = True):
+    """Generative upsample site (bn_upconv_folded_train:1566): per group
+    [BN + ReLU + coarse mask] -> 2x NN upsample -> 3^3 conv -> fine mask.
+    K3 forward; the composition's backward runs K7 (its conv is
+    subm_conv_folded_train)."""
+    g0 = groups[0]
+    cpad, dims_c = g0.cpad, g0.dims
+    cins = [g.real_c for g in groups]
+    G = len(groups)
+    a_s, b_s, parts, off = [], [], [], 0
+    for g in groups:
+        a, b, ns = train_affine(bn_params, bn_stats, g, cfm, off=off,
+                                training=training)
+        a_s.append(a)
+        b_s.append(b)
+        parts.append(ns)
+        off += g.real_c
+    if off != w27.shape[1]:
+        raise ValueError(f"upconv weight {tuple(w27.shape)} vs groups {off}")
+    xqf = ffm.data.shape[3]
+
+    def unpack(arrs):
+        return (arrs[:G], arrs[G], arrs[G + 1], arrs[G + 2:2 * G + 2],
+                arrs[2 * G + 2:3 * G + 2], arrs[-1])
+
+    def kernel_fn(*arrs):
+        xs, cm, fmf, a_, b_, w = unpack(arrs)
+        wp = _upconv_taps(w, cins, xs[0].dtype)
+        aff = torch.stack([_prep_aff(a, b) for a, b in zip(a_, b_)])
+        return (K_up.upconv(list(xs), cm, fmf, wp, cins, cpad, xqf,
+                            aff=aff),)
+
+    def plain_fn(*arrs):
+        xs, cm, fmf, a_, b_, w = unpack(arrs)
+        ups = [upsample2_folded(FGrid(_affine_relu(x, cm, a, b, cpad),
+                                      dims_c, c, cpad))
+               for x, a, b, c in zip(xs, a_, b_, cins)]
+        fmg = FGrid(fmf, tuple(2 * d for d in dims_c), cpad, cpad)
+        return (subm_conv_folded_train(ups, fmg, w, cout).data,)
+
+    out = _site(kernel_fn, plain_fn, (), *[g.data for g in groups], cfm.data,
+                ffm.data, *a_s, *b_s, w27)
+    return (FGrid(out[0], tuple(2 * d for d in dims_c), cout, cpad),
+            _cat_stats(parts))
+
+
+def _upconv_taps(w27: torch.Tensor, widths: list, dtype: torch.dtype
+                 ) -> torch.Tensor:
+    """prep_upconv_weights on a tensor: [G, 8, 8, 16, 16] per-parity
+    combined taps, summed in f32, then rounded."""
+    w = w27.detach().float()
+    cout = w.shape[2]
+    A = torch.as_tensor(_UP_A, device=w.device)
+    out = w.new_zeros(len(widths), 8, 8, MAXC, MAXC)
+    off = 0
+    for g, c in enumerate(widths):
+        wg = w[:, off:off + c].reshape(3, 3, 3, c, cout)
+        m = torch.einsum("azA,byB,cxC,ABCio->abczyxio", A, A, A, wg)
+        out[g, :, :, :c, :cout] = m.reshape(8, 8, c, cout)
+        off += c
+    return _rounded(out, dtype)
+
+
+def _linear_plain(u: torch.Tensor, W: torch.Tensor, cpad: int):
+    """Per-voxel channel mix (linear_folded:511) of a halo'd grid, the
+    weight rounded to u's type: f32 slot view [.., Xs, cpad]."""
+    Wp = _pad_to(_rounded(W, u.dtype), (cpad, cpad))
+    return _sv(u, cpad).float() @ Wp
+
+
+def bn_head_site_folded_train(bn_params: dict, bn_stats: dict, up: FGrid,
+                              fm: FGrid, W2: torch.Tensor, b2: torch.Tensor,
+                              *, training: bool = True):
+    """Refinement tail (bn_head_site_folded_train:1636): [n2 BN + ReLU +
+    mask] -> occ|sdf heads -> gate -> (masked feats, masked heads, new
+    mask, raw f32 heads, new stats). K4 gate mode with the raw output."""
+    cpad, dims, cin = up.cpad, up.dims, up.real_c
+    cout = W2.shape[1]
+    a, b, ns = train_affine(bn_params, bn_stats, up, fm, training=training)
+
+    def kernel_fn(x, m, a, b, W, bv):
+        return K_head.head_gate(
+            x, m, _pad_to(_rounded(W.detach(), x.dtype), (MAXC, MAXC)),
+            _pad_to(bv.detach().float(), (MAXC,)), _prep_aff(a, b), cpad,
+            mask_scale=1, emit_raw=True)
+
+    def plain_fn(x, m, a, b, W, bv):
+        dt = x.dtype
+        u = _affine_relu(x, m, a, b, cpad)
+        out2 = _linear_plain(u, W, cpad) + _vec(bv, cpad)
+        occ = (out2[..., :1] > 0).to(dt).expand(out2.shape)
+        nf = occ.reshape(x.shape) * m
+        out2 = out2.view(x.shape)
+        return u * nf, out2.to(dt) * nf, nf, out2
+
+    upm, o2m, fmn, raw = _site(kernel_fn, plain_fn, (2,), up.data, fm.data,
+                               a, b, W2, b2)
+    return (FGrid(upm, dims, cin, cpad), FGrid(o2m, dims, cout, cpad),
+            FGrid(fmn, dims, cpad, cpad), FGrid(raw, dims, cout, cpad), ns)
+
+
+def bn_surf_head_folded_train(bn_params: dict, bn_stats: dict, groups: list,
+                              fm: FGrid, W: torch.Tensor, bias: torch.Tensor,
+                              *, training: bool = True):
+    """Surface tail (bn_surf_head_folded_train:1691): per group [p3 BN +
+    ReLU + mask] -> summed linear + bias -> raw f32 SDF grid. K4 summed
+    mode forward."""
+    g0 = groups[0]
+    cpad, dims = g0.cpad, g0.dims
+    cins = [g.real_c for g in groups]
+    G = len(groups)
+    a_s, b_s, parts, off = [], [], [], 0
+    for g in groups:
+        a, b, ns = train_affine(bn_params, bn_stats, g, fm, off=off,
+                                training=training)
+        a_s.append(a)
+        b_s.append(b)
+        parts.append(ns)
+        off += g.real_c
+    if off != W.shape[0]:
+        raise ValueError(f"surface head {tuple(W.shape)} vs groups {off}")
+
+    def unpack(arrs):
+        return (arrs[:G], arrs[G], arrs[G + 1:2 * G + 1],
+                arrs[2 * G + 1:3 * G + 1], arrs[-2], arrs[-1])
+
+    def kernel_fn(*arrs):
+        xs, m, a_, b_, W_, bv = unpack(arrs)
+        dt = xs[0].dtype
+        tiles, o = [], 0
+        for c in cins:
+            tiles.append(_pad_to(_rounded(W_[o:o + c].detach(), dt),
+                                 (MAXC, MAXC)))
+            o += c
+        aff = torch.stack([_prep_aff(a, b) for a, b in zip(a_, b_)])
+        return (K_head.head_sum(list(xs), m, torch.stack(tiles),
+                                _pad_to(bv.detach().float(), (MAXC,)), aff,
+                                cins, cpad),)
+
+    def plain_fn(*arrs):
+        xs, m, a_, b_, W_, bv = unpack(arrs)
+        acc, o = None, 0
+        for x, a, b, c in zip(xs, a_, b_, cins):
+            y = _linear_plain(_affine_relu(x, m, a, b, cpad), W_[o:o + c],
+                              cpad)
+            acc = y if acc is None else acc + y
+            o += c
+        return ((acc + _vec(bv, cpad)).view(m.shape),)
+
+    out = _site(kernel_fn, plain_fn, (), *[g.data for g in groups], fm.data,
+                *a_s, *b_s, W, bias)
+    return FGrid(out[0], dims, 1, cpad), _cat_stats(parts)

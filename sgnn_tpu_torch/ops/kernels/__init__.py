@@ -1,4 +1,5 @@
-"""Hand-written CUDA kernels of the serving path, one module per kernel.
+"""Hand-written CUDA kernels of the serving and training paths, one module
+per kernel (K7, ``conv_raw``, and K4's raw mode run only in training).
 
 Each module holds a wrapper (launches the kernel for CUDA tensors), its
 plain PyTorch version (taken for CPU tensors, or with ``impl="plain"``)
@@ -7,8 +8,8 @@ and a launch counter that only the kernel launch advances.
 
 from __future__ import annotations
 
-from sgnn_tpu_torch.ops.kernels import (conv_site, downconv, head, scatter,
-                                        surf_head, upconv)
+from sgnn_tpu_torch.ops.kernels import (conv_raw, conv_site, downconv, head,
+                                        scatter, surf_head, upconv)
 
 # counter name -> (module, attribute holding its launch count)
 _COUNTERS = {
@@ -16,9 +17,11 @@ _COUNTERS = {
     "downconv": (downconv, "launches"),
     "upconv": (upconv, "launches"),
     "head_gate": (head, "gate_launches"),
+    "head_gate_raw": (head, "gate_raw_launches"),
     "head_sum": (head, "sum_launches"),
     "surf_head": (surf_head, "launches"),
     "scatter": (scatter, "launches"),
+    "conv_raw": (conv_raw, "launches"),
 }
 
 

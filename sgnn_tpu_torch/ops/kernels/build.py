@@ -47,12 +47,13 @@ SIGNATURES = {
                       _I, _I, _I, _I, _I, _I, _I, _I, _P],
     "sgnn_upconv": [_PP, _IP, _I, _P, _P, _P, _P, _P,
                     _I, _I, _I, _I, _I, _I, _I, _P],
-    "sgnn_head_gate": [_P, _P, _P, _P, _P, _I, _P, _P, _P,
+    "sgnn_head_gate": [_P, _P, _P, _P, _P, _I, _P, _P, _P, _P,
                        _I, _I, _I, _I, _I, _I, _I, _I, _I, _P],
     "sgnn_head_sum": [_PP, _IP, _I, _P, _P, _P, _P, _P,
                       _I, _I, _I, _I, _I, _I, _P],
     "sgnn_surf_head": [_PP, _IP, _IP, _IP, _I, _P, _P, _P, _P, _P,
                        _I, _I, _I, _I, _I, _I, _I, _P],
+    "sgnn_conv_raw": [_P, _P, _I, _P, _I, _I, _I, _I, _I, _I, _P],
     "sgnn_scatter": [_P, _P, _I, _F, _P, _P, _I, _I, _I, _I, _I, _I,
                      _I, _P],
 }

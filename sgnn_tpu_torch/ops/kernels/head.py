@@ -3,10 +3,13 @@
 Port of sgnn_tpu/ops/pallas/conv3d_folded.py ``fused_head_folded``
 (:1687).
 
-``head_gate`` (gate=True, emit_raw=False; a refinement level's tail):
-eval-BN + ReLU + mask -> occ|sdf head -> gate out2[0] > 0 -> (masked
-post-BN feats, masked heads, new mask). With ``mask_scale=2`` the level
-mask is the coarse level's grid, expanded in place.
+``head_gate`` (gate=True; a refinement level's tail): BN affine + ReLU +
+mask -> occ|sdf head -> gate out2[0] > 0 -> (masked post-BN feats, masked
+heads, new mask). With ``mask_scale=2`` the level mask is the coarse
+level's grid, expanded in place. With ``emit_raw=True`` (the training
+path) a fourth output is the f32 head grid out2 = lhs @ W + b before the
+gate, at every interior slot (ring unspecified); those launches count
+under ``gate_raw_launches``, so the serving counts stay as they were.
 
 ``head_sum`` (gate=False; the surface head): per group eval-BN + ReLU +
 mask, summed head GEMMs + bias -> raw f32 grid (ring unspecified).
@@ -23,6 +26,7 @@ from sgnn_tpu_torch.ops.kernels import build
 
 LANES = 128
 gate_launches = 0  # head_gate kernel launches since the last reset
+gate_raw_launches = 0  # head_gate launches with the raw f32 output
 sum_launches = 0   # head_sum kernel launches since the last reset
 
 
@@ -42,8 +46,9 @@ def _fine_mask(mask: torch.Tensor, mask_scale: int, B: int, Z: int, Y: int,
 
 def head_gate(x: torch.Tensor, mask: torch.Tensor, w: torch.Tensor,
               bias: torch.Tensor, aff: torch.Tensor, cpad: int, *,
-              mask_scale: int = 1, impl: str | None = None):
-    global gate_launches
+              mask_scale: int = 1, emit_raw: bool = False,
+              impl: str | None = None):
+    global gate_launches, gate_raw_launches
     if cpad not in (8, 16) or mask_scale not in (1, 2):
         raise ValueError(f"head_gate: cpad {cpad}, mask_scale {mask_scale}")
     build.check_grid("x", x, x)
@@ -61,20 +66,26 @@ def head_gate(x: torch.Tensor, mask: torch.Tensor, w: torch.Tensor,
                          f"not cover x {tuple(x.shape)}")
     if not build.use_kernel(x, impl):
         return head_gate_plain(x, mask, w, bias, aff, cpad,
-                               mask_scale=mask_scale)
+                               mask_scale=mask_scale, emit_raw=emit_raw)
     upm, o2m, fmn = (torch.empty_like(x) for _ in range(3))
+    raw = (torch.empty(x.shape, dtype=torch.float32, device=x.device)
+           if emit_raw else None)
     rc = build.lib().sgnn_head_gate(
         build.ptr(x), build.ptr(mask), build.ptr(w), build.ptr(bias),
         build.ptr(aff), mask_scale, build.ptr(upm),
-        build.ptr(o2m), build.ptr(fmn), B, Zp, Yp, xq, Zmp, Ymp, xqm, cpad,
-        build.is_bf16(x), build.stream(x),
+        build.ptr(o2m), build.ptr(fmn), build.ptr(raw), B, Zp, Yp, xq, Zmp,
+        Ymp, xqm, cpad, build.is_bf16(x), build.stream(x),
     )
-    gate_launches += 1
+    if emit_raw:
+        gate_raw_launches += 1
+    else:
+        gate_launches += 1
     build.check(rc, "head_gate")
-    return upm, o2m, fmn
+    return (upm, o2m, fmn, raw) if emit_raw else (upm, o2m, fmn)
 
 
-def head_gate_plain(x, mask, w, bias, aff, cpad, *, mask_scale=1):
+def head_gate_plain(x, mask, w, bias, aff, cpad, *, mask_scale=1,
+                    emit_raw=False):
     dt = x.dtype
     B, Zp, Yp, xq, _ = x.shape
     Xs = xq * (LANES // cpad)
@@ -84,11 +95,13 @@ def head_gate_plain(x, mask, w, bias, aff, cpad, *, mask_scale=1):
     lhs = (t * m).to(dt).float()
     out2 = torch.matmul(lhs, w[:cpad, :cpad]) + bias[:cpad]
     g = torch.where(out2[..., :1] > 0.0, m, torch.zeros_like(m))
-    res = ((lhs * g).to(dt), (out2.to(dt).float() * g).to(dt),
-           g.expand(-1, -1, -1, -1, cpad).to(dt))
+    res = [(lhs * g).to(dt), (out2.to(dt).float() * g).to(dt),
+           g.expand(-1, -1, -1, -1, cpad).to(dt)]
+    if emit_raw:
+        res.append(out2)
     outs = []
     for r in res:
-        o = torch.zeros(B, Zp, Yp, Xs, cpad, dtype=dt, device=x.device)
+        o = torch.zeros(B, Zp, Yp, Xs, cpad, dtype=r.dtype, device=x.device)
         o[:, 1:-1, 1:-1] = r
         outs.append(o.view(B, Zp, Yp, xq, LANES))
     return tuple(outs)

@@ -8,7 +8,13 @@ distributions (sgnn_tpu/nn/init.py), drawn from a numpy generator.
 ``load_jax_params(model, params, stats)`` takes such trees — from
 ``init_params`` or from the JAX package (``jax.device_get`` of its
 params/stats) — checks them against the model's configuration and fills
-the model's site modules, which prepare their kernel-ready weights.
+the model: the serving model's site modules, which prepare their
+kernel-ready weights, or the training model's parameters and running
+stats. ``export_params(model)`` gives a training model's trees back as
+numpy, for ``GenModelFolded`` and ``checkpoint.save_checkpoint``.
+
+``tree_items`` and ``tree_build`` walk such trees in the JAX package's
+flatten order and name each leaf by its ``jax.tree_util.keystr`` path.
 """
 
 from __future__ import annotations
@@ -146,3 +152,37 @@ def load_jax_params(model, params: dict, stats: dict) -> None:
     _check_tree(ref_p, params, "params")
     _check_tree(ref_s, stats, "stats")
     model.load(params, stats)
+
+
+def tree_items(tree, prefix: str = ""):
+    """(key-path string, leaf) pairs of a dict/list tree, in the order
+    and the form ``jax.tree_util.tree_flatten_with_path`` and ``keystr``
+    give them (dict keys sorted)."""
+    if isinstance(tree, dict):
+        for k in sorted(tree):
+            yield from tree_items(tree[k], f"{prefix}['{k}']")
+    elif isinstance(tree, (list, tuple)):
+        for i, v in enumerate(tree):
+            yield from tree_items(v, f"{prefix}[{i}]")
+    else:
+        yield prefix, tree
+
+
+def tree_build(template, leaf, prefix: str = ""):
+    """A tree shaped like ``template`` whose leaves are
+    ``leaf(key-path string, template leaf)``."""
+    if isinstance(template, dict):
+        return {k: tree_build(v, leaf, f"{prefix}['{k}']")
+                for k, v in template.items()}
+    if isinstance(template, (list, tuple)):
+        return [tree_build(v, leaf, f"{prefix}[{i}]")
+                for i, v in enumerate(template)]
+    return leaf(prefix, template)
+
+
+def export_params(model) -> tuple[dict, dict]:
+    """A training model's (params, stats) as numpy f32 trees."""
+    def host(t):
+        return t.detach().cpu().numpy()
+    return (model.params_like([host(t) for t in model.weights]),
+            tree_build(model.stat_tree(), lambda _, t: host(t)))

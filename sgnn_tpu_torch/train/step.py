@@ -1,0 +1,259 @@
+"""One training step and one eval step on one device (port of
+``sgnn_tpu/train/step.py``).
+
+A collated batch goes to the device (``to_device``: pinned, non-blocking
+copies, float arrays in the transfer type), targets are densified there
+(``_densify_rows``, ``_unpack_known_bits``), the folded training forward
+and ``losses.compute_loss_dense_flow`` run, autograd gives the gradients,
+Adam updates the parameters and the new BN running stats are stored. The
+JAX step's ``pmean``s over its data axis have no counterpart (one device).
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from sgnn_tpu_torch import losses as L
+from sgnn_tpu_torch.config import SGNNConfig
+from sgnn_tpu_torch.models.folded_train import genmodel_apply_folded_train
+from sgnn_tpu_torch.train.state import set_lr
+
+
+def to_device(batch: dict, device, transfer_dtype=torch.float32) -> dict:
+    """A collated numpy batch as tensors on ``device``: arrays through
+    pinned host memory with non-blocking copies (float32 arrays shipped in
+    ``transfer_dtype``; the step casts back to f32), scalar counts as
+    Python ints, everything else as it is."""
+    dev = torch.device(device)
+
+    def move(v):
+        if isinstance(v, list):
+            return [move(x) for x in v]
+        if isinstance(v, np.ndarray) and v.dtype.kind in "biuf":
+            t = torch.from_numpy(np.ascontiguousarray(v))
+            if t.dtype == torch.float32:
+                t = t.to(transfer_dtype)
+            if dev.type == "cuda":
+                t = t.pin_memory()
+            return t.to(dev, non_blocking=True)
+        if isinstance(v, np.integer):
+            return int(v)
+        return v
+    return {k: move(v) for k, v in batch.items()}
+
+
+def flat_key(locs: torch.Tensor, dims: tuple, B: int) -> torch.Tensor:
+    """(z, y, x, b) rows -> b*Z*Y*X + z*Y*X + y*X + x; -1 out of bounds."""
+    Z, Y, X = dims
+    z, y, x, b = (locs[:, i].long() for i in range(4))
+    inb = ((z >= 0) & (z < Z) & (y >= 0) & (y < Y) & (x >= 0) & (x < X)
+           & (b >= 0) & (b < B))
+    key = ((b * Z + z) * Y + y) * X + x
+    return torch.where(inb, key, torch.full_like(key, -1))
+
+
+def _bits(packed: torch.Tensor, nvox: int, B: int) -> torch.Tensor:
+    """[B, nbytes] little-endian bit planes -> [B, nvox] uint8 {0, 1}."""
+    shifts = torch.arange(8, dtype=torch.uint8, device=packed.device)
+    bits = (packed[:, :, None] >> shifts) & 1
+    return bits.reshape(B, -1)[:, :nvox]
+
+
+def _densify_rows(locs, vals, num: int, dims: tuple, B: int,
+                  default: float, pos_bits=None, pos_fill: float = 0.0):
+    """Sparse rows (z, y, x, b) -> dense [B, *dims] f32: ``default``, or
+    ``pos_fill`` where ``pos_bits`` marks a voxel, then the first ``num``
+    rows' values on top (the device half of the sparse-target transfer,
+    bit-identical to densifying the full row set)."""
+    nvox = dims[0] * dims[1] * dims[2]
+    dev = vals.device
+    if pos_bits is not None:
+        bits = _bits(pos_bits, nvox, B).reshape(-1)
+        flat = torch.where(bits > 0, torch.tensor(pos_fill, device=dev),
+                           torch.tensor(default, device=dev))
+    else:
+        flat = torch.full((B * nvox,), default, device=dev)
+    keys = flat_key(locs[:num], dims, B)
+    keep = keys >= 0
+    flat[keys[keep]] = vals[:num][keep].float()
+    return flat.reshape(B, *dims)
+
+
+def _unpack_known_bits(packed, dims: tuple, B: int) -> torch.Tensor:
+    """[B, nbytes] bit-packed (known >= UNK_THRESH) -> uint8 [B, *dims] in
+    {0, 255}: the only predicate of ``known`` the loss reads."""
+    unk = _bits(packed, dims[0] * dims[1] * dims[2], B).reshape(B, *dims)
+    return torch.where(unk > 0, 255, 0).to(torch.uint8)
+
+
+def _unpack_batch(cfg: SGNNConfig, batch: dict):
+    """A device batch -> (input locs, input feats f32, input count, target
+    sdf, known, hierarchy), for both batch schemas: dense grids
+    ("sdf"/"known"/"hierarchy") or sparse target rows ("target_locs",
+    "hier_locs", "known_unk"; densified here)."""
+    B = cfg.batch_size
+    locs, n = batch["input_locs"], batch["input_num_valid"]
+    feats = batch["input_sdf"].float()
+    if "target_locs" in batch:
+        sdf = _densify_rows(batch["target_locs"], batch["target_vals"],
+                            batch["target_num_valid"], cfg.input_dim, B,
+                            -np.inf, pos_bits=batch["target_pos"],
+                            pos_fill=cfg.truncation)
+        Lh = cfg.num_hierarchy_levels
+        hierarchy = []
+        for h in range(Lh - 1):
+            f = 2 ** (Lh - 1 - h)
+            dims_h = tuple(d // f for d in cfg.input_dim)
+            hierarchy.append(_densify_rows(
+                batch["hier_locs"][h], batch["hier_vals"][h],
+                batch["hier_num"][h], dims_h, B, -np.inf,
+                pos_bits=batch["hier_pos"][h], pos_fill=cfg.truncation))
+        known = _unpack_known_bits(batch["known_unk"], cfg.input_dim, B)
+        return locs, feats, n, sdf, known, hierarchy
+    hierarchy = batch.get("hierarchy")
+    if hierarchy is not None:
+        hierarchy = [h.float() for h in hierarchy]
+    return (locs, feats, n, batch["sdf"].float(), batch["known"],
+            hierarchy)
+
+
+def _input_mask(cfg: SGNNConfig, locs, n: int) -> torch.Tensor:
+    """[B, Z, Y, X] bool: the sparse input's voxels."""
+    Z, Y, X = cfg.input_dim
+    B = cfg.batch_size
+    keys = flat_key(locs[:n], cfg.input_dim, B)
+    mask = torch.zeros(B * Z * Y * X, dtype=torch.bool, device=locs.device)
+    mask[keys[keys >= 0]] = True
+    return mask.reshape(B, Z, Y, X)
+
+
+def _forward_loss(params, stats, cfg, inputs, targets, loss_weights, known,
+                  *, num_refine_active, do_surf, use_log_transform,
+                  weight_missing_geo, use_loss_masking, training):
+    locs, feats, n = inputs
+    out, new_stats = genmodel_apply_folded_train(
+        params, stats, cfg, locs, feats, n,
+        num_refine_active=num_refine_active, do_surf=do_surf,
+        training=training)
+    total, per_level = L.compute_loss_dense_flow(
+        out, targets, loss_weights, cfg.truncation,
+        num_refine_active=num_refine_active, do_surf=do_surf,
+        use_log_transform=use_log_transform,
+        weight_missing_geo=weight_missing_geo,
+        input_mask=_input_mask(cfg, locs, n),
+        use_loss_masking=use_loss_masking, known=known)
+    return total, (per_level, out, new_stats)
+
+
+def _iou(pred, tgt1):
+    inter, union = (pred & tgt1).sum(), (pred | tgt1).sum()
+    return torch.where(union > 0, inter / union.clamp_min(1),
+                       torch.tensor(-1.0, device=pred.device))
+
+
+def _metrics_dense(cfg, out, targets, known, *, num_refine_active, do_surf,
+                   use_loss_masking) -> dict:
+    """IoU per level and the surface L1 metrics (train.py:271-297)."""
+    dev = out.coarse_out.device
+    minus1 = torch.tensor(-1.0, device=dev)
+    occ0 = targets.target_for_occs[0]
+    pred0 = torch.sigmoid(out.coarse_out[..., 0]) > 0.5
+    if use_loss_masking:
+        pred0 = pred0 & (occ0 != L.UNK_ID)
+    ious = [_iou(pred0, occ0 == 1.0)]
+    for h in range(1, cfg.num_hierarchy_levels):
+        if h - 1 < num_refine_active:
+            occ_t = targets.target_for_occs[h]
+            pred = out.refine_masks_unfilt[h - 1] & (
+                torch.sigmoid(out.refine_outs[h - 1][..., 0]) > 0.5)
+            if use_loss_masking:
+                pred = pred & (occ_t != L.UNK_ID)
+            ious.append(_iou(pred, occ_t == 1.0))
+        else:
+            ious.append(minus1)
+    l1pred = l1tgt = minus1
+    if do_surf:
+        tgt, m = targets.target_for_sdf, out.surf_mask
+        if use_loss_masking:
+            m = m & (known < L.UNK_THRESH)
+        zero = torch.zeros_like(tgt)
+        l1pred = torch.where(m, (out.surf_sdf - tgt).abs(), zero).sum() / \
+            m.sum().clamp_min(1)
+        pred_dense = torch.where(out.surf_mask, out.surf_sdf,
+                                 torch.full_like(tgt, -cfg.truncation))
+        tmask = tgt.abs() < cfg.truncation
+        if use_loss_masking:
+            tmask = tmask & (known < L.UNK_THRESH)
+        l1tgt = torch.where(tmask, (pred_dense - tgt).abs(), zero).sum() / \
+            tmask.sum().clamp_min(1)
+    return {"iou": torch.stack(ious), "l1pred": l1pred, "l1tgt": l1tgt}
+
+
+def _prepare(cfg, batch, use_loss_masking):
+    locs, feats, n, sdf, known, hierarchy = _unpack_batch(cfg, batch)
+    targets = L.compute_targets(sdf, hierarchy, cfg.num_hierarchy_levels,
+                                cfg.truncation, use_loss_masking, known)
+    return (locs, feats, n), targets, known
+
+
+def train_step(model, opt, batch: dict, loss_weights, lr: float, *,
+               num_refine_active: int, do_surf: bool,
+               use_log_transform: bool = True,
+               weight_missing_geo: float = 5.0,
+               use_loss_masking: bool = True,
+               with_metrics: bool = False) -> dict:
+    """Forward, loss, backward, one Adam update at ``lr`` and the new BN
+    running stats, on a device batch (``to_device``). Returns the metrics
+    as device tensors: loss, per_level (L + 1 entries, -1 inactive) and,
+    with ``with_metrics``, iou / l1pred / l1tgt."""
+    cfg = model.cfg
+    inputs, targets, known = _prepare(cfg, batch, use_loss_masking)
+    lw = [float(w) for w in loss_weights]
+    total, (per_level, out, new_stats) = _forward_loss(
+        model.param_tree(), model.stat_tree(), cfg, inputs, targets, lw,
+        known, num_refine_active=num_refine_active, do_surf=do_surf,
+        use_log_transform=use_log_transform,
+        weight_missing_geo=weight_missing_geo,
+        use_loss_masking=use_loss_masking, training=True)
+    opt.zero_grad(set_to_none=True)
+    total.backward()
+    for p in model.weights:
+        # a level the fade-in has not reached gets a zero gradient, as from
+        # jax.grad: Adam then steps every parameter, its count is global
+        # and a level's first moments decay from the step it joins
+        if p.grad is None:
+            p.grad = torch.zeros_like(p)
+    set_lr(opt, lr)
+    opt.step()
+    model.set_stats(new_stats)
+    metrics = {"loss": total.detach(),
+               "per_level": torch.stack([p.detach() for p in per_level])}
+    if with_metrics:
+        with torch.no_grad():
+            metrics.update(_metrics_dense(
+                cfg, out, targets, known,
+                num_refine_active=num_refine_active, do_surf=do_surf,
+                use_loss_masking=use_loss_masking))
+    return metrics
+
+
+@torch.no_grad()
+def eval_step(model, batch: dict, loss_weights, *, num_refine_active: int,
+              do_surf: bool, use_log_transform: bool = True,
+              weight_missing_geo: float = 5.0,
+              use_loss_masking: bool = True) -> dict:
+    """Forward, loss and metrics with BN in inference mode; no update."""
+    cfg = model.cfg
+    inputs, targets, known = _prepare(cfg, batch, use_loss_masking)
+    total, (per_level, out, _) = _forward_loss(
+        model.param_tree(), model.stat_tree(), cfg, inputs, targets,
+        [float(w) for w in loss_weights], known,
+        num_refine_active=num_refine_active, do_surf=do_surf,
+        use_log_transform=use_log_transform,
+        weight_missing_geo=weight_missing_geo,
+        use_loss_masking=use_loss_masking, training=False)
+    m = _metrics_dense(cfg, out, targets, known,
+                       num_refine_active=num_refine_active, do_surf=do_surf,
+                       use_loss_masking=use_loss_masking)
+    return {"loss": total, "per_level": torch.stack(per_level), **m}

@@ -75,8 +75,8 @@ def test_rejects_locs_outside_scene(inferencer):
 
 
 def test_port_imports_without_jax():
-    """The port, its CLI and chip_smoke.py import (and the CLI parses its
-    flags) with jax and sgnn_tpu blocked."""
+    """The port, its CLIs and chip_smoke.py import (and the CLIs parse
+    their flags) with jax and sgnn_tpu blocked."""
     code = (
         "import sys\n"
         "sys.modules['jax'] = None\n"
@@ -86,10 +86,16 @@ def test_port_imports_without_jax():
         "import sgnn_tpu_torch.checkpoint, sgnn_tpu_torch.utils.ckpt_convert\n"
         "import sgnn_tpu_torch.data.dataset, sgnn_tpu_torch.data.formats\n"
         "import sgnn_tpu_torch.meshing.export, sgnn_tpu_torch.meshing.native\n"
-        "from sgnn_tpu_torch.tools import test_scene\n"
+        "import sgnn_tpu_torch.ops.kernels.conv_raw, sgnn_tpu_torch.losses\n"
+        "import sgnn_tpu_torch.schedules, sgnn_tpu_torch.data.capacity\n"
+        "import sgnn_tpu_torch.models.folded_train\n"
+        "import sgnn_tpu_torch.train.state, sgnn_tpu_torch.train.step\n"
+        "import sgnn_tpu_torch.train.loop\n"
+        "from sgnn_tpu_torch.tools import test_scene, train\n"
         "test_scene.parse_args(['--input_data_path', 'i',\n"
         "    '--target_data_path', 't', '--test_file_list', 'l',\n"
         "    '--model_path', 'm.ckpt'])\n"
+        "train.parse_args(['--data_path', 'd', '--train_file_list', 'l'])\n"
         "import chip_smoke\n"
         "assert 'jax' not in [m.split('.')[0] for m in sys.modules\n"
         "                     if sys.modules[m] is not None]\n"
