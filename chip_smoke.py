@@ -12,7 +12,10 @@ where every phase passed prints the two JSON lines at the end):
 3. kernels: each hand-written kernel against its plain PyTorch version at
    the shapes the serving path gives it (96x192x192 scene; the surface
    head also at 96x192x160), in float32 and bfloat16, with max
-   |kernel - plain| beside its tolerance and both times;
+   |kernel - plain| beside its tolerance and both times; K8 and K9 on
+   grids masked by the scene's sphere shell (C 8/16/32, Cout < C down to
+   1, Y != X, K8's input gradient), K10 over the shell's rows (27 and 8
+   taps, 16 to 48 inputs, rows with every neighbour missing);
 4. forward: the full-width model (L=4, nf 16, bf16, seeded random
    weights) answers three synthetic sphere scenes through
    sgnn_tpu_torch.infer.SceneInferencer; every kernel of that path must
@@ -30,10 +33,22 @@ where every phase passed prints the two JSON lines at the end):
    by the port go through the CLI, sgnn_tpu_torch.tools.test_scene, on
    the card; every scene must get an input mesh and a non-empty predicted
    mesh inside its bounds, and the multi-scale surface head one launch;
+   the CLI again with --execution sparse (the coordinate lists, K10 51
+   times per scene, nothing else);
    then each scene's stages (read, forward, meshing) are timed one after
    another, and every kernel call of the rooms' forwards (padded shapes
    with Y != X) is held against its plain version on its own inputs;
-6. train: synthetic .sdfs chunks (128x64x64, cut from box rooms) written
+6. secondary: the phase-4 weights and scene through the coordinate-list
+   execution (GenModelSparse, capacities from the folded forward's active
+   voxels so nothing overflows) and the dense-flow execution
+   (GenModelDense with use_pallas_conv, at the default pallas_min_voxels
+   and at 0) via SceneInferencer; K10's and K8's launches per forward
+   required as derived (SECONDARY), every call of one forward held
+   against its plain version; in f32 the surfaces of the folded, dense-
+   flow and both coordinate-list backends compared on the card; in bf16
+   each execution's kernels against its plain versions on the card and
+   on the host CPU; ms per forward and peak memory per execution;
+7. train: synthetic .sdfs chunks (128x64x64, cut from box rooms) written
    by the port; one full-level f32 train step with the kernels and one
    with the plain versions from the same weights and batch (loss,
    gradients, running stats compared); one bf16 step at full width and
@@ -44,7 +59,7 @@ where every phase passed prints the two JSON lines at the end):
    steps and whose .ckpt must load into the serving model and serve a
    room; ms per step with kernels and with plain versions, samples/s and
    peak device memory;
-7. the card's name and power limit again, a JSON line of per-kernel
+8. the card's name and power limit again, a JSON line of per-kernel
    results (launches, error, ms against the plain version and against one
    PyTorch call where one computes the same function, and the card's bound
    for the same work), then the status line {"ok": true, "device": {...}}.
@@ -77,7 +92,8 @@ N_SCENES = 3
 # only with surf_pack=False, once per forward
 EXPECTED = {"conv_site": 37, "downconv": 11, "upconv": 3, "head_gate": 3,
             "head_gate_raw": 0, "head_sum": 0, "surf_head": 1, "scatter": 1,
-            "conv_raw": 0}
+            "conv_raw": 0, "conv3d_folded": 0, "conv3d": 0,
+            "gather_gemm": 0}
 SOURCES = {
     "conv_site": ("sgnn_tpu_torch/csrc/conv_site.cu",
                   "sgnn_tpu/ops/pallas/conv3d_folded.py:593"),
@@ -97,7 +113,35 @@ SOURCES = {
                 "sgnn_tpu/ops/pallas/scatter_folded.py:92"),
     "conv_raw": ("sgnn_tpu_torch/csrc/conv_raw.cu",
                  "sgnn_tpu/ops/pallas/conv3d_folded.py:213"),
+    "conv3d_folded": ("sgnn_tpu_torch/csrc/conv3d_cl.cu",
+                      "sgnn_tpu/ops/pallas/conv3d_folded.py:178"),
+    "conv3d": ("sgnn_tpu_torch/csrc/conv3d_cl.cu",
+               "sgnn_tpu/ops/pallas/conv3d.py:77"),
+    "gather_gemm": ("sgnn_tpu_torch/csrc/gather_gemm.cu",
+                    "sgnn_tpu/ops/pallas/gather_gemm.py:62"),
 }
+# the secondary executions (phase 6) on the phase-4 scene, launches per
+# forward derived from the code at L = 4 (models/sgnn.py, nn/blocks.py,
+# models/dense_flow.py):
+# - coordinate lists, conv_backend "gather": every sparse conv is one K10
+#   call: the encoder 3 x (p1, 2 resblock, p3 down) = 12, the refinements
+#   3 x (p1, U-Net 8, n1) = 30, the surface head p1 + U-Net 8 = 9;
+# - dense flow with use_pallas_conv at the default pallas_min_voxels
+#   (1,000,000): only the 96x192x192 level passes, where K8 takes encoder
+#   level 0's two resblock convs (C = 8), the 16-wide group of the
+#   surface p1 and the surface U-Net's top resblock (C = 16); its 2-wide
+#   (C not 8/16/32) and 8-wide (Cout 16 > Cin 8) groups stay plain;
+# - at pallas_min_voxels = 0 every conv supported() admits: X % (128 / C)
+#   with X = 192 / 96 / 48 / 24 / 12 / 6 per level: encoder 2 + 2 (the
+#   12-wide level 1 none), refinement 0 (1/8) p1 2 + U-Net 2, refinement
+#   1 p1 2 + U-Net 4, refinement 2 p1 1 + U-Net 6, surface p1 1 + U-Net 6
+#   = 28; K9 is on no path.
+SECONDARY = {"gather_gemm": 51, "conv3d_folded": 5}
+K8_ALL_LEVELS = 28
+# capacity headroom of the coordinate-list run over the folded forward's
+# active voxels per level (the executions agree in f32; in bf16 the gate
+# cascade may open more), so that nothing overflows
+CAP_HEADROOM = 4
 # the card's peaks for the bound of a kernel's timed (bf16) case: NVIDIA's
 # H100 SXM data sheet, dense bf16 tensor rate and HBM3 bandwidth
 PEAK_BF16_FLOPS = 989e12
@@ -135,6 +179,11 @@ FLIP_FRAC = 1e-4
 MIN_IOU_F32 = 0.999
 MAX_SDF_REL_F32 = 1e-3
 MIN_IOU_BF16 = 0.81
+# the secondary executions' bf16 surfaces: the plain versions' agreement
+# with themselves is itself one draw of the gate cascade (card vs host
+# CPU 0.75 for the dense flow, 0.98 for the coordinate lists on an H100,
+# PERF.md), so the kernels get this much slack below it
+BF16_IOU_SLACK = 0.1
 # the summed surface head against the multi-scale one on one scene: same
 # mask, sdf within f32 summation order (1e-4 of the sdf scale)
 MAX_SDF_REL_SURF = 1e-4
@@ -589,7 +638,134 @@ class KernelChecks:
         self.run("scatter", f"{len(locs)} rows cpad8", scat, [0],
                  masks=[0, 1], work=lambda dt: (_nbytes(locs, feats), 0))
         self.training_cases()
+        self.secondary_cases()
         return self.results
+
+    def secondary_cases(self):
+        """K8 and K9 (channels-last 3^3 conv) and K10 (gather-GEMM) at the
+        secondary executions' full-resolution shapes: grids masked by the
+        96x192x192 sphere shell, coordinate lists of its active voxels."""
+        from sgnn_tpu_torch.ops import conv as CV
+        from sgnn_tpu_torch.ops import coords as C
+        from sgnn_tpu_torch.ops.kernels import conv3d_cl as K_cl
+        from sgnn_tpu_torch.ops.kernels import gather_gemm as K_gg
+
+        def cl_grid(dims, c, shell):
+            m = _shell(dims, 4.0) if shell else torch.ones(1, *dims,
+                                                           dtype=torch.bool)
+            d = torch.randn(1, *dims, c, device=self.dev, generator=self.gen)
+            return d * m.to(self.dev)[..., None]
+
+        def conv_work(x, w):
+            def work(dt):
+                nz = int((x != 0).any(-1).sum())
+                return (_nbytes(x.to(dt), w),
+                        2 * 27 * w.shape[1] * w.shape[2] * nz)
+            return work
+
+        def conv_case(kernel, label, dims, cin, cout, dtypes, timed=False):
+            fn = {"conv3d_folded": K_cl.conv3d_3x3x3_folded,
+                  "conv3d": K_cl.conv3d_3x3x3}[kernel]
+            x = cl_grid(dims, cin, shell=True)
+            w = torch.from_numpy(self.weights(27, cin, cout)).to(self.dev)
+
+            def make(dt):
+                xd = x.to(dt)
+                return lambda impl: (fn(xd, w, impl=impl),)
+            self.run(kernel, label, make, [0], dense=True, dtypes=dtypes,
+                     work=conv_work(x, w) if timed else None,
+                     library=_library_conv((1, cin, *dims), cout, 3,
+                                           padding=1) if timed else None)
+
+        both = (torch.float32, torch.bfloat16)
+        # K8 at the dense-flow execution's full-resolution sites (encoder
+        # level 0's resblock, C = 8; the surface head's p1 group and
+        # U-Net top, C = 16), then C = 32, Cout < Cin down to 1, Y != X
+        conv_case("conv3d_folded", "C8->8 96x192x192", SCENE, 8, 8, both,
+                  timed=True)
+        conv_case("conv3d_folded", "C16->16 96x192x192", SCENE, 16, 16,
+                  both)
+        conv_case("conv3d_folded", "C32->32 48x96x96",
+                  tuple(d // 2 for d in SCENE), 32, 32, both)
+        conv_case("conv3d_folded", "C16->1 96x192x160 (Y != X)", K5_DIMS,
+                  16, 1, both)
+        conv_case("conv3d_folded", "C32->12 48x96x80 (Y != X)",
+                  tuple(d // 2 for d in K5_DIMS), 32, 12, both)
+
+        # K8's input gradient: the backward's K8 call on the flipped,
+        # transposed taps (Cout = C), a cotangent at every voxel
+        x = cl_grid(SCENE, 16, shell=True)
+        w = torch.from_numpy(self.weights(27, 16, 16)).to(self.dev)
+        g = torch.randn(1, *SCENE, 16, device=self.dev, generator=self.gen)
+
+        def dx(dt):
+            xd, gd = x.to(dt), g.to(dt)
+
+            def call(impl):
+                xr = xd.clone().requires_grad_()
+                with torch.enable_grad():
+                    y = K_cl.conv3d_3x3x3_folded(xr, w, impl=impl)
+                    return torch.autograd.grad(y, xr, gd)
+            return call
+        self.run("conv3d_folded", "input gradient C16 96x192x192", dx, [0],
+                 dense=True)
+
+        # K9: the widths of tests/test_pallas_gather.py:46, the 96x192x192
+        # C = 16 grid, and two widths K8 does not take
+        conv_case("conv3d", "C16->16 96x192x192", SCENE, 16, 16, both,
+                  timed=True)
+        conv_case("conv3d", "C8->8 4x8x16", (4, 8, 16), 8, 8, both)
+        conv_case("conv3d", "C26->16 48x96x80", tuple(
+            d // 2 for d in K5_DIMS), 26, 16, both)
+        conv_case("conv3d", "C48->40 24x48x48", tuple(
+            d // 4 for d in SCENE), 48, 40, both)
+
+        # K10 over the rows of the shell's active voxels at 96x192x192:
+        # submanifold taps (K = 27) at the widest sites of the
+        # coordinate-list execution (refinement n1 48 -> 16, p1 34 -> 16,
+        # U-Net 16 -> 16), the strided taps (K = 8) to the unique parents,
+        # and rows whose neighbours are all missing (output exactly 0)
+        idx = torch.nonzero(self.fine[0].to(self.dev))
+        locs = torch.cat([idx, torch.zeros_like(idx[:, :1])], 1).to(
+            torch.int32)
+        n = len(locs)
+        grid = C.build_index_grid(locs, n, SCENE, 1)
+        sub = CV.neighbor_rows(locs, grid, C.neighbor_offsets(3, self.dev),
+                               SCENE, 1)
+        half = tuple(d // 2 for d in SCENE)
+        # the strided conv's output rows: the unique parents, padded to
+        # the input's capacity as the execution pads them
+        parents, n_par, _ = C.unique_locs(C.parent_locs(locs), n, half, 1, n)
+        down = CV.neighbor_rows(parents, grid,
+                                C.neighbor_offsets(2, self.dev), SCENE, 1,
+                                scale=2)
+        log(f"[kernels] gather_gemm rows: {n} shell voxels, {n_par} "
+            f"parents; {int((sub > 0).sum())} and {int((down > 0).sum())} "
+            f"present neighbours")
+
+        def gg_case(label, nbr, cin, cout, dtypes, timed=False, masks=()):
+            f = torch.randn(n, cin, device=self.dev, generator=self.gen)
+            w = torch.from_numpy(self.weights(nbr.shape[1], cin, cout)).to(
+                self.dev)
+
+            def make(dt):
+                fd = f.to(dt)
+                return lambda impl: (K_gg.gather_gemm(fd, nbr, w,
+                                                      impl=impl),)
+
+            def work(dt):
+                return (_nbytes(f.to(dt), nbr, w),
+                        2 * cin * cout * int((nbr > 0).sum()))
+            self.run("gather_gemm", label, make, [] if masks else [0],
+                     masks=masks, dense=True, dtypes=dtypes,
+                     work=work if timed else None)
+
+        gg_case(f"K27 48->16 {n} rows", sub, 48, 16, both, timed=True)
+        gg_case(f"K27 34->16 {n} rows", sub, 34, 16, both)
+        gg_case(f"K27 16->16 {n} rows", sub, 16, 16, both)
+        gg_case(f"K8 16->16 {n_par} of {n} rows", down, 16, 16, both)
+        gg_case(f"K27 48->16 {n} rows, every neighbour missing",
+                torch.zeros_like(sub), 48, 16, (torch.bfloat16,), masks=[0])
 
     def training_cases(self):
         """K7 and K4's raw mode at the training shapes: batch 8 at
@@ -682,18 +858,26 @@ class MainPathCheck:
              "head_sum": ([0], [], False, False),
              "surf_head": ([0], [], False, True),
              "scatter": ([0], [0, 1], False, False),
-             "conv_raw": ([0], [], False, True)}
+             "conv_raw": ([0], [], False, True),
+             "conv3d_folded": ([0], [], False, True),
+             "conv3d": ([0], [], False, True),
+             "gather_gemm": ([0], [], False, True)}
+    # wrapper attributes whose counter has another name
+    COUNTER = {"conv3d_3x3x3_folded": "conv3d_folded",
+               "conv3d_3x3x3": "conv3d"}
 
     def __init__(self):
-        from sgnn_tpu_torch.ops.kernels import conv_raw, conv_site, \
-            downconv, head, scatter, surf_head, upconv
+        from sgnn_tpu_torch.ops.kernels import conv3d_cl, conv_raw, \
+            conv_site, downconv, gather_gemm, head, scatter, surf_head, \
+            upconv
 
         # wrapper function (module attribute) -> its module; the gated
         # head's calls with the raw output count under head_gate_raw
         self.mods = {"conv_site": conv_site, "downconv": downconv,
                      "upconv": upconv, "head_gate": head, "head_sum": head,
                      "surf_head": surf_head, "scatter": scatter,
-                     "conv_raw": conv_raw}
+                     "conv_raw": conv_raw, "conv3d_3x3x3_folded": conv3d_cl,
+                     "conv3d_3x3x3": conv3d_cl, "gather_gemm": gather_gemm}
         self.stats = {n: {"calls": 0, "err": 0.0, "ratio": 0.0, "flips": 0}
                       for n in self.SPECS}
         self.saved = {}
@@ -704,7 +888,8 @@ class MainPathCheck:
             out = orig(*args, impl=impl, **kw)
             if impl is not None:
                 return out
-            name = "head_gate_raw" if kw.get("emit_raw") else fn_name
+            name = ("head_gate_raw" if kw.get("emit_raw")
+                    else self.COUNTER.get(fn_name, fn_name))
             values, masks, gate, dense = self.SPECS[name]
             ref = orig(*args, impl="plain", **kw)
             outs = out if isinstance(out, tuple) else (out,)
@@ -1027,6 +1212,24 @@ def _room(dims, seed, truncation=3.0):
     return locs, sdf, locs[keep], sdf[keep]
 
 
+def _check_meshes(out: str, names: list) -> None:
+    """Every room has a non-empty input and predicted mesh inside its
+    bounds in ``out``."""
+    from sgnn_tpu_torch.meshing.ply import load_ply
+
+    for name, dims in zip(names, SERVE_DIMS):
+        bound = np.asarray(dims[::-1], np.float32) - 0.5  # x, y, z
+        for kind in ("input-mesh", "pred-mesh"):
+            path = os.path.join(out, f"{name}__0__{kind}.ply")
+            require(os.path.exists(path), f"no {path}")
+            v, _, faces = load_ply(path)
+            require(len(faces) >= 1, f"{path}: empty mesh")
+            require(((v >= -0.5) & (v <= bound)).all(),
+                    f"{path}: vertices outside the scene")
+            log(f"[serve] {name} {kind}: {len(v)} vertices, "
+                f"{len(faces)} faces")
+
+
 def phase_serve(model, weights) -> dict:
     """Reference-format scenes and a .ckpt, both written by the port,
     through the CLI on the card. Returns the launch counts of that run."""
@@ -1035,7 +1238,6 @@ def phase_serve(model, weights) -> dict:
     from sgnn_tpu_torch.data.dataset import SceneDataset
     from sgnn_tpu_torch.infer import SceneInferencer
     from sgnn_tpu_torch.meshing.export import save_predictions
-    from sgnn_tpu_torch.meshing.ply import load_ply
     from sgnn_tpu_torch.ops import kernels as K
     from sgnn_tpu_torch.params import init_params, load_jax_params
     from sgnn_tpu_torch.tools import test_scene
@@ -1100,23 +1302,43 @@ def phase_serve(model, weights) -> dict:
         for name, n in counts.items():
             if EXPECTED[name]:
                 require(n > 0, f"{name} was not launched by the CLI")
-        for name, dims in zip(names, SERVE_DIMS):
-            bound = np.asarray(dims[::-1], np.float32) - 0.5  # x, y, z
-            for kind, need in (("input-mesh", 1), ("pred-mesh", 1)):
-                path = os.path.join(out, f"{name}__0__{kind}.ply")
-                require(os.path.exists(path), f"no {path}")
-                v, _, faces = load_ply(path)
-                require(len(faces) >= need, f"{path}: empty mesh")
-                require(((v >= -0.5) & (v <= bound)).all(),
-                        f"{path}: vertices outside the scene")
-                log(f"[serve] {name} {kind}: {len(v)} vertices, "
-                    f"{len(faces)} faces")
+        _check_meshes(out, names)
         log(f"[serve] ms per scene, dispatch to collected surface: "
             f"{' '.join(f'{t * 1e3:.1f}' for t in stats['scene_times'])}; "
             f"the CLI from start to the last mesh written: "
             f"{wall * 1e3 / len(names):.1f} ms per scene "
             f"({wall:.2f} s for {len(names)}); peak device memory "
             f"{peak / 2**20:.1f} MiB")
+
+        # the coordinate-list execution through the CLI: K10 at every
+        # sparse conv (the CLI's default occupancy fractions)
+        out_sparse = os.path.join(tmp, "out_sparse")
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        K.reset_launch_counts()
+        t0 = time.perf_counter()
+        stats = test_scene.main([
+            "--input_data_path", inp, "--target_data_path", tgt,
+            "--test_file_list", lst, "--model_path", ckpt, "--output",
+            out_sparse, "--max_input_height", "128", "--compute_dtype",
+            "bfloat16", "--execution", "sparse"])
+        wall = time.perf_counter() - t0
+        sparse_counts = K.launch_counts()
+        log(f"[serve] CLI --execution sparse launches over {len(names)} "
+            f"scenes: {sparse_counts}")
+        require(stats["skipped"] == 0 and stats["num_meshed"] == len(names),
+                f"the sparse CLI meshed {stats['num_meshed']} and skipped "
+                f"{stats['skipped']} of {len(names)} scenes")
+        want = {k: SECONDARY["gather_gemm"] * len(names)
+                if k == "gather_gemm" else 0 for k in sparse_counts}
+        require(sparse_counts == want,
+                f"the sparse CLI launched {sparse_counts}, expected {want}")
+        _check_meshes(out_sparse, names)
+        log(f"[serve] CLI --execution sparse: ms per scene, dispatch to "
+            f"collected surface: "
+            f"{' '.join(f'{t * 1e3:.1f}' for t in stats['scene_times'])}; "
+            f"{wall:.2f} s for {len(names)} scenes; peak device memory "
+            f"{torch.cuda.max_memory_allocated() / 2**20:.1f} MiB")
 
         # where a scene's time goes: the CLI's stages one after another,
         # without its overlap (host clock; the forward ends in a copy to
@@ -1156,6 +1378,201 @@ def phase_serve(model, weights) -> dict:
 
 
 # ------------------------------------------------------------------ phase 6
+
+
+def phase_secondary(results: dict, weights) -> None:
+    """Phase 6: the secondary executions on the phase-4 weights and
+    scene: the coordinate-list execution (GenModelSparse, K10) and the
+    dense-flow execution (GenModelDense with use_pallas_conv, K8)."""
+    import dataclasses
+
+    from sgnn_tpu_torch.config import SGNNConfig
+    from sgnn_tpu_torch.infer import SceneInferencer, synthetic_scene
+    from sgnn_tpu_torch.models.dense_flow import GenModelDense
+    from sgnn_tpu_torch.models.folded_flow import GenModelFolded
+    from sgnn_tpu_torch.models.sgnn import GenModelSparse
+    from sgnn_tpu_torch.ops import kernels as K
+    from sgnn_tpu_torch.params import load_jax_params
+
+    base = SGNNConfig(input_dim=SCENE, batch_size=1,
+                      occupancy_fractions=FRACTIONS,
+                      compute_dtype="bfloat16")
+    s0 = synthetic_scene(SCENE, seed=0, truncation=base.truncation)
+
+    def build(cls, cfg, device="cuda"):
+        m = cls(cfg).to(device)
+        load_jax_params(m, *weights)
+        return m
+
+    def with_dtype(cfg, dt):
+        return dataclasses.replace(cfg, compute_dtype=dt)
+
+    # capacities: the folded forward's active voxels per level (f32 and
+    # bf16) times CAP_HEADROOM; the finest also holds every input row
+    active = [SceneInferencer(build(GenModelFolded, with_dtype(base, dt)))(
+        s0)["level_active"] for dt in ("float32", "bfloat16")]
+    L = base.num_hierarchy_levels
+    fr = []
+    for h in range(L):
+        need = CAP_HEADROOM * max(a[h] for a in active)
+        if h == L - 1:
+            need = max(need, len(s0["input_locs"]))
+        fr.append(min(1.0, need / base.level_voxels(h)))
+    sparse16 = dataclasses.replace(base, occupancy_fractions=tuple(fr),
+                                   execution="sparse", conv_backend="gather")
+    # the same capacities for the dense flow: both inferencers cut the
+    # input rows to the finest one, as the JAX inferencer does
+    dense16 = dataclasses.replace(sparse16, execution="dense_flow",
+                                  use_pallas_conv=True)
+    dense16_all = dataclasses.replace(dense16, pallas_min_voxels=0)
+    log(f"[secondary] folded active per level {active[0]} (f32), "
+        f"{active[1]} (bf16); coordinate-list capacities "
+        f"{sparse16.level_capacities} (occupancy fractions "
+        f"{[round(f, 4) for f in fr]})")
+
+    # the counted forwards, one scene each: launches as derived
+    models = {"coordinate lists": (build(GenModelSparse, sparse16),
+                                   "gather_gemm", SECONDARY["gather_gemm"]),
+              "dense flow": (build(GenModelDense, dense16), "conv3d_folded",
+                             SECONDARY["conv3d_folded"]),
+              "dense flow, pallas_min_voxels 0": (
+                  build(GenModelDense, dense16_all), "conv3d_folded",
+                  K8_ALL_LEVELS)}
+    runs16 = {}
+    for label, (model, kernel, want) in models.items():
+        torch.cuda.synchronize()
+        K.reset_launch_counts()
+        r = SceneInferencer(model)(s0)
+        torch.cuda.synchronize()
+        counts = K.launch_counts()
+        log(f"[secondary] bfloat16 {label}: {counts[kernel]} {kernel} "
+            f"launches (expected {want}); active per level "
+            f"{r['level_active']}, surface {len(r['surf_locs'])} voxels"
+            + (f"; overflows {r['overflows']}" if "overflows" in r else ""))
+        require(counts[kernel] == want,
+                f"{label}: {counts[kernel]} {kernel} launches, expected "
+                f"{want}")
+        require(all(n == 0 for k, n in counts.items() if k != kernel),
+                f"{label}: other kernels launched: {counts}")
+        require(not any(r.get("overflows", [])),
+                f"{label}: capacity overflow {r.get('overflows')}")
+        require(np.isfinite(r["surf_sdf"]).all()
+                and np.isfinite(r["levels"][0]["dense_out"]).all()
+                and all(np.isfinite(lv["out"]).all()
+                        for lv in r["levels"][1:]),
+                f"{label}: non-finite outputs")
+        require((r["surf_locs"] < np.asarray(SCENE)).all(),
+                f"{label}: surface voxels outside the scene")
+        runs16[label] = r
+    results["gather_gemm"]["launches"] = SECONDARY["gather_gemm"]
+    results["conv3d_folded"]["launches"] = SECONDARY["conv3d_folded"]
+    results["conv3d"]["launches"] = 0  # K9 is on no path
+
+    # every kernel call of one forward against its plain version there
+    with MainPathCheck() as chk:
+        for model, _, _ in models.values():
+            SceneInferencer(model)(s0)
+    for name in ("gather_gemm", "conv3d_folded"):
+        st = chk.stats[name]
+        want = sum(w for _, k, w in models.values() if k == name)
+        log(f"[secondary] forward inputs, {name}: {st['calls']} calls, max "
+            f"|kernel - plain| {st['err']:.3e} (at most {st['ratio']:.2f} "
+            f"of tol)")
+        require(st["calls"] == want,
+                f"{name}: {st['calls']} checked calls, expected {want}")
+
+    # f32: the four executions' surfaces on the card
+    ref = SceneInferencer(build(GenModelFolded, with_dtype(base,
+                                                           "float32")))(s0)
+    execs32 = {
+        "dense flow (K8)": (GenModelDense, with_dtype(dense16, "float32")),
+        "coordinate lists, gather (K10)": (GenModelSparse,
+                                           with_dtype(sparse16, "float32")),
+        "coordinate lists, dense": (GenModelSparse, dataclasses.replace(
+            sparse16, compute_dtype="float32", conv_backend="dense"))}
+    for label, (cls, cfg) in execs32.items():
+        r = SceneInferencer(build(cls, cfg))(s0)
+        iou, diff, scale = _surface_agreement(r, ref)
+        log(f"[secondary] float32 {label} vs folded: active per level "
+            f"{r['level_active']} vs {ref['level_active']}; surface IoU "
+            f"{iou:.5f}, max |sdf diff| {diff.max():.3e} (scale "
+            f"{scale:.3e})")
+        require(len(ref["surf_locs"]) > 0 and iou >= MIN_IOU_F32,
+                f"f32 {label} vs folded: IoU {iou}")
+        require(diff.max() <= MAX_SDF_REL_F32 * scale,
+                f"f32 {label} vs folded: sdf diff {diff.max()}")
+
+    # bf16: each execution's kernels against its own plain versions, on
+    # the card and on the host CPU. A last-ulp difference flips coarse
+    # gates that grow into regions, so the surface is held to the
+    # agreement the plain versions give with themselves: on the card
+    # against the host CPU, and on the card with the input moved by one
+    # bf16 rounding (relative 2^-9 noise), the smaller of the two, less
+    # BF16_IOU_SLACK
+    rng = np.random.RandomState(1)
+    moved = dict(s0, input_sdf=(s0["input_sdf"] * (
+        1 + 2.0 ** -9 * rng.randn(len(s0["input_sdf"])))).astype(np.float32))
+    for label, cls, cfg in (("coordinate lists", GenModelSparse, sparse16),
+                            ("dense flow", GenModelDense, dense16)):
+        model = models[label][0]
+        plain = SceneInferencer(model, impl="plain")(s0)
+        t0 = time.perf_counter()
+        host = SceneInferencer(build(cls, cfg, "cpu"))(s0)
+        host_s = time.perf_counter() - t0
+        runs = {"kernels": runs16[label], "plain": plain,
+                "plain on the host CPU": host,
+                "plain, input moved": SceneInferencer(
+                    model, impl="plain")(moved)}
+        ious = {pair: _agreement("bfloat16", f"{label} {pair[0]}", pair[1],
+                                 runs[pair[0]], runs[pair[1]])[0]
+                for pair in (("kernels", "plain"),
+                             ("kernels", "plain on the host CPU"),
+                             ("plain on the host CPU", "plain"),
+                             ("plain, input moved", "plain"))}
+        worst = min(ious[("kernels", "plain")],
+                    ious[("kernels", "plain on the host CPU")])
+        floor = min(ious[("plain on the host CPU", "plain")],
+                    ious[("plain, input moved", "plain")]) - BF16_IOU_SLACK
+        log(f"[secondary] bfloat16 {label}: kernels vs plain IoU "
+            f"{ious[('kernels', 'plain')]:.5f}, vs plain on the host CPU "
+            f"{ious[('kernels', 'plain on the host CPU')]:.5f}; plain on "
+            f"the card vs the host CPU "
+            f"{ious[('plain on the host CPU', 'plain')]:.5f}, vs itself "
+            f"with the input moved {ious[('plain, input moved', 'plain')]:.5f}"
+            f" (host forward {host_s:.1f} s); kernels held to >= "
+            f"{floor:.5f}")
+        require(worst >= floor, f"bf16 {label}: IoU {worst} < {floor}")
+
+    # ms per forward (CUDA events, mean of 3) and peak device memory, the
+    # kernels and the plain versions in turns
+    timed = {"folded": build(GenModelFolded, base),
+             "dense flow (K8 at >= 1M voxels)": models["dense flow"][0],
+             "dense flow (K8 at every level)":
+                 models["dense flow, pallas_min_voxels 0"][0],
+             "coordinate lists, gather (K10)":
+                 models["coordinate lists"][0],
+             "coordinate lists, dense": build(GenModelSparse,
+                                              dataclasses.replace(
+                                                  sparse16,
+                                                  conv_backend="dense"))}
+    for label, model in timed.items():
+        infer = SceneInferencer(model)
+        if label != "folded":
+            _profile("secondary", f"one bfloat16 forward, {label}",
+                     lambda: infer.dispatch(s0), top=8)
+        for impl in (None, "plain", "plain", None):
+            infer.impl = impl
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            ms = _time_ms(lambda: infer.dispatch(s0), reps=3)
+            log(f"[secondary] bfloat16 forward, {label}, "
+                f"{'kernels' if impl is None else 'plain'}: {ms:.2f} ms "
+                f"(CUDA events, mean of 3, dispatch of one scene); peak "
+                f"device memory "
+                f"{torch.cuda.max_memory_allocated() / 2**20:.1f} MiB")
+
+
+# ------------------------------------------------------------------ phase 7
 
 
 class PlainKernels:
@@ -1212,7 +1629,8 @@ def train_launches(cfg) -> dict:
     return {"conv_site": k1, "downconv": enc + (ref + 1) * unet_k2,
             "upconv": ref, "head_gate": 0, "head_gate_raw": ref,
             "head_sum": 1, "surf_head": 0, "scatter": 1,
-            "conv_raw": k7_fwd + k7_bwd}
+            "conv_raw": k7_fwd + k7_bwd, "conv3d_folded": 0, "conv3d": 0,
+            "gather_gemm": 0}
 
 
 def _write_chunks(root, n, dims=TRAIN_DIMS, truncation=3.0):
@@ -1270,16 +1688,19 @@ def _step(model, batch, lw, plain=False):
     return m, [p.grad.clone() for p in model.weights]
 
 
-def _profile_step(model, batch, lw, top: int = 14) -> None:
-    """Where one bf16 train step's device time goes: torch.profiler's
-    CUDA time per kernel name (the hand-written kernels and PyTorch's
-    own), the largest first."""
+def _profile(tag: str, what: str, fn, top: int = 14) -> None:
+    """Where one call's device time goes: torch.profiler's CUDA time per
+    kernel name (the hand-written kernels and PyTorch's own), the largest
+    first, beside the call's host-clock time (ends in a synchronize)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     acts = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
     with profile(activities=acts) as prof:
-        _step(model, batch, lw)
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
     # the device's own events (kernels, copies), not the host ops above
     rows = [(e.self_device_time_total / 1e3, e.count, e.key)
             for e in prof.key_averages()
@@ -1288,15 +1709,16 @@ def _profile_step(model, batch, lw, top: int = 14) -> None:
     rows.sort(reverse=True)
     total = sum(r[0] for r in rows)
     ours = sum(r[0] for r in rows if "sgnn::" in r[2])
-    log(f"[train] profile of one bfloat16 step: {total:.1f} ms of device "
-        f"time (torch.profiler), {ours:.1f} ms of it in the hand-written "
-        f"kernels; the largest:")
+    log(f"[{tag}] profile of {what}: {total:.1f} ms of device time "
+        f"(torch.profiler), {ours:.1f} ms of it in the hand-written "
+        f"kernels, in {wall:.1f} ms on the host clock (profiled); the "
+        f"largest:")
     for t, n, key in rows[:top]:
-        log(f"[train]   {t:9.2f} ms {n:5d} x {key[:90]}")
+        log(f"[{tag}]   {t:9.2f} ms {n:5d} x {key[:90]}")
 
 
 def phase_train(results: dict) -> None:
-    """Phase 6."""
+    """Phase 7."""
     import dataclasses
 
     from sgnn_tpu_torch.config import SGNNConfig
@@ -1422,7 +1844,8 @@ def phase_train(results: dict) -> None:
                 b.record()
                 b.synchronize()
                 times[label].append(a.elapsed_time(b))
-        _profile_step(model, dev, lw)
+        _profile("train", "one bfloat16 step",
+                 lambda: _step(model, dev, lw))
         ms = {k: float(np.median(v)) for k, v in times.items()}
         each = {k: " ".join(f"{t:.1f}" for t in v) for k, v in times.items()}
         log(f"[train] bfloat16 step, batch {B} at {TRAIN_DIMS}: kernels "
@@ -1494,7 +1917,9 @@ def main() -> int:
         device = phase_device()
         phase_build()
         results = KernelChecks().all()
-        phase_serve(*phase_forward(results))
+        model, weights = phase_forward(results)
+        phase_serve(model, weights)
+        phase_secondary(results, weights)
         phase_train(results)
     except SmokeError as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)

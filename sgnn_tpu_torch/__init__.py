@@ -9,8 +9,13 @@ names mirror the JAX package so each module's counterpart is easy to find:
   ops/kernels/*.py       one wrapper per CUDA kernel, each with its plain
                          PyTorch version and a launch counter
   csrc/*.cu              the CUDA C++ kernels (sm_90a), built at first use
-  ops/dense.py, ops/bn.py  the 1/8-resolution trunk's conv and BN
+  ops/dense.py, ops/bn.py  the 1/8-resolution trunk's conv and BN, the
+                         upsampled conv, max pool and masked row BN
+  ops/coords.py, ops/sparse.py, ops/conv.py, nn/blocks.py
+                         coordinate lists, SparseTensor, sparse convs
   models/folded_flow.py  GenModelFolded, the only-surface serving forward
+  models/dense_flow.py   the dense trunk; GenModelDense (dense flow)
+  models/sgnn.py         GenModelSparse (coordinate lists, the oracle)
   infer.py               SceneInferencer
 
 This package imports torch and numpy only: never jax, never sgnn_tpu.

@@ -114,6 +114,58 @@ __device__ __forceinline__ void store_zero(T* o) {
   for (int c = 0; c < C; ++c) o[c] = from_f<T>(0.f);
 }
 
+// Row kernels (K8/K9 conv3d_cl.cu, K10 gather_gemm.cu) keep weights of
+// their own layout: f32 [taps, cin, coutp] with coutp a multiple of the
+// output chunk CO (4, 8 or 16), values rounded to the compute type; a
+// block row of threads computes CO outputs (blockIdx.y = chunk).
+//
+// acc[0..CO) += sum_ci p[ci] * w[ci * ws + (0..CO)] over one row of cin
+// values at p; zero values skip their FMAs. vec: read the row as 16-byte
+// vectors (cin * sizeof(T) % 16 == 0 and p 16-byte aligned).
+template <typename T, int CO>
+__device__ __forceinline__ void accumulate_row(float* acc,
+                                               const T* __restrict__ p,
+                                               int cin,
+                                               const float* __restrict__ w,
+                                               int ws, bool vec) {
+  if (vec) {
+    constexpr int E = 16 / sizeof(T);
+    const uint4* q = reinterpret_cast<const uint4*>(p);
+    for (int i = 0; i < cin / E; ++i) {
+      const uint4 u = __ldg(q + i);
+      const T* t = reinterpret_cast<const T*>(&u);
+#pragma unroll
+      for (int e = 0; e < E; ++e) {
+        const float a = to_f(t[e]);
+        if (a != 0.f) axpy<CO>(acc, a, w + (i * E + e) * ws);
+      }
+    }
+  } else {
+    for (int ci = 0; ci < cin; ++ci) {
+      const float a = to_f(p[ci]);
+      if (a != 0.f) axpy<CO>(acc, a, w + ci * ws);
+    }
+  }
+}
+
+// o[0..n) = acc[0..n) rounded to T (n <= CO); vec: the CO values are one
+// 16-byte-aligned run (n == CO, CO * sizeof(T) % 16 == 0).
+template <typename T, int CO>
+__device__ __forceinline__ void store_row(T* __restrict__ o,
+                                          const float* acc, int n,
+                                          bool vec) {
+  if constexpr ((CO * sizeof(T)) % 16 == 0) {
+    if (vec) {
+      store_voxel<T, CO>(o, acc);
+      return;
+    }
+  }
+#pragma unroll
+  for (int c = 0; c < CO; ++c) {
+    if (c < n) o[c] = from_f<T>(acc[c]);
+  }
+}
+
 inline unsigned blocks_for(long long n) {
   return static_cast<unsigned>((n + THREADS - 1) / THREADS);
 }

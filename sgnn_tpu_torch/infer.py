@@ -2,16 +2,27 @@
 
 It takes a scene sample dict (``data.dataset.SceneDataset`` gives them:
 ``sdf`` for the padded dims, ``input_locs``, ``input_sdf``, ``orig_dims``,
-``name``), sorts the rows, runs the only-surface serving forward and
-returns the surface voxels cropped to ``orig_dims``. One model serves
-every scene shape: the dims are checked per scene through
-``cfg.for_scene``. ``dispatch`` launches a scene's forward and returns a
-handle; ``collect`` crops, extracts and copies the surface to the host,
-so a driver overlaps scene i+1's forward with scene i's meshing
-(``tools/test_scene.py``). The JAX inferencer's capacity refit and
-overflow refetch exist only because XLA shapes are static; PyTorch
-extracts the surface with a dynamic ``nonzero``, so neither is needed
-here, and the input rows are not cut to a capacity.
+``name``), sorts the rows, runs a serving forward and returns the surface
+voxels cropped to ``orig_dims``. One model serves every scene shape: the
+dims are checked per scene through ``cfg.for_scene``. ``dispatch``
+launches a scene's forward and returns a handle; ``collect`` crops,
+extracts and copies the results to the host, so a caller overlaps scene
+i+1's forward with scene i's meshing (``tools/test_scene.py``).
+
+Three forwards serve:
+- ``GenModelFolded``, the only-surface folded forward. The JAX
+  inferencer's capacity refit and overflow refetch exist only because XLA
+  shapes are static; PyTorch extracts the surface with a dynamic
+  ``nonzero``, so neither is needed, and the input rows are not cut to a
+  capacity.
+- ``GenModelSparse`` (the coordinate-list execution) and
+  ``GenModelDense`` (the dense-flow execution): the input rows are cut to
+  the config's ``input_cap`` before sorting, as the JAX inferencer cuts
+  them, and the results carry what its ``_postprocess_sparse`` /
+  ``_postprocess_dense`` give: every refinement level's ``locs`` and
+  ``out`` (occ logit, sdf) besides the surface (the coordinate lists
+  cropped to ``orig_dims``, the dense levels not), and for the sparse
+  execution each level's compaction ``overflows``.
 """
 
 from __future__ import annotations
@@ -19,7 +30,10 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from sgnn_tpu_torch.models.dense_flow import GenModelDense
 from sgnn_tpu_torch.models.folded_flow import GenModelFolded
+from sgnn_tpu_torch.models.sgnn import GenModelSparse
+from sgnn_tpu_torch.ops.sparse import make_sparse
 
 
 def synthetic_scene(dims: tuple, seed: int = 0, truncation: float = 3.0,
@@ -49,13 +63,15 @@ def synthetic_scene(dims: tuple, seed: int = 0, truncation: float = 3.0,
 
 
 class SceneInferencer:
-    """Runs scene samples through a loaded GenModelFolded.
+    """Runs scene samples through a loaded GenModelFolded, GenModelSparse
+    or GenModelDense.
 
     ``impl="plain"`` runs every kernel's plain PyTorch version (on the
     card too); the default launches the CUDA kernels for a model on the
     card and the plain versions for a model on the CPU."""
 
-    def __init__(self, model: GenModelFolded, impl: str | None = None):
+    def __init__(self, model: GenModelFolded | GenModelSparse
+                 | GenModelDense, impl: str | None = None):
         self.model = model
         self.impl = impl
         self._side = None  # the card's stream for collect()
@@ -64,19 +80,28 @@ class SceneInferencer:
         """Launch one scene's forward (asynchronous on the card) and
         return the handle for ``collect``."""
         dims = tuple(int(d) for d in sample["sdf"].shape)
-        self.model.cfg.for_scene(dims)  # raises for dims it cannot take
+        cfg = self.model.cfg.for_scene(dims)  # raises for dims it cannot take
         device = self.model.trunk.occ_w.device
         locs3 = np.asarray(sample["input_locs"])
         if len(locs3) and ((locs3 < 0).any() or (locs3 >= dims).any()):
             raise ValueError(f"{sample['name']}: input_locs outside {dims}")
+        in_sdf = np.asarray(sample["input_sdf"], np.float32)
+        folded = isinstance(self.model, GenModelFolded)
+        cap = len(locs3) if folded else cfg.input_cap
+        locs3, in_sdf = locs3[:cap], in_sdf[:cap]
         order = np.lexsort((locs3[:, 2], locs3[:, 1], locs3[:, 0]))
-        locs3 = locs3[order]
-        in_sdf = np.asarray(sample["input_sdf"], np.float32)[order]
-        locs = torch.zeros(len(locs3), 4, dtype=torch.int64)
-        locs[:, :3] = torch.from_numpy(locs3.astype(np.int64))
-        feats = torch.from_numpy(in_sdf)[:, None]
-        out = self.model(locs.to(device), feats.to(device), dims,
-                         batch_size=1, impl=self.impl)
+        locs3, in_sdf = locs3[order], in_sdf[order]
+        locs = torch.full((cap, 4), -1, dtype=torch.int64)
+        locs[:len(locs3), :3] = torch.from_numpy(locs3.astype(np.int64))
+        locs[:len(locs3), 3] = 0
+        feats = torch.zeros(cap, 1)
+        feats[:len(locs3), 0] = torch.from_numpy(in_sdf)
+        locs, feats = locs.to(device), feats.to(device)
+        if folded:
+            out = self.model(locs, feats, dims, batch_size=1, impl=self.impl)
+        else:
+            out = self.model(make_sparse(locs, feats, len(locs3), dims, 1),
+                             impl=self.impl)
         done = None
         if device.type == "cuda":
             done = torch.cuda.Event()
@@ -91,7 +116,7 @@ class SceneInferencer:
         if handle["done"] is None:
             return self._extract(handle)
         if self._side is None:
-            self._side = torch.cuda.Stream(handle["out"].surf_mask.device)
+            self._side = torch.cuda.Stream(handle["out"].coarse_out.device)
         self._side.wait_event(handle["done"])
         with torch.cuda.stream(self._side):
             return self._extract(handle)
@@ -104,22 +129,45 @@ class SceneInferencer:
         sample, out = handle["sample"], handle["out"]
         locs3, in_sdf = handle["locs3"], handle["in_sdf"]
         orig = np.asarray(sample["orig_dims"])
-        sm = out.surf_mask[0].clone()
-        sm[int(orig[0]):] = False
-        sm[:, int(orig[1]):] = False
-        sm[:, :, int(orig[2]):] = False
-        surf_locs = torch.nonzero(sm).to(torch.int32)
-        surf_sdf = out.surf_sdf[0][sm]
+        levels = [{"dense_out": out.coarse_out[0].cpu().numpy()}]
+        res = {}
+        if hasattr(out, "surf_num_valid"):  # coordinate lists
+            def unpad(locs, num, *vals):
+                zyx = locs[:num, :3]
+                m = (zyx < torch.from_numpy(orig).to(zyx.device)).all(1)
+                return (zyx[m].cpu().numpy(),
+                        *[v[:num][m].cpu().numpy() for v in vals])
+
+            surf_locs, surf_sdf = unpad(out.surf_locs, out.surf_num_valid,
+                                        out.surf_sdf[:, 0])
+            for locs_u, out_u, num_u in out.refine_outs:
+                lv_locs, lv_out = unpad(locs_u, num_u, out_u)
+                levels.append({"locs": lv_locs, "out": lv_out})
+            res["overflows"] = [int(o) for o in out.overflows]
+        else:
+            sm = out.surf_mask[0].clone()
+            sm[int(orig[0]):] = False
+            sm[:, int(orig[1]):] = False
+            sm[:, :, int(orig[2]):] = False
+            surf_locs = torch.nonzero(sm).to(torch.int32).cpu().numpy()
+            surf_sdf = out.surf_sdf[0][sm].cpu().numpy()
+            for grid, mask in zip(getattr(out, "refine_outs", ()),
+                                  getattr(out, "refine_masks_unfilt", ())):
+                m = mask[0]
+                levels.append({
+                    "locs": torch.nonzero(m).to(torch.int32).cpu().numpy(),
+                    "out": grid[0][m].cpu().numpy()})
         keep = ((locs3[:, 0] < orig[0]) & (locs3[:, 1] < orig[1])
                 & (locs3[:, 2] < orig[2]))
         return {
             "name": sample["name"],
-            "surf_locs": surf_locs.cpu().numpy(),
-            "surf_sdf": surf_sdf.cpu().numpy(),
-            "levels": [{"dense_out": out.coarse_out[0].cpu().numpy()}],
+            "surf_locs": surf_locs.astype(np.int32),
+            "surf_sdf": surf_sdf,
+            "levels": levels,
             "level_active": [int(a) for a in out.level_active],
             "input_locs": locs3[keep],
             "input_sdf": in_sdf[keep],
             "orig_dims": orig,
             "world2grid": sample.get("world2grid"),
+            **res,
         }

@@ -16,7 +16,8 @@ from __future__ import annotations
 import dataclasses
 
 import torch
-import torch.nn.functional as F
+
+from sgnn_tpu_torch.ops import dense as D
 
 UNK_THRESH = 2
 UNK_ID = -1.0
@@ -42,11 +43,6 @@ def apply_log_transform(sdf: torch.Tensor) -> torch.Tensor:
     return torch.sign(sdf) * torch.log(sdf.abs() + 1.0)
 
 
-def max_pool3d(x: torch.Tensor) -> torch.Tensor:
-    """nn.MaxPool3d(2) on [B, Z, Y, X]."""
-    return F.max_pool3d(x[:, None], 2)[:, 0]
-
-
 def subsample2(x: torch.Tensor) -> torch.Tensor:
     """Stride-2 subsample of [B, Z, Y, X] (loss.py:46)."""
     return x[:, ::2, ::2, ::2]
@@ -67,7 +63,7 @@ def compute_targets(target: torch.Tensor, hierarchy: list,
     occs, hier = [None] * L, [None] * L
     occs[-1], hier[-1] = occ, target_for_sdf
     for h in range(L - 2, -1, -1):
-        occs[h] = max_pool3d(occs[h + 1])
+        occs[h] = D.max_pool3d(occs[h + 1])
         hier[h] = preprocess_sdf(hierarchy[h], truncation)
     return TargetBundle(target_for_sdf, occs, hier)
 

@@ -1,13 +1,15 @@
-"""Batch norm of dense channels-last grids (port of ``sgnn_tpu/ops/bn.py``
-``batch_norm_dense``: ``nn.BatchNorm3d`` semantics, eps 1e-5): the eval
-form with precomputed constants, and the training form with batch
-moments and the running-stats update."""
+"""Batch norm (port of ``sgnn_tpu/ops/bn.py``): dense channels-last grids
+(``batch_norm_dense``: ``nn.BatchNorm3d`` semantics, eps 1e-5) in the eval
+form with precomputed constants and in the training form with batch
+moments and the running-stats update; and the eval form over the masked
+rows of the sparse levels (``batch_norm`` with a mask, scn's eps 1e-4)."""
 
 from __future__ import annotations
 
 import numpy as np
 import torch
 
+SPARSE_BN_EPS = 1e-4
 DENSE_BN_EPS = 1e-5
 BN_MOMENTUM = 0.9  # retain factor: new_running = m * old + (1 - m) * batch
 
@@ -27,6 +29,34 @@ def batch_norm_eval(x: torch.Tensor, mean: torch.Tensor, inv: torch.Tensor,
     back to x's type."""
     y = ((x.float() - mean) * inv + bias).clamp_min(0.0)
     return y.to(x.dtype)
+
+
+def batch_norm_rows(x: torch.Tensor, mask: torch.Tensor | None,
+                    mean: torch.Tensor, inv: torch.Tensor,
+                    bias: torch.Tensor) -> torch.Tensor:
+    """Eval-mode BN + ReLU over the last axis, rounded to x's type, then
+    zero where ``mask`` (broadcast over the last axis) is False: the
+    order ops/bn.py:batch_norm rounds in."""
+    y = batch_norm_eval(x, mean, inv, bias)
+    return y if mask is None else torch.where(mask[..., None], y, 0)
+
+
+def prepare_eval_tree(params, stats, eps: float = SPARSE_BN_EPS):
+    """A copy of a (params, stats) subtree as f32 CPU tensors in which
+    every BN node ``{"scale", "bias"}`` becomes its eval constants
+    ``{"mean", "inv", "bias"}`` (eval_constants, computed on the CPU so
+    that the card's approximate rsqrt never enters them); other leaves
+    are kept unrounded."""
+    if isinstance(params, dict) and set(params) == {"scale", "bias"}:
+        return dict(zip(("mean", "inv", "bias"),
+                        eval_constants(params, stats, eps)))
+    if isinstance(params, dict):
+        return {k: prepare_eval_tree(v, (stats or {}).get(k), eps)
+                for k, v in params.items()}
+    if isinstance(params, (list, tuple)):
+        return [prepare_eval_tree(p, s, eps)
+                for p, s in zip(params, stats or [None] * len(params))]
+    return torch.tensor(np.asarray(params, np.float32))
 
 
 def batch_norm_dense(params: dict, stats: dict, x: torch.Tensor, *,

@@ -1,5 +1,7 @@
-"""Dense 3D convolutions of the 1/8-resolution trunk (port of
-``sgnn_tpu/ops/dense.py:32-85``).
+"""Dense 3D convolutions (port of ``sgnn_tpu/ops/dense.py``): the
+1/8-resolution trunk's conv and transposed conv (:32-85), and the
+dense-flow execution's upsampled conv and the max pool of the masks and
+of the loss's target pyramid (:88-145).
 
 Channels-last ``[B, Z, Y, X, C]`` activations, weights in torch layout
 (conv3d ``[Cout, Cin, k, k, k]``, conv_transpose3d ``[Cin, Cout, k, k, k]``),
@@ -17,7 +19,8 @@ scoped to the call:
   algorithms cuDNN may sum in a different order from run to run, and the
   occupancy gates downstream turn a last-bit difference into a different
   surface. One scene must give one surface, as it does on the TPU.
-At 1/8 resolution the deterministic algorithms cost little.
+At 1/8 resolution the deterministic algorithms cost little; the
+secondary executions run them at full resolution too.
 """
 
 from __future__ import annotations
@@ -68,3 +71,37 @@ def conv_transpose3d(x: torch.Tensor, weight: torch.Tensor, *,
     y = _Conv.apply(x.permute(0, 4, 1, 2, 3).float(), weight, stride,
                     padding, True)
     return y.permute(0, 2, 3, 4, 1).to(x.dtype)
+
+
+# Per-axis fold of [2x NN upsample -> 3-tap conv] into the 4 taps of a
+# stride-2 transposed conv on the coarse grid (sgnn_tpu/ops/dense.py:88-99):
+# out[2p] = W[-1] x[p-1] + (W[0] + W[1]) x[p],
+# out[2p+1] = (W[-1] + W[0]) x[p] + W[1] x[p+1].
+_UPFOLD_T = torch.tensor([[1, 0, 0], [1, 1, 0], [0, 1, 1], [0, 0, 1]],
+                         dtype=torch.float32)  # [s=4, t=3]
+
+
+def fold_upsample_conv_weights(weight: torch.Tensor) -> torch.Tensor:
+    """A 27-tap conv weight [27, Cin, Cout] -> the [4, 4, 4, Cin, Cout]
+    kernel of the equivalent stride-2 transposed conv on the coarse grid
+    (summed in the weight's type)."""
+    w = weight.reshape(3, 3, 3, *weight.shape[1:])
+    t = _UPFOLD_T.to(weight.device, weight.dtype)
+    return torch.einsum("abcio,xa,yb,zc->xyzio", w, t, t, t)
+
+
+def upsampled_conv3d(x: torch.Tensor, weight27: torch.Tensor
+                     ) -> torch.Tensor:
+    """conv3x3x3(nn_upsample_2x(x)) on the coarse grid: x [B, Z, Y, X,
+    Cin] -> [B, 2Z, 2Y, 2X, Cout]. The folded kernel is rounded to x's
+    type (as the JAX package rounds it), then run as the input-dilated
+    correlation it is: a stride-2 transposed conv of the flipped kernel,
+    padding 1 (a cuDNN call, as XLA computes it outside any kernel)."""
+    w = fold_upsample_conv_weights(weight27).to(x.dtype).float()
+    w = torch.flip(w, (0, 1, 2)).permute(3, 4, 0, 1, 2)
+    return conv_transpose3d(x, w, stride=2, padding=1)
+
+
+def max_pool3d(x: torch.Tensor) -> torch.Tensor:
+    """nn.MaxPool3d(2) on a float [B, Z, Y, X]."""
+    return nnf.max_pool3d(x[:, None], 2)[:, 0]

@@ -1,5 +1,7 @@
 """Hand-written CUDA kernels of the serving and training paths, one module
-per kernel (K7, ``conv_raw``, and K4's raw mode run only in training).
+per kernel (K7, ``conv_raw``, and K4's raw mode run only in training; K8
+only in the dense-flow execution, K10 only in the coordinate-list one,
+K9 on no path; K8 and K9 share ``conv3d_cl``).
 
 Each module holds a wrapper (launches the kernel for CUDA tensors), its
 plain PyTorch version (taken for CPU tensors, or with ``impl="plain"``)
@@ -8,8 +10,9 @@ and a launch counter that only the kernel launch advances.
 
 from __future__ import annotations
 
-from sgnn_tpu_torch.ops.kernels import (conv_raw, conv_site, downconv, head,
-                                        scatter, surf_head, upconv)
+from sgnn_tpu_torch.ops.kernels import (conv3d_cl, conv_raw, conv_site,
+                                        downconv, gather_gemm, head, scatter,
+                                        surf_head, upconv)
 
 # counter name -> (module, attribute holding its launch count)
 _COUNTERS = {
@@ -22,6 +25,9 @@ _COUNTERS = {
     "surf_head": (surf_head, "launches"),
     "scatter": (scatter, "launches"),
     "conv_raw": (conv_raw, "launches"),
+    "conv3d_folded": (conv3d_cl, "folded_launches"),
+    "conv3d": (conv3d_cl, "launches"),
+    "gather_gemm": (gather_gemm, "launches"),
 }
 
 

@@ -56,6 +56,11 @@ SIGNATURES = {
     "sgnn_conv_raw": [_P, _P, _I, _P, _I, _I, _I, _I, _I, _I, _P],
     "sgnn_scatter": [_P, _P, _I, _F, _P, _P, _I, _I, _I, _I, _I, _I,
                      _I, _P],
+    "sgnn_conv3d_folded": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I,
+                           _I, _P],
+    "sgnn_conv3d": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P],
+    "sgnn_gather_gemm": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I,
+                         _P],
 }
 
 _lib = None

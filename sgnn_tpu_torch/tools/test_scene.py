@@ -11,9 +11,13 @@ test_scene.py and with the JAX package's ``tools/test_scene.py``.
 ``.ckpt`` written by either package. The forward runs on the CUDA device
 ``--gpu`` with the hand-written kernels; ``--cpu`` runs it on the host
 with every kernel's plain PyTorch version. Without ``--cpu`` a missing
-CUDA device is an error. ``SGNN_NO_SURFPACK=1`` builds the model with
-the summed surface head instead of the multi-scale one, as it selects
-that branch in the JAX package.
+CUDA device is an error. ``--execution dense_flow`` and ``folded`` run
+the folded forward (``GenModelFolded``), the TPU's mapping of both;
+``--execution sparse`` runs the coordinate-list execution
+(``GenModelSparse``, its sparse convs on K10), with level capacities
+sized by ``--occupancy_fractions``. ``SGNN_NO_SURFPACK=1`` builds the
+folded model with the summed surface head instead of the multi-scale
+one, as it selects that branch in the JAX package.
 """
 
 from __future__ import annotations
@@ -63,13 +67,14 @@ def parse_args(argv=None):
                         "'z y x' triple")
     p.add_argument("--occupancy_fractions", type=float, nargs="+",
                    default=[1.0, 0.5, 0.25, 0.2],
-                   help="accepted for compatibility and has no effect: "
-                        "shapes are dynamic here, so no level capacity "
-                        "is sized from them")
+                   help="per-level capacity fractions of the sparse "
+                        "execution (its rows beyond a capacity are "
+                        "dropped and counted); the folded forward's "
+                        "shapes are dynamic and ignore them")
     p.add_argument("--execution", default="dense_flow",
                    choices=["sparse", "dense_flow", "folded"],
                    help="dense_flow and folded both run the folded "
-                        "forward; sparse is not ported")
+                        "forward; sparse the coordinate-list execution")
     p.add_argument("--compute_dtype", default="bfloat16",
                    choices=["float32", "bfloat16"])
     p.add_argument("--tap_order", default="c", choices=["c", "flipped"],
@@ -85,10 +90,6 @@ def parse_args(argv=None):
     if len(args.dim_round) not in (1, 3):
         p.error(f"--dim_round takes 1 value or a 'z y x' triple, got "
                 f"{len(args.dim_round)}: {args.dim_round}")
-    if args.execution == "sparse":
-        p.error("--execution sparse (the coordinate-list execution) is not "
-                "ported: see ROADMAP.md, queue 1, 'Secondary executions'; "
-                "use dense_flow or folded")
     return args
 
 
@@ -115,6 +116,7 @@ def main(argv=None) -> dict:
     from sgnn_tpu_torch.data.dataset import SceneDataset
     from sgnn_tpu_torch.infer import SceneInferencer
     from sgnn_tpu_torch.models.folded_flow import GenModelFolded
+    from sgnn_tpu_torch.models.sgnn import GenModelSparse
     from sgnn_tpu_torch.params import load_jax_params
 
     if args.cpu:
@@ -142,8 +144,11 @@ def main(argv=None) -> dict:
         execution=args.execution,
         compute_dtype=args.compute_dtype,
     )
-    model = GenModelFolded(cfg,
-                           surf_pack=not os.environ.get("SGNN_NO_SURFPACK"))
+    if args.execution == "sparse":
+        model = GenModelSparse(cfg)
+    else:
+        model = GenModelFolded(
+            cfg, surf_pack=not os.environ.get("SGNN_NO_SURFPACK"))
     load_jax_params(model, *load_params(args.model_path, cfg, args.tap_order))
     model.to(device)
     print(f"loaded model: {args.model_path} ({device})")

@@ -111,8 +111,9 @@ def parse_args(argv=None):
         p.error("--num_hierarchy_levels must be > 1")
     refusals = [
         (args.execution != "folded",
-         f"--execution {args.execution} is not ported (ROADMAP, slice 4: "
-         f"the secondary executions); use folded"),
+         f"--execution {args.execution} does not train in the port "
+         f"(ROADMAP, Queue 1: training through the secondary executions); "
+         f"use folded"),
         (not args.fuse_train_bn,
          "--fuse_train_bn 0 (the composed BN -> op ablation) is not ported"),
         (args.ckpt_backend != "npz",

@@ -87,6 +87,9 @@ def test_port_imports_without_jax():
         "import sgnn_tpu_torch.data.dataset, sgnn_tpu_torch.data.formats\n"
         "import sgnn_tpu_torch.meshing.export, sgnn_tpu_torch.meshing.native\n"
         "import sgnn_tpu_torch.ops.kernels.conv_raw, sgnn_tpu_torch.losses\n"
+        "import sgnn_tpu_torch.ops.kernels.conv3d_cl\n"
+        "import sgnn_tpu_torch.ops.kernels.gather_gemm\n"
+        "import sgnn_tpu_torch.models.sgnn, sgnn_tpu_torch.nn.blocks\n"
         "import sgnn_tpu_torch.schedules, sgnn_tpu_torch.data.capacity\n"
         "import sgnn_tpu_torch.models.folded_train\n"
         "import sgnn_tpu_torch.train.state, sgnn_tpu_torch.train.step\n"

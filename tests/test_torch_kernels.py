@@ -245,7 +245,8 @@ def test_kernel_sources():
     """Every kernel has its CUDA source, built only on first use."""
     names = {p.name for p in build.sources()}
     assert {"conv_site.cu", "downconv.cu", "upconv.cu", "head.cu",
-            "scatter.cu"} <= names
+            "scatter.cu", "surf_head.cu", "conv_raw.cu", "conv3d_cl.cu",
+            "gather_gemm.cu"} <= names
     for p in build.sources():
         assert "Replaces: sgnn_tpu/ops/pallas/" in p.read_text(), p.name
     assert build._lib is None

@@ -389,11 +389,12 @@ def test_cli_cpu_matches_inferencer(jax_weights, tmp_path):
 
 
 def test_cli_refuses(tmp_path):
-    """No silent switch to the CPU, and no sparse execution."""
+    """No silent switch to the CPU, with the folded or the sparse
+    execution."""
     base = ["--input_data_path", str(tmp_path), "--target_data_path",
             str(tmp_path), "--test_file_list", str(tmp_path / "l.txt"),
             "--model_path", str(tmp_path / "m.ckpt")]
-    res = _cli([*base, "--execution", "sparse", "--cpu"])
-    assert res.returncode != 0 and "Secondary executions" in res.stderr
-    res = _cli(base, env={**os.environ, "CUDA_VISIBLE_DEVICES": ""})
-    assert res.returncode != 0 and "no CUDA device" in res.stderr
+    env = {**os.environ, "CUDA_VISIBLE_DEVICES": ""}
+    for extra in ([], ["--execution", "sparse"]):
+        res = _cli([*base, *extra], env=env)
+        assert res.returncode != 0 and "no CUDA device" in res.stderr

@@ -140,8 +140,8 @@ def test_cli_cpu_trains_and_serves(chunks, tmp_path):
 
 
 @pytest.mark.parametrize("extra,msg", [
-    (["--execution", "dense_flow"], "slice 4"),
-    (["--execution", "sparse"], "slice 4"),
+    (["--execution", "dense_flow"], "Queue 1"),
+    (["--execution", "sparse"], "Queue 1"),
     (["--fuse_train_bn", "0"], "fuse_train_bn"),
     (["--ckpt_backend", "orbax"], "orbax"),
     (["--rss_restart_gb", "8"], "rss_restart_gb"),
