@@ -15,7 +15,9 @@ where every phase passed prints the two JSON lines at the end):
    |kernel - plain| beside its tolerance and both times; K8 and K9 on
    grids masked by the scene's sphere shell (C 8/16/32, Cout < C down to
    1, Y != X, K8's input gradient), K10 over the shell's rows (27 and 8
-   taps, 16 to 48 inputs, rows with every neighbour missing);
+   taps, 16 to 48 inputs, rows with every neighbour missing), the int8
+   modes K1q, K2q, K3q (to their tolerance plus one activation step) and
+   tile_amax (bit-equal) with their TPU tiles;
 4. forward: the full-width model (L=4, nf 16, bf16, seeded random
    weights) answers three synthetic sphere scenes through
    sgnn_tpu_torch.infer.SceneInferencer; every kernel of that path must
@@ -59,7 +61,17 @@ where every phase passed prints the two JSON lines at the end):
    steps and whose .ckpt must load into the serving model and serve a
    room; ms per step with kernels and with plain versions, samples/s and
    peak device memory;
-8. the card's name and power limit again, a JSON line of per-kernel
+8. int8: the phase-4 weights and scenes through the int8 serving
+   forward (cfg.quantize_int8: K1q, K2q and K3q at every conv, down and
+   upsample site, each after one tile_amax scale pre-pass) via
+   SceneInferencer; launches per forward required as derived
+   (INT8_EXPECTED, no exact K1-K3 launch), every kernel call of one
+   forward held against its plain version, the f32 surfaces of kernels
+   and plain versions compared (IoU >= 0.999), the bf16 surface against
+   the plain int8 run and the exact forward; ms per forward, a profile
+   of each forward and peak device memory (this phase runs after phase
+   4);
+9. the card's name and power limit again, a JSON line of per-kernel
    results (launches, error, ms against the plain version and against one
    PyTorch call where one computes the same function, and the card's bound
    for the same work), then the status line {"ok": true, "device": {...}}.
@@ -93,7 +105,16 @@ N_SCENES = 3
 EXPECTED = {"conv_site": 37, "downconv": 11, "upconv": 3, "head_gate": 3,
             "head_gate_raw": 0, "head_sum": 0, "surf_head": 1, "scatter": 1,
             "conv_raw": 0, "conv3d_folded": 0, "conv3d": 0,
-            "gather_gemm": 0}
+            "gather_gemm": 0, "conv_site_q": 0, "downconv_q": 0,
+            "upconv_q": 0, "tile_amax": 0}
+# the int8 forward (cfg.quantize_int8, phase 8), derived from the JAX
+# forward, which passes quantize=q8 to every conv, down and upsample site
+# (sgnn_tpu/models/folded_flow.py:61-121, 247-271, 320-324): the same 37 /
+# 11 / 3 sites run their int8 modes, each after one tile_amax launch
+# (37 + 11 + 3 = 51), and no exact K1-K3 runs
+INT8_EXPECTED = dict(EXPECTED, conv_site=0, downconv=0, upconv=0,
+                     conv_site_q=37, downconv_q=11, upconv_q=3,
+                     tile_amax=51)
 SOURCES = {
     "conv_site": ("sgnn_tpu_torch/csrc/conv_site.cu",
                   "sgnn_tpu/ops/pallas/conv3d_folded.py:593"),
@@ -119,6 +140,18 @@ SOURCES = {
                "sgnn_tpu/ops/pallas/conv3d.py:77"),
     "gather_gemm": ("sgnn_tpu_torch/csrc/gather_gemm.cu",
                     "sgnn_tpu/ops/pallas/gather_gemm.py:62"),
+    "conv_site_q": ("sgnn_tpu_torch/csrc/conv_site.cu",
+                    "sgnn_tpu/ops/pallas/conv3d_folded.py:593 (int8 body "
+                    ":413-451)"),
+    "downconv_q": ("sgnn_tpu_torch/csrc/downconv.cu",
+                   "sgnn_tpu/ops/pallas/conv3d_folded.py:1375 (int8 body "
+                   ":1228-1264)"),
+    "upconv_q": ("sgnn_tpu_torch/csrc/upconv.cu",
+                 "sgnn_tpu/ops/pallas/conv3d_folded.py:1055 (int8 body "
+                 ":868-923)"),
+    "tile_amax": ("sgnn_tpu_torch/csrc/quant.cu",
+                  "sgnn_tpu/ops/pallas/conv3d_folded.py:419-421, 875-876, "
+                  "1231-1233 (the int8 bodies' per-tile amax)"),
 }
 # the secondary executions (phase 6) on the phase-4 scene, launches per
 # forward derived from the code at L = 4 (models/sgnn.py, nn/blocks.py,
@@ -146,6 +179,10 @@ CAP_HEADROOM = 4
 # H100 SXM data sheet, dense bf16 tensor rate and HBM3 bandwidth
 PEAK_BF16_FLOPS = 989e12
 PEAK_BYTES = 3.35e12
+# the same data sheet's dense int8 tensor rate (the int8 sites' products)
+# and f32 rate outside the tensor cores (tile_amax's compares)
+PEAK_INT8_OPS = 1979e12
+PEAK_F32_FLOPS = 67e12
 # training: the JAX package's training configuration at full width
 # (SGNNConfig defaults, tools/train.py: 128x64x64 chunks, batch 8)
 TRAIN_DIMS = (128, 64, 64)
@@ -166,6 +203,12 @@ TRAIN_STATS_REL = 1e-4
 # logit within f32 rounding of 0) at most max(2, 1e-4 * active voxels)
 F32_REL = 1e-4
 BF16_ULPS = 2
+# int8 sites, kernel vs plain: both quantize the same f32 values with the
+# same scales and sum integers exactly, so only the f32 dequantization
+# sums can round apart (and flip no int8 value); still, every value is
+# held to its tolerance plus one activation step and at least this share
+# to the tolerance alone (tests/test_torch_int8.py's bound against JAX)
+Q_MIN_CLOSE = 0.999
 FLIP_FRAC = 1e-4
 # forward, kernels vs plain on one scene. f32: the surfaces agree (IoU and
 # max |sdf diff| on the common surface relative to the sdf scale). bf16:
@@ -272,13 +315,35 @@ def _time_ms(fn, reps: int = 5) -> float:
     return a.elapsed_time(b) / reps
 
 
-def _tol(ref: torch.Tensor, extra: float = 0.0) -> float:
-    """Tolerance for an output; ``extra``: the magnitude of a residual
-    added after the kernel's rounding (its ulp can exceed the output's)."""
-    scale = float(ref.abs().max()) + extra
-    if ref.dtype == torch.bfloat16:
-        return BF16_ULPS * 2.0 ** (np.floor(np.log2(max(scale, 1e-30))) - 7)
-    return F32_REL * scale + 1e-6
+def _ulp_bf16(x: torch.Tensor) -> torch.Tensor:
+    """bfloat16's unit in the last place at |x| (8 significant bits)."""
+    return torch.exp2(torch.floor(torch.log2(x.abs().clamp_min(1e-30))) - 7)
+
+
+def _tol(ref: torch.Tensor, got: torch.Tensor,
+         resid: torch.Tensor | None = None):
+    """Tolerance of a kernel output ``got`` against its plain version's
+    ``ref``: f32, F32_REL of the output's scale (with ``resid``, a residual
+    added after the kernel's rounding, of the output's plus the residual's
+    scale); bf16, BF16_ULPS ulps at the output's scale. A bf16 output with
+    a residual rounds twice, round(round(acc * m) + r), so elementwise:
+    the two inner roundings of nearly equal f32 sums are equal or
+    adjacent, one ulp apart at their magnitude, which is at most
+    (max(|got|, |ref|) + |r|) (1 + 2^-7); each outer rounding moves its
+    sum by at most half an ulp of its result. That bound is capped at
+    BF16_ULPS ulps of the output's plus the residual's scale, so it is
+    never looser than the scalar one."""
+    extra = float(resid.abs().max()) if resid is not None else 0.0
+    if ref.dtype != torch.bfloat16:
+        return F32_REL * (float(ref.abs().max()) + extra) + 1e-6
+    scalar = float(BF16_ULPS * _ulp_bf16(
+        torch.tensor(float(ref.abs().max()) + extra)))
+    if resid is None:
+        return scalar
+    k, p, r = got.float(), ref.float(), resid.float()
+    inner = (torch.maximum(k.abs(), p.abs()) + r.abs()) * (1 + 2.0 ** -7)
+    return (_ulp_bf16(inner) + 0.5 * (_ulp_bf16(k) + _ulp_bf16(p))
+            ).clamp_max(scalar)
 
 
 def _interior(t):
@@ -289,16 +354,56 @@ def _nbytes(*ts) -> int:
     return sum(t.numel() * t.element_size() for t in ts)
 
 
+def _voxels(mask, reach: int = 0) -> torch.Tensor:
+    """[B, Z, Y, X] bool: the voxels of a folded mask grid that are active,
+    or, with ``reach`` 3, within a 3^3 conv's reach of one, with 2, in the
+    2^3 block of one (a stride-2 conv's coarse voxel)."""
+    from torch.nn import functional as nnf
+
+    from sgnn_tpu_torch.ops import folded as FO
+
+    a = FO.unfold(mask)[..., 0] != 0
+    if reach == 3:
+        a = nnf.max_pool3d(a[:, None].float(), 3, 1, 1)[:, 0] > 0
+    elif reach == 2:
+        a = nnf.max_pool3d(a[:, None].float(), 2, 2)[:, 0] > 0
+        a = a.repeat_interleave(2, 1).repeat_interleave(2, 2) \
+            .repeat_interleave(2, 3)
+    return a
+
+
+def _grid_bytes(grids, dt, need=None) -> int:
+    """Bytes of folded grids, held in ``dt``, that a kernel must read: each
+    grid in full or, with ``need`` ([B, Z, Y, X] bool), only the 32-byte
+    sectors (the card's smallest memory access) that hold a real channel
+    of a voxel it marks."""
+    item = torch.empty((), dtype=dt).element_size()
+    if need is None:
+        return sum(g.data.numel() for g in grids) * item
+    total = 0
+    for g in grids:
+        B, Zp, Yp, xq, lanes = g.data.shape
+        slots = torch.zeros(B, Zp - 2, Yp - 2, xq * lanes // g.cpad,
+                            dtype=torch.bool, device=need.device)
+        slots[..., :need.shape[3]] = need
+        real = torch.arange(g.cpad, device=need.device) < g.real_c
+        sectors = (slots[..., None] & real).reshape(
+            B, Zp - 2, Yp - 2, -1, 32 // item).any(-1)
+        total += int(sectors.sum()) * 32
+    return total
+
+
 def _active(grid, cpad) -> int:
     """Voxels of a folded mask grid whose value is non-zero."""
     return int((_slots(grid, cpad)[..., 0] != 0).sum())
 
 
-def _bound(nbytes: int, flops: float) -> dict:
+def _bound(nbytes: int, flops: float, peak: float = PEAK_BF16_FLOPS) -> dict:
     """The least time for the work on the card: the larger of the bytes
-    over its memory rate and the operations over its bf16 rate."""
+    over its memory rate and the operations over the rate of their type
+    (``peak``: bf16 by default)."""
     t_bytes = nbytes / PEAK_BYTES * 1e3
-    t_ops = flops / PEAK_BF16_FLOPS * 1e3
+    t_ops = flops / peak * 1e3
     return {"bound_ms": max(t_bytes, t_ops),
             "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
 
@@ -331,14 +436,18 @@ def _slots(t, cpad):
 
 
 def _compare(what, outs_k, outs_p, values, masks=(), gate_cpad=0,
-             extra=0.0, dense=False):
+             resid=None, dense=False, step=0.0):
     """Checks kernel outputs against the plain version's: zero z/y rings,
-    ``masks`` outputs equal, ``values`` outputs within tolerance. With
-    ``gate_cpad`` output 2 is an occupancy gate at that lane budget (the
-    gated head's new mask): its flips must fit the budget and values are
-    compared where the two gates agree. ``dense``: the outputs have no
-    halo ring ([B, Z, Y, X] arrays, or K7's unpadded grid). Returns (max
-    err, its tolerance, flips, active)."""
+    ``masks`` outputs equal, ``values`` outputs within tolerance (_tol;
+    ``resid``: the residual added to output 0). With ``gate_cpad`` output
+    2 is an occupancy gate at that lane budget (the gated head's new
+    mask): its flips must fit the budget and values are compared where
+    the two gates agree. ``dense``: the outputs have no halo ring ([B, Z,
+    Y, X] arrays, or K7's unpadded grid). ``step``: an int8 site's
+    activation step (one int8 value moved by one): every value within its
+    tolerance plus the step, at most 1 - Q_MIN_CLOSE of them beyond the
+    tolerance. Returns (max err, its largest share of the tolerance,
+    flips, active, values beyond the tolerance)."""
     agree, flips, active = None, 0, 0
     if gate_cpad:
         gk, gp = (_slots(_interior(o[2]), gate_cpad)[..., 0] > 0
@@ -354,18 +463,29 @@ def _compare(what, outs_k, outs_p, values, masks=(), gate_cpad=0,
     for k in () if dense else outs_k:
         ring = torch.cat([k[:, [0, -1]].flatten(), k[:, :, [0, -1]].flatten()])
         require(not ring.any(), f"{what}: nonzero halo ring")
-    err, tol = 0.0, 0.0
+    err, ratio, beyond = 0.0, 0.0, 0
     for i in values:
         k, p = outs_k[i], outs_p[i]
+        r = resid if i == 0 else None
         if not dense:
             k, p = _interior(k), _interior(p)
+            r = _interior(r) if r is not None else None
         d = (k.float() - p.float()).abs()
+        tol = _tol(p, k, r)
         if agree is not None:
             d = _slots(d, gate_cpad) * agree
-        e, t = float(d.max()), _tol(p, extra)
-        require(np.isfinite(e) and e <= t, f"{what}: max err {e} > tol {t}")
-        err, tol = max(err, e), max(tol, t)
-    return err, tol, flips, active
+            tol = _slots(tol, gate_cpad) if torch.is_tensor(tol) else tol
+        e = float(d.max())
+        n_far = int((d > tol).sum())
+        q = float((d / (tol + step)).max())
+        require(np.isfinite(e) and q <= 1.0,
+                f"{what}: max err {e}, {q:.3f} of its tolerance"
+                + (f" plus one activation step {step:.3e}" if step else ""))
+        require(n_far <= (1 - Q_MIN_CLOSE) * d.numel(),
+                f"{what}: {n_far} of {d.numel()} values beyond the "
+                f"tolerance")
+        err, ratio, beyond = max(err, e), max(ratio, q), beyond + n_far
+    return err, ratio, flips, active, beyond
 
 
 class KernelChecks:
@@ -403,29 +523,35 @@ class KernelChecks:
 
     def run(self, name, label, make, values, masks=(), gate_cpad=0,
             resid=None, dense=False, work=None, library=None,
-            dtypes=(torch.float32, torch.bfloat16)):
+            dtypes=(torch.float32, torch.bfloat16), step=None,
+            peak=PEAK_BF16_FLOPS):
         """make(dt) -> call(impl) -> output grids, inputs converted once;
-        compared as _compare does (``resid``: the residual grid). The
-        kernel's first bf16 case is timed against its plain version and,
-        with ``library`` (dt -> a call), one PyTorch call computing the
-        same function; ``work(dt)`` gives that case's (bytes each input
-        read once and each output written once, operations its data
-        needs), from which the card's bound follows."""
-        extra = float(resid.data.abs().max()) if resid is not None else 0.0
+        compared as _compare does (``resid``: the residual grid; ``step``:
+        dt -> an int8 site's activation step). The kernel's first bf16
+        case is timed against its plain version and, with ``library``
+        (dt -> a call), one PyTorch call computing the same function;
+        ``work(dt)`` gives that case's (bytes each input read once and
+        each output written once, operations its data needs, of the type
+        whose rate is ``peak``), from which the card's bound follows."""
         for dt in dtypes:
             call = make(dt)
             outs_k, outs_p = call(None), call("plain")
             what = f"{name} {label} {str(dt)[6:]}"
-            err, tol, flips, active = _compare(what, outs_k, outs_p, values,
-                                               masks, gate_cpad, extra,
-                                               dense)
+            r = resid.data.to(dt) if resid is not None else None
+            st = step(dt) if step is not None else 0.0
+            err, ratio, flips, active, far = _compare(
+                what, outs_k, outs_p, values, masks, gate_cpad, r, dense,
+                st)
             if gate_cpad:
                 log(f"[kernels] {what}: gate flips {flips} of {active} "
                     f"active")
             del outs_k, outs_p
             rec = self.results.setdefault(name, {"max_abs_err": 0.0})
             rec["max_abs_err"] = max(rec["max_abs_err"], err)
-            msg = f"max |kernel - plain| {err:.3e} (tol {tol:.3e})"
+            msg = (f"max |kernel - plain| {err:.3e} ({ratio:.2f} of its "
+                   f"tolerance" + (f" plus one activation step {st:.3e}; "
+                                   f"{far} values beyond the tolerance"
+                                   if step is not None else "") + ")")
             if dt == torch.bfloat16 and "ms" not in rec:
                 # alternate plain, kernel, kernel, plain on the same inputs
                 tp1 = _time_ms(lambda: call("plain"))
@@ -444,10 +570,11 @@ class KernelChecks:
                 nbytes, flops = work(dt)
                 nbytes += _nbytes(*outs)
                 del outs
-                rec.update(_bound(nbytes, flops))
+                rec.update(_bound(nbytes, flops, peak))
                 msg += (f"; bound {rec['bound_ms']:.4f} ms by "
                         f"{rec['bound_by']} ({nbytes / 1e6:.1f} MB, "
-                        f"{flops / 1e9:.2f} GFLOP)")
+                        f"{flops / 1e9:.2f} G operations at "
+                        f"{peak / 1e12:g} T/s)")
             log(f"[kernels] {name} {label} {str(dt)[6:]}: {msg}")
 
     def all(self):
@@ -474,10 +601,14 @@ class KernelChecks:
             return lambda impl: (FO.subm_conv_fused(
                 grp, m, w, 16, aff=aff, residual=r, impl=impl).data,)
         n16 = _active(fm16.data, 16)
+        act16 = _voxels(fm16)
 
         def conv16_work(dt):
-            ins = [cast(g, dt).data for g in (*g16, fm16, res16)]
-            return _nbytes(*ins, w, aff), 2 * 27 * sum(widths) * 16 * n16
+            # the groups only at active voxels (relu(.) * 0 elsewhere); the
+            # mask and the residual in full
+            return (_grid_bytes(g16, dt, act16) + _grid_bytes(
+                [fm16, res16], dt) + _nbytes(w, aff),
+                    2 * 27 * sum(widths) * 16 * n16)
         self.run("conv_site", "cpad16 G3 affine+residual", conv16, [0],
                  resid=res16, work=conv16_work,
                  library=_library_conv((1, sum(widths), *SCENE), 16, 3,
@@ -511,7 +642,9 @@ class KernelChecks:
             return call
         def down_cross_work(dt):
             o, om = down_cross(dt)(None)
-            return (_nbytes(cast(x8, dt).data, cast(fm8, dt).data, wd),
+            # no affine: the input in every 2^3 block of an active voxel
+            return (_grid_bytes([x8], dt, _voxels(fm8, 2))
+                    + _grid_bytes([fm8], dt) + _nbytes(wd),
                     2 * 8 * 8 * 8 * _active(om, 16))
         self.run("downconv", "cross cpad8->16", down_cross, [0], masks=[1],
                  work=down_cross_work,
@@ -542,9 +675,9 @@ class KernelChecks:
             return lambda impl: (FO.upconv_fused(
                 grp, m, None, wu, 16, aff=affu, impl=impl).data,)
         def up_work(dt):
-            ins = [cast(g, dt).data for g in (*cg, cfm)]
-            return _nbytes(*ins, wu, affu), 2 * 8 * 48 * 16 * 8 * _active(
-                cfm.data, 16)
+            return (_grid_bytes(cg, dt, _voxels(cfm)) + _grid_bytes(
+                [cfm], dt) + _nbytes(wu, affu),
+                    2 * 8 * 48 * 16 * 8 * _active(cfm.data, 16))
         self.run("upconv", "G3 fmask=None", up, [0], work=up_work,
                  library=_library_conv((1, 48, *cd), 16, 4, stride=2,
                                        padding=1, transpose=True))
@@ -637,9 +770,194 @@ class KernelChecks:
             return call
         self.run("scatter", f"{len(locs)} rows cpad8", scat, [0],
                  masks=[0, 1], work=lambda dt: (_nbytes(locs, feats), 0))
+        self.int8_cases()
         self.training_cases()
         self.secondary_cases()
         return self.results
+
+    def int8_cases(self):
+        """K1q, K2q, K3q (the int8 modes of the conv, down and upsample
+        sites, quantize=True) and their scale pre-pass tile_amax at the
+        serving shapes, on grids masked by the sphere shell; each site's
+        TPU tiles (logged) give it many activation scales. tile_amax is
+        held bit-equal to its plain version."""
+        from sgnn_tpu_torch.ops import quant as Q
+        from sgnn_tpu_torch.ops.kernels import tile_amax as K_amax
+        from sgnn_tpu_torch.ops.kernels.downconv import coarse_xq
+
+        FO, fine, coarse = self.FO, self.fine, self.coarse
+        cd = tuple(d // 2 for d in SCENE)
+        dts = (torch.float32, torch.bfloat16)
+
+        def cast(fg, dt):
+            return fg.with_data(fg.data.to(dt))
+
+        def on_card(pair):
+            return tuple(t.to(self.dev) for t in pair)
+
+        def tiles_of(fn, *a):
+            t = {dt: fn(*a, dt) for dt in dts}
+            return ", ".join(f"{str(dt)[6:]} {v.nz}x{v.ny} tiles of "
+                             f"{v.tz}x{v.ty}" for dt, v in t.items())
+
+        # K1q at the finest level (cpad 16, 3 groups, affine, residual)
+        # and at level 0 (cpad 8: the resblock, and the first conv over
+        # the one-channel input without an affine)
+        widths = [16, 2, 8]
+        fm16 = self.mask(fine, 16)
+        g16 = [self.grid(SCENE, c, 16, fine) for c in widths]
+        res16 = self.grid(SCENE, 16, 16, fine)
+        aff16 = self.affines(widths)
+        w27 = self.weights(27, 26, 16)
+        cw = {dt: on_card(Q.quantize_conv_weights(
+            FO.prep_conv_weights(w27, widths, dt))) for dt in dts}
+        log(f"[kernels] int8 conv_site cpad16 G3: " + tiles_of(
+            lambda dt: Q.conv_tiles(cast(fm16, dt).data, 3, True)))
+
+        def conv16(dt):
+            grp, m, r = [cast(g, dt) for g in g16], cast(fm16, dt), \
+                cast(res16, dt)
+            wq, ws = cw[dt]
+            return lambda impl: (FO.subm_conv_fused(
+                grp, m, wq, 16, aff=aff16, residual=r, quantize=True, ws=ws,
+                impl=impl).data,)
+        n16 = _active(fm16.data, 16)
+        act16 = _voxels(fm16)
+
+        def conv16_work(dt):
+            # as K1's: the groups only at active voxels
+            return (_grid_bytes(g16, dt, act16) + _grid_bytes(
+                [fm16, res16], dt) + _nbytes(*cw[dt], aff16),
+                    2 * 27 * sum(widths) * 16 * n16)
+
+        def conv16_step(dt):
+            return _activation_step([cast(g, dt).data for g in g16],
+                                    cast(fm16, dt).data, aff16, 16,
+                                    cw[dt][1])
+        self.run("conv_site_q", "cpad16 G3 affine+residual", conv16, [0],
+                 resid=res16, work=conv16_work, step=conv16_step,
+                 peak=PEAK_INT8_OPS)
+
+        fm8 = self.mask(fine, 8)
+        x8 = self.grid(SCENE, 8, 8, fine)
+        in8 = self.grid(SCENE, 1, 8, fine)
+        aff8 = self.affines([8])
+        for label, x, cin, aff, resid in (
+                ("cpad8 G1 affine+residual", x8, 8, aff8, x8),
+                ("cpad8 G1 cin 1", in8, 1, None, None)):
+            w8 = self.weights(27, cin, 8)
+            qw = {dt: on_card(Q.quantize_conv_weights(
+                FO.prep_conv_weights(w8, [cin], dt))) for dt in dts}
+
+            def conv8(dt, x=x, aff=aff, resid=resid, qw=qw):
+                xd, m = cast(x, dt), cast(fm8, dt)
+                r = cast(resid, dt) if resid is not None else None
+                return lambda impl: (FO.subm_conv_fused(
+                    [xd], m, qw[dt][0], 8, aff=aff, residual=r,
+                    quantize=True, ws=qw[dt][1], impl=impl).data,)
+
+            def conv8_step(dt, x=x, aff=aff, qw=qw):
+                return _activation_step([cast(x, dt).data],
+                                        cast(fm8, dt).data, aff, 8,
+                                        qw[dt][1])
+            self.run("conv_site_q", label, conv8, [0], resid=resid,
+                     step=conv8_step)
+
+        # K2q: the encoder's level-0 exit (cpad 8 -> 16, no affine) and a
+        # U-Net down site (cpad 16, affine)
+        for label, x, fm, cin, cpad, co, aff in (
+                ("cross cpad8->16", x8, fm8, 8, 8, 16, None),
+                ("cpad16 affine", g16[0], fm16, 16, 16, 16,
+                 self.affines([16])[0])):
+            wd = self.weights(8, cin, cin)
+            dw = {dt: on_card(Q.quantize_downconv_weights(
+                FO.prep_downconv_weights(wd, cin, dt))) for dt in dts}
+            xqc = coarse_xq(x.data.shape[3], cpad, co)
+            log(f"[kernels] int8 downconv {label}: " + tiles_of(
+                lambda dt: Q.downconv_tiles(cast(x, dt).data, xqc)))
+
+            def down(dt, x=x, fm=fm, co=co, aff=aff, dw=dw, cin=cin):
+                xd, m = cast(x, dt), cast(fm, dt)
+
+                def call(impl):
+                    o, om = FO.downconv_fused(
+                        xd, m, dw[dt][0], cin, aff=aff, cpad_out=co,
+                        quantize=True, ws=dw[dt][1], impl=impl)
+                    return o.data, om.data
+                return call
+
+            def down_work(dt, x=x, fm=fm, aff=aff, dw=dw, cin=cin,
+                          call=down):
+                o, om = call(dt)(None)
+                # as K2's: with an affine the input at active voxels only
+                need = _voxels(fm, 2 if aff is None else 0)
+                return (_grid_bytes([x], dt, need) + _grid_bytes([fm], dt)
+                        + _nbytes(*dw[dt]),
+                        2 * 8 * cin * cin * _active(om, 16))
+
+            def down_step(dt, x=x, fm=fm, aff=aff, dw=dw, cpad=cpad):
+                return _activation_step(
+                    [cast(x, dt).data], cast(fm, dt).data,
+                    aff[None] if aff is not None else None, cpad, dw[dt][1])
+            self.run("downconv_q", label, down, [0], masks=[1],
+                     work=down_work, step=down_step, peak=PEAK_INT8_OPS)
+
+        # K3q from the 48x96x96 coarse level, 3 groups, fine mask expanded
+        cfm = self.mask(coarse, 16)
+        cg = [self.grid(cd, 16, 16, coarse) for _ in range(3)]
+        affu = self.affines([16] * 3)
+        wu27 = self.weights(27, 48, 16)
+        uw = {dt: on_card(Q.quantize_upconv_weights(
+            FO.prep_upconv_weights(wu27, [16] * 3, dt))) for dt in dts}
+        xqf = FO._xq_for(SCENE[2], 16)
+        log(f"[kernels] int8 upconv G3: " + tiles_of(
+            lambda dt: Q.upconv_tiles(cast(cfm, dt).data, xqf, 3)))
+
+        def up(dt):
+            grp, m = [cast(g, dt) for g in cg], cast(cfm, dt)
+            return lambda impl: (FO.upconv_fused(
+                grp, m, None, uw[dt][0], 16, aff=affu, quantize=True,
+                ws=uw[dt][1], impl=impl).data,)
+
+        def up_work(dt):
+            return (_grid_bytes(cg, dt, _voxels(cfm)) + _grid_bytes(
+                [cfm], dt) + _nbytes(*uw[dt], affu),
+                    2 * 8 * 48 * 16 * 8 * _active(cfm.data, 16))
+
+        def up_step(dt):
+            return _activation_step([cast(g, dt).data for g in cg],
+                                    cast(cfm, dt).data, affu, 16, uw[dt][1])
+        self.run("upconv_q", "G3 fmask=None", up, [0], work=up_work,
+                 step=up_step, peak=PEAK_INT8_OPS)
+
+        # tile_amax over each site's windows, bit-equal to its plain version
+        for label, xs, fm, aff, cpad, tiles in (
+                ("conv windows cpad16 G3 affine", g16, fm16, aff16, 16,
+                 lambda dt: Q.conv_tiles(cast(fm16, dt).data, 3, True)),
+                ("down windows cpad8 G1", [x8], fm8, None, 8,
+                 lambda dt: Q.downconv_tiles(cast(x8, dt).data, coarse_xq(
+                     x8.data.shape[3], 8, 16))),
+                ("up windows G3 affine", cg, cfm, affu, 16,
+                 lambda dt: Q.upconv_tiles(cast(cfm, dt).data, xqf, 3))):
+
+            def amax(dt, xs=xs, fm=fm, aff=aff, cpad=cpad, tiles=tiles):
+                xd, m, t = [cast(g, dt).data for g in xs], cast(fm, dt), \
+                    tiles(dt)
+                return lambda impl: (K_amax.tile_amax(xd, m.data, aff, cpad,
+                                                      t, impl=impl),)
+
+            def amax_work(dt, xs=xs, fm=fm, aff=aff):
+                # |x| and max per value, over every lane; with an affine
+                # also *, +, relu, * and only the real channels of active
+                # voxels (relu(.) * 0 elsewhere), plus the mask
+                if aff is None:
+                    return _grid_bytes(xs, dt), 2 * sum(
+                        g.data.numel() for g in xs)
+                act = _voxels(fm)
+                return (_grid_bytes(xs, dt, act) + _grid_bytes([fm], dt),
+                        6 * int(act.sum()) * sum(g.real_c for g in xs))
+            self.run("tile_amax", label, amax, [], masks=[0], dense=True,
+                     work=amax_work, peak=PEAK_F32_FLOPS)
 
     def secondary_cases(self):
         """K8 and K9 (channels-last 3^3 conv) and K10 (gather-GEMM) at the
@@ -842,6 +1160,37 @@ class KernelChecks:
 # ------------------------------------------------------------------ phase 4
 
 
+def _int8_step(name, args, kw) -> float:
+    """An int8 site call's activation step, one int8 value moved by one:
+    the largest tile scale times the largest column scale times 127, that
+    is the largest |input| over every group times the largest column
+    scale; 0 for the other kernels. Arguments as the wrappers take them:
+    conv_site_q(xs, mask, wq, ws, cins, cpad), downconv_q(x, fmask, wq,
+    ws, cin, cpad, ...), upconv_q(xs, cmask, fmask, wq, ws, cins, cpad,
+    ...)."""
+    if name == "conv_site_q":
+        xs, mask, ws, cpad, aff = args[0], args[1], args[3], args[5], \
+            kw.get("aff")
+    elif name == "downconv_q":
+        aff = kw.get("aff")
+        xs, mask, ws, cpad = [args[0]], args[1], args[3], args[5]
+        aff = aff[None] if aff is not None else None
+    elif name == "upconv_q":
+        xs, mask, ws, cpad, aff = args[0], args[1], args[4], args[6], \
+            kw.get("aff")
+    else:
+        return 0.0
+    return _activation_step(xs, mask, aff, cpad, ws)
+
+
+def _activation_step(xs, mask, aff, cpad, ws) -> float:
+    from sgnn_tpu_torch.ops.quant import site_input
+
+    amax = max(float(site_input(x, mask, aff, g, cpad).abs().max())
+               for g, x in enumerate(xs))
+    return amax * float(ws.max())
+
+
 class MainPathCheck:
     """While active, every kernel wrapper call that launches its kernel
     also runs the plain version on the same inputs and compares the two
@@ -861,7 +1210,11 @@ class MainPathCheck:
              "conv_raw": ([0], [], False, True),
              "conv3d_folded": ([0], [], False, True),
              "conv3d": ([0], [], False, True),
-             "gather_gemm": ([0], [], False, True)}
+             "gather_gemm": ([0], [], False, True),
+             "conv_site_q": ([0], [], False, False),
+             "downconv_q": ([0], [1], False, False),
+             "upconv_q": ([0], [], False, False),
+             "tile_amax": ([], [0], False, True)}
     # wrapper attributes whose counter has another name
     COUNTER = {"conv3d_3x3x3_folded": "conv3d_folded",
                "conv3d_3x3x3": "conv3d"}
@@ -869,7 +1222,7 @@ class MainPathCheck:
     def __init__(self):
         from sgnn_tpu_torch.ops.kernels import conv3d_cl, conv_raw, \
             conv_site, downconv, gather_gemm, head, scatter, surf_head, \
-            upconv
+            tile_amax, upconv
 
         # wrapper function (module attribute) -> its module; the gated
         # head's calls with the raw output count under head_gate_raw
@@ -877,9 +1230,11 @@ class MainPathCheck:
                      "upconv": upconv, "head_gate": head, "head_sum": head,
                      "surf_head": surf_head, "scatter": scatter,
                      "conv_raw": conv_raw, "conv3d_3x3x3_folded": conv3d_cl,
-                     "conv3d_3x3x3": conv3d_cl, "gather_gemm": gather_gemm}
-        self.stats = {n: {"calls": 0, "err": 0.0, "ratio": 0.0, "flips": 0}
-                      for n in self.SPECS}
+                     "conv3d_3x3x3": conv3d_cl, "gather_gemm": gather_gemm,
+                     "conv_site_q": conv_site, "downconv_q": downconv,
+                     "upconv_q": upconv, "tile_amax": tile_amax}
+        self.stats = {n: {"calls": 0, "err": 0.0, "ratio": 0.0, "flips": 0,
+                          "beyond": 0} for n in self.SPECS}
         self.saved = {}
 
     def _wrap(self, fn_name, orig):
@@ -894,16 +1249,16 @@ class MainPathCheck:
             ref = orig(*args, impl="plain", **kw)
             outs = out if isinstance(out, tuple) else (out,)
             refs = ref if isinstance(ref, tuple) else (ref,)
-            resid = kw.get("residual")
-            extra = float(resid.abs().max()) if resid is not None else 0.0
             st = self.stats[name]
-            err, tol, flips, _ = _compare(
+            err, ratio, flips, _, far = _compare(
                 f"main path {name} call {st['calls']}", outs, refs, values,
-                masks, args[5] if gate else 0, extra, dense)
+                masks, args[5] if gate else 0, kw.get("residual"), dense,
+                _int8_step(name, args, kw))
             st["calls"] += 1
             st["err"] = max(st["err"], err)
-            st["ratio"] = max(st["ratio"], err / tol)
+            st["ratio"] = max(st["ratio"], ratio)
             st["flips"] += flips
+            st["beyond"] += far
             return out
         return checked
 
@@ -1167,6 +1522,118 @@ def _agreement(dt, name_a, name_b, a, b):
         f"common surface: mean |diff| {diff.mean():.3e}, max "
         f"{diff.max():.3e}, scale {scale:.3e}")
     return iou, diff, scale
+
+
+# ------------------------------------------------------------------ phase 8
+
+
+def phase_int8(results: dict, weights) -> None:
+    """Phase 8: the int8 serving forward (cfg.quantize_int8) on the
+    phase-4 weights and sphere scenes through SceneInferencer: launches
+    per forward as derived (INT8_EXPECTED), every kernel call of one
+    forward against its plain version, f32 kernels vs plain versions,
+    bf16 against the plain int8 run and the exact forward, ms per forward
+    and peak device memory."""
+    import dataclasses
+
+    from sgnn_tpu_torch.config import SGNNConfig
+    from sgnn_tpu_torch.infer import SceneInferencer, synthetic_scene
+    from sgnn_tpu_torch.models.folded_flow import GenModelFolded
+    from sgnn_tpu_torch.ops import kernels as K
+    from sgnn_tpu_torch.params import load_jax_params
+
+    cfg = SGNNConfig(input_dim=SCENE, batch_size=1,
+                     occupancy_fractions=FRACTIONS,
+                     compute_dtype="bfloat16", quantize_int8=True)
+
+    def build(c):
+        m = GenModelFolded(c).cuda()
+        load_jax_params(m, *weights)
+        return m
+    model = build(cfg)
+    exact = build(dataclasses.replace(cfg, quantize_int8=False))
+    scenes = [synthetic_scene(SCENE, seed=s, truncation=cfg.truncation)
+              for s in range(N_SCENES)]
+    infer = SceneInferencer(model)
+    infer(scenes[0])  # warm-up
+
+    # the main path: three scenes, counted and timed
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    K.reset_launch_counts()
+    outs, host_ms = [], []
+    for sc in scenes:
+        t0 = time.perf_counter()
+        outs.append(infer(sc))
+        torch.cuda.synchronize()
+        host_ms.append((time.perf_counter() - t0) * 1e3)
+    counts = K.launch_counts()
+    peak = torch.cuda.max_memory_allocated()
+    for name, n in counts.items():
+        want = INT8_EXPECTED[name] * N_SCENES
+        if want or n:
+            log(f"[int8] {name}: {n} launches over {N_SCENES} scenes "
+                f"(expected {want})")
+        require(n == want, f"int8 forward: {name} launched {n} times, "
+                           f"expected {want}")
+    for name in ("conv_site_q", "downconv_q", "upconv_q", "tile_amax"):
+        results[name]["launches"] = counts[name]
+    for o in outs:
+        require(len(o["surf_locs"]) > 0, f"int8 {o['name']}: empty surface")
+        require(np.isfinite(o["surf_sdf"]).all(), "int8: non-finite sdf")
+        require((o["surf_locs"] < np.asarray(SCENE)).all(), "int8: bad locs")
+        log(f"[int8] scene {o['name']}: active per level "
+            f"{o['level_active']}, surface {len(o['surf_locs'])} voxels")
+    log(f"[int8] ms/scene (host clock, SceneInferencer call): "
+        f"{' '.join(f'{t:.2f}' for t in host_ms)}; peak device memory "
+        f"{peak / 2**20:.1f} MiB")
+
+    # device time of the forward alone, int8 and exact in turns
+    s0 = scenes[0]
+    locs, feats = _rows(s0)
+    for label, m in (("int8", model), ("exact", exact), ("exact", exact),
+                     ("int8", model)):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        ms = _time_ms(lambda: m(locs, feats, SCENE), reps=3)
+        log(f"[int8] bfloat16 forward, {label} sites: {ms:.2f} ms (CUDA "
+            f"events, mean of 3); peak device memory "
+            f"{torch.cuda.max_memory_allocated() / 2**20:.1f} MiB")
+    # the device's busy time against the host clock: the forward is
+    # launched from Python, so the CUDA-event times include host gaps
+    for label, m in (("int8", model), ("exact", exact)):
+        _profile("int8", f"one bfloat16 forward, {label} sites",
+                 lambda m=m: m(locs, feats, SCENE))
+
+    # every kernel call of one forward against its plain version there
+    with MainPathCheck() as chk:
+        infer(s0)
+    for name, st in chk.stats.items():
+        want = INT8_EXPECTED[name]
+        if want or st["calls"]:
+            log(f"[int8] main-path inputs, {name}: {st['calls']} calls, "
+                f"max |kernel - plain| {st['err']:.3e} (at most "
+                f"{st['ratio']:.2f} of its tolerance), {st['beyond']} "
+                f"values beyond the tolerance alone, gate flips "
+                f"{st['flips']}")
+        require(st["calls"] == want,
+                f"int8: {name} checked {st['calls']} times, expected {want}")
+
+    # f32: kernels vs plain versions; bf16: against the plain int8 run and
+    # the exact forward (the gate cascade of random weights, PERF.md)
+    m32 = build(dataclasses.replace(cfg, compute_dtype="float32"))
+    iou, diff, scale = _agreement("float32 int8", "kernels", "plain",
+                                  SceneInferencer(m32)(s0),
+                                  SceneInferencer(m32, impl="plain")(s0))
+    require(iou >= MIN_IOU_F32, f"int8 f32 surface IoU {iou}")
+    require(diff.mean() <= MAX_SDF_REL_F32 * scale,
+            f"int8 f32 mean sdf diff {diff.mean()}")
+    del m32
+    plain = SceneInferencer(model, impl="plain")(s0)
+    ex = SceneInferencer(exact)(s0)
+    require(len(plain["surf_locs"]) > 0, "int8 plain: empty surface")
+    _agreement("bfloat16 int8", "kernels", "plain", outs[0], plain)
+    _agreement("bfloat16", "int8 kernels", "exact kernels", outs[0], ex)
 
 
 # ------------------------------------------------------------------ phase 5
@@ -1630,7 +2097,8 @@ def train_launches(cfg) -> dict:
             "upconv": ref, "head_gate": 0, "head_gate_raw": ref,
             "head_sum": 1, "surf_head": 0, "scatter": 1,
             "conv_raw": k7_fwd + k7_bwd, "conv3d_folded": 0, "conv3d": 0,
-            "gather_gemm": 0}
+            "gather_gemm": 0, "conv_site_q": 0, "downconv_q": 0,
+            "upconv_q": 0, "tile_amax": 0}
 
 
 def _write_chunks(root, n, dims=TRAIN_DIMS, truncation=3.0):
@@ -1918,6 +2386,7 @@ def main() -> int:
         phase_build()
         results = KernelChecks().all()
         model, weights = phase_forward(results)
+        phase_int8(results, weights)
         phase_serve(model, weights)
         phase_secondary(results, weights)
         phase_train(results)

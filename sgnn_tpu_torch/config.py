@@ -3,9 +3,8 @@
 The JAX package's config module cannot be imported without jax (its
 package ``__init__`` imports the sparse ops), so the port carries its own
 copy. ``tests/test_torch_params.py`` holds the fields, defaults and
-derived properties to the original. Fields that only the JAX executions
-read (conv backend, Pallas routing, int8, training fusion) are kept so a
-config moves between the two packages unchanged.
+derived properties to the original. Every field is kept, so a config
+moves between the two packages unchanged.
 """
 
 from __future__ import annotations

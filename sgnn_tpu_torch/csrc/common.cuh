@@ -166,6 +166,92 @@ __device__ __forceinline__ void store_row(T* __restrict__ o,
   }
 }
 
+// ------------------------------------------------------- int8 modes
+//
+// The int8 sites (K1q-K3q, sgnn_tpu/ops/pallas/conv3d_folded.py with
+// quantize=True) quantize each input voxel on the fly with the scale of
+// the TPU tile that holds the output voxel, s = max(amax, 1e-8) / 127
+// from the tile_amax pre-pass (quant.cu), and sum int8 x int8 products
+// in int32 (exact: at most 27 taps x 16 channels x 127^2 < 2^24, so the
+// f32 conversion is exact too). Weights arrive as int8 [..., co, ci]:
+// one output channel's 16 input-channel weights are one 16-byte word.
+
+__device__ __forceinline__ float tile_scale(float amax) {
+  return fmaxf(amax, 1e-8f) / 127.0f;  // IEEE division (no fast math)
+}
+
+// clip(round(tf * inv), -127, 127), rounding half to even (rintf).
+__device__ __forceinline__ int quantize_s8(float tf, float inv) {
+  const float q = rintf(__fmul_rn(tf, inv));
+  return static_cast<int>(fminf(fmaxf(q, -127.f), 127.f));
+}
+
+// words[0..CI/4) = one voxel's CI channels at p as the site's f32 input
+// (relu(v * s + b) * mi with the affine sc, else v), quantized with inv
+// and packed four to a word (channel ci in byte ci % 4 of word ci / 4;
+// channels >= cin are 0). Returns false when every value is 0.
+template <typename T, int CI>
+__device__ __forceinline__ bool quantize_voxel(const T* __restrict__ p,
+                                               int cin, const float* sc,
+                                               float mi, float inv,
+                                               int* words) {
+  float v[CI];
+  load_voxel<T, CI>(p, v);
+  unsigned any = 0;
+#pragma unroll
+  for (int w = 0; w < CI / 4; ++w) {
+    unsigned word = 0;
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int ci = 4 * w + e;
+      int q = 0;
+      if (ci < cin) {
+        const float tf = sc != nullptr
+                             ? affine_relu_mask(v[ci], sc[ci],
+                                                sc[MAXC + ci], mi)
+                             : v[ci];
+        q = quantize_s8(tf, inv);
+      }
+      word |= (static_cast<unsigned>(q) & 0xffu) << (8 * e);
+    }
+    words[w] = static_cast<int>(word);
+    any |= word;
+  }
+  return any != 0;
+}
+
+// iacc[co] += sum_ci q[ci] * w[co][ci] for co < CO, over the CI/4 packed
+// words; w: CO 16-byte words (uniform loads, one address per warp).
+template <int CI, int CO>
+__device__ __forceinline__ void dp4a_voxel(int* iacc, const int* words,
+                                           const int4* __restrict__ w) {
+#pragma unroll
+  for (int co = 0; co < CO; ++co) {
+    const int4 wv = __ldg(w + co);
+    int a = iacc[co];
+    a = __dp4a(words[0], wv.x, a);
+    a = __dp4a(words[1], wv.y, a);
+    if constexpr (CI > 8) {
+      a = __dp4a(words[2], wv.z, a);
+      a = __dp4a(words[3], wv.w, a);
+    }
+    iacc[co] = a;
+  }
+}
+
+// acc[co] += f32(iacc[co]) * (s * ws[co]): one group's dequantization in
+// the TPU kernels' order, every product and sum rounded on its own.
+template <int CO>
+__device__ __forceinline__ void dequant_add(float* acc, const int* iacc,
+                                            float s,
+                                            const float* __restrict__ ws) {
+#pragma unroll
+  for (int co = 0; co < CO; ++co) {
+    acc[co] = __fadd_rn(acc[co], __fmul_rn(static_cast<float>(iacc[co]),
+                                           __fmul_rn(s, __ldg(ws + co))));
+  }
+}
+
 inline unsigned blocks_for(long long n) {
   return static_cast<unsigned>((n + THREADS - 1) / THREADS);
 }

@@ -18,6 +18,14 @@
 // written once, so it is a bandwidth-bound pass. Design: one thread per
 // coarse voxel with all output channels in registers; the 8 mask reads
 // come first and an inactive coarse voxel writes zeros and stops.
+//
+// K2q, the int8 mode (quantize=True, _kernel_downconv :1228-1264), in the
+// same design: the coarse voxel reads its TPU tile's amax (tile (iz, iy)
+// holds coarse interior rows [iz tz, (iz + 1) tz) x [iy ty, (iy + 1) ty);
+// its window is their fine children, no halo), quantizes each fine
+// child's f32 input on the fly, sums int8 products in int32 with __dp4a
+// against int8 weights [8, co, ci], and writes f32(iacc) * (s * ws[co])
+// times the coarse mask; the coarse mask is the exact mode's.
 #include "common.cuh"
 
 namespace sgnn {
@@ -87,6 +95,115 @@ __global__ void __launch_bounds__(THREADS)
 }
 
 template <typename T, int CI, int CO>
+__global__ void __launch_bounds__(THREADS)
+    downconv_q_kernel(const T* __restrict__ x, const T* __restrict__ fmask,
+                      const int4* __restrict__ wq,    // [8, MAXC] x 16
+                      const float* __restrict__ ws,   // [MAXC]
+                      const float* __restrict__ aff,  // [2, MAXC] or null
+                      const float* __restrict__ amax,  // [B, nz, ny]
+                      int cin, T* __restrict__ out, T* __restrict__ mout,
+                      int B, int Zcp, int Ycp, int Xsc, int Zfp, int Yfp,
+                      int Xsf, int tz, int ty, int nz, int ny) {
+  const long long idx =
+      static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
+  if (idx >= static_cast<long long>(B) * Zcp * Ycp * Xsc) return;
+  const Voxel v = decode(idx, Zcp, Ycp, Xsc);
+  T* o = out + idx * CO;
+  T* mo = mout + idx * CO;
+  if (v.z == 0 || v.z == Zcp - 1 || v.y == 0 || v.y == Ycp - 1) {
+    store_zero<T, CO>(o);
+    store_zero<T, CO>(mo);
+    return;
+  }
+  float mc = 0.f;
+  for (int t = 0; t < 8; ++t) {
+    const int xf = 2 * v.x + (t & 1);
+    if (xf >= Xsf) continue;
+    const long long nv = voxel_index(v.b, 2 * v.z - 1 + (t >> 2),
+                                     2 * v.y - 1 + ((t >> 1) & 1), xf, Zfp,
+                                     Yfp, Xsf);
+    mc = fmaxf(mc, to_f(fmask[nv * CI]));
+  }
+  if (mc == 0.f) {
+    store_zero<T, CO>(o);
+    store_zero<T, CO>(mo);
+    return;
+  }
+  const float s = tile_scale(
+      amax[(static_cast<long long>(v.b) * nz + (v.z - 1) / tz) * ny +
+           (v.y - 1) / ty]);
+  const float inv = 1.0f / s;
+  int iacc[CO];
+#pragma unroll
+  for (int c = 0; c < CO; ++c) iacc[c] = 0;
+  for (int t = 0; t < 8; ++t) {  // tap = dz * 4 + dy * 2 + dx
+    const int xf = 2 * v.x + (t & 1);
+    if (xf >= Xsf) continue;
+    const long long nv = voxel_index(v.b, 2 * v.z - 1 + (t >> 2),
+                                     2 * v.y - 1 + ((t >> 1) & 1), xf, Zfp,
+                                     Yfp, Xsf) * CI;
+    float mi = 1.f;
+    if (aff != nullptr) {
+      mi = to_f(fmask[nv]);
+      if (mi == 0.f) continue;
+    }
+    int words[CI / 4];
+    if (!quantize_voxel<T, CI>(x + nv, cin, aff, mi, inv, words)) continue;
+    dp4a_voxel<CI, CO>(iacc, words, wq + t * MAXC);
+  }
+#pragma unroll
+  for (int c = 0; c < CO; ++c) {
+    const float a = __fmul_rn(static_cast<float>(iacc[c]),
+                              __fmul_rn(s, __ldg(ws + c)));
+    o[c] = from_f<T>(a * mc);
+    mo[c] = from_f<T>(1.f);
+  }
+}
+
+template <typename T, int CI, int CO>
+static int launch_downconv_q(const void* x, const void* fmask,
+                             const void* wq, const float* ws,
+                             const float* aff, const float* amax, int cin,
+                             void* out, void* mout, int B, int Zfp, int Yfp,
+                             int xqf, int xqc, int tz, int ty, int nz, int ny,
+                             cudaStream_t stream) {
+  const int Zcp = (Zfp - 2) / 2 + 2;
+  const int Ycp = (Yfp - 2) / 2 + 2;
+  const int Xsf = xqf * (LANES / CI);
+  const int Xsc = xqc * (LANES / CO);
+  const long long n = static_cast<long long>(B) * Zcp * Ycp * Xsc;
+  downconv_q_kernel<T, CI, CO><<<blocks_for(n), THREADS, 0, stream>>>(
+      static_cast<const T*>(x), static_cast<const T*>(fmask),
+      static_cast<const int4*>(wq), ws, aff, amax, cin, static_cast<T*>(out),
+      static_cast<T*>(mout), B, Zcp, Ycp, Xsc, Zfp, Yfp, Xsf, tz, ty, nz,
+      ny);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <typename T>
+static int dispatch_downconv_q(int cpad, int cpad_out, const void* x,
+                               const void* fmask, const void* wq,
+                               const float* ws, const float* aff,
+                               const float* amax, int cin, void* out,
+                               void* mout, int B, int Zfp, int Yfp, int xqf,
+                               int xqc, int tz, int ty, int nz, int ny,
+                               cudaStream_t s) {
+  if (cpad == 8 && cpad_out == 8)
+    return launch_downconv_q<T, 8, 8>(x, fmask, wq, ws, aff, amax, cin, out,
+                                      mout, B, Zfp, Yfp, xqf, xqc, tz, ty,
+                                      nz, ny, s);
+  if (cpad == 8 && cpad_out == 16)
+    return launch_downconv_q<T, 8, 16>(x, fmask, wq, ws, aff, amax, cin, out,
+                                       mout, B, Zfp, Yfp, xqf, xqc, tz, ty,
+                                       nz, ny, s);
+  if (cpad == 16 && cpad_out == 16)
+    return launch_downconv_q<T, 16, 16>(x, fmask, wq, ws, aff, amax, cin,
+                                        out, mout, B, Zfp, Yfp, xqf, xqc, tz,
+                                        ty, nz, ny, s);
+  return static_cast<int>(cudaErrorInvalidValue);
+}
+
+template <typename T, int CI, int CO>
 static int launch_downconv(const void* x, const void* fmask, const float* w,
                            const float* aff, int cin, void* out,
                            void* mout, int B, int Zfp, int Yfp, int xqf,
@@ -138,4 +255,22 @@ extern "C" int sgnn_downconv(const void* x, const void* fmask, const float* w,
               : dispatch_downconv<float>(cpad, cpad_out, x, fmask, w, aff,
                                          cin, out, mout, B, Zfp, Yfp,
                                          xqf, xqc, s);
+}
+
+// The int8 mode: wq int8 [8, 16, 16] (co, ci), ws [16], amax [B, nz, ny]
+// from sgnn_tile_amax, (tz, ty) the TPU tile in coarse rows.
+extern "C" int sgnn_downconv_q(const void* x, const void* fmask,
+                               const void* wq, const float* ws,
+                               const float* aff, const float* amax, int cin,
+                               void* out, void* mout, int B, int Zfp,
+                               int Yfp, int xqf, int xqc, int cpad,
+                               int cpad_out, int tz, int ty, int nz, int ny,
+                               int bf16, void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  return bf16 ? dispatch_downconv_q<__nv_bfloat16>(
+                    cpad, cpad_out, x, fmask, wq, ws, aff, amax, cin, out,
+                    mout, B, Zfp, Yfp, xqf, xqc, tz, ty, nz, ny, s)
+              : dispatch_downconv_q<float>(cpad, cpad_out, x, fmask, wq, ws,
+                                           aff, amax, cin, out, mout, B, Zfp,
+                                           Yfp, xqf, xqc, tz, ty, nz, ny, s);
 }

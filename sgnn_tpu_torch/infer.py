@@ -23,6 +23,11 @@ Three forwards serve:
   ``out`` (occ logit, sdf) besides the surface (the coordinate lists
   cropped to ``orig_dims``, the dense levels not), and for the sparse
   execution each level's compaction ``overflows``.
+
+``cfg.quantize_int8`` is read by ``GenModelFolded`` alone: its int8 sites
+take weights quantized once, at load, and serve here unchanged. The
+secondary executions serve exact under the same config, as the JAX
+package's do.
 """
 
 from __future__ import annotations

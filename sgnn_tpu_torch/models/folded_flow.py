@@ -3,12 +3,18 @@
 Port of ``sgnn_tpu/models/folded_flow.py`` ``genmodel_apply_folded``
 (:126) in its serving form: ``want_level_outputs=False`` (no per-level
 raw head grids), every refinement level and the surface head active, no
-spatial sharding, no int8. The surface head is the multi-scale packed
+spatial sharding. The surface head is the multi-scale packed
 head (``surf_head_packed``, K5) over the surface U-Net's groups at their
 native resolutions; ``GenModelFolded(cfg, surf_pack=False)`` builds the
 counterpart of the JAX package's ``SGNN_NO_SURFPACK`` branch instead:
 the groups upsampled to full resolution and the summed head site
 (``surf_head_fused``, K4 summed mode).
+
+``cfg.quantize_int8`` serves every conv, down and upsample site in its
+int8 mode (K1-K3 with ``quantize=True``: int8 weights with per-column
+scales, dynamic per-tile activation scales, ``ops/quant.py``), as the JAX
+forward passes ``quantize=q8`` to each of them; the input scatter, the
+heads, the trunk and the BN passes stay exact there too.
 
 Each site module prepares its kernel-ready weights once, in ``load``
 (called by ``params.load_jax_params``), and keeps them as buffers; the
@@ -26,6 +32,7 @@ from torch import nn
 from sgnn_tpu_torch.config import SGNNConfig
 from sgnn_tpu_torch.models.dense_flow import DenseTrunk
 from sgnn_tpu_torch.ops import folded as FO
+from sgnn_tpu_torch.ops import quant as Q
 from sgnn_tpu_torch.ops.folded import MAXC, FGrid
 
 CPAD = 16  # lane budget of every level but the encoder's first
@@ -37,19 +44,41 @@ def _check_widths(groups: list, widths: tuple, site: str) -> None:
         raise ValueError(f"{site}: group widths {got}, expected {widths}")
 
 
-class ConvSite(nn.Module):
+class _WeightedSite(nn.Module):
+    """A site's prepared weights ``w``: f32, or with ``quantize`` int8
+    with their per-column scales ``ws`` (the int8 mode), prepared once in
+    ``load`` as the JAX package's prepare_folded_weights hoists them."""
+
+    def _weights(self, shape: tuple, ws_shape: tuple, quantize: bool
+                 ) -> None:
+        self.quantize = quantize
+        self.register_buffer("w", torch.zeros(
+            *shape, dtype=torch.int8 if quantize else torch.float32))
+        self.register_buffer("ws", torch.zeros(ws_shape) if quantize
+                             else None)
+
+    def _set(self, w: torch.Tensor, quantize_fn) -> None:
+        if self.quantize:
+            w, ws = quantize_fn(w)
+            self.ws.copy_(ws)
+        self.w.copy_(w)
+
+
+class ConvSite(_WeightedSite):
     """A 3^3 submanifold conv over input groups (kernel K1)."""
 
-    def __init__(self, widths, cout: int, affine: bool = False):
+    def __init__(self, widths, cout: int, affine: bool = False,
+                 quantize: bool = False):
         super().__init__()
         self.widths, self.cout, self.affine = tuple(widths), cout, affine
         G = len(self.widths)
-        self.register_buffer("w", torch.zeros(G, 27, MAXC, MAXC))
+        self._weights((G, 27, MAXC, MAXC), (G, MAXC), quantize)
         self.register_buffer(
             "aff", torch.zeros(G, 2, MAXC) if affine else None)
 
     def load(self, w27, dtype: torch.dtype, bn: tuple | None = None) -> None:
-        self.w.copy_(FO.prep_conv_weights(w27, self.widths, dtype))
+        self._set(FO.prep_conv_weights(w27, self.widths, dtype),
+                  Q.quantize_conv_weights)
         if self.affine:
             self.aff.copy_(FO.prep_affines(*bn, self.widths))
 
@@ -57,20 +86,23 @@ class ConvSite(nn.Module):
                 impl: str | None = None) -> FGrid:
         _check_widths(groups, self.widths, "conv site")
         return FO.subm_conv_fused(groups, fm, self.w, self.cout, aff=self.aff,
-                                  residual=residual, impl=impl)
+                                  residual=residual, quantize=self.quantize,
+                                  ws=self.ws, impl=impl)
 
 
-class DownSite(nn.Module):
+class DownSite(_WeightedSite):
     """A stride-2 2^3 conv plus the coarse mask (kernel K2)."""
 
-    def __init__(self, cin: int, cout: int, affine: bool):
+    def __init__(self, cin: int, cout: int, affine: bool,
+                 quantize: bool = False):
         super().__init__()
         self.cin, self.cout, self.affine = cin, cout, affine
-        self.register_buffer("w", torch.zeros(8, MAXC, MAXC))
+        self._weights((8, MAXC, MAXC), (MAXC,), quantize)
         self.register_buffer("aff", torch.zeros(2, MAXC) if affine else None)
 
     def load(self, w8, dtype: torch.dtype, bn: tuple | None = None) -> None:
-        self.w.copy_(FO.prep_downconv_weights(w8, self.cin, dtype))
+        self._set(FO.prep_downconv_weights(w8, self.cin, dtype),
+                  Q.quantize_downconv_weights)
         if self.affine:
             self.aff.copy_(FO.prep_affines(*bn, [self.cin])[0])
 
@@ -78,29 +110,32 @@ class DownSite(nn.Module):
                 impl: str | None = None) -> tuple[FGrid, FGrid]:
         _check_widths([fg], (self.cin,), "down site")
         return FO.downconv_fused(fg, fm, self.w, self.cout, aff=self.aff,
-                                 cpad_out=cpad_out, impl=impl)
+                                 cpad_out=cpad_out, quantize=self.quantize,
+                                 ws=self.ws, impl=impl)
 
 
-class UpSite(nn.Module):
+class UpSite(_WeightedSite):
     """BN + ReLU + mask, 2x upsample and a 3^3 conv from coarse groups
     (kernel K3); the fine mask is expanded from the coarse one."""
 
-    def __init__(self, widths, cout: int):
+    def __init__(self, widths, cout: int, quantize: bool = False):
         super().__init__()
         self.widths, self.cout = tuple(widths), cout
         G = len(self.widths)
-        self.register_buffer("w", torch.zeros(G, 8, 8, MAXC, MAXC))
+        self._weights((G, 8, 8, MAXC, MAXC), (G, 2, MAXC), quantize)
         self.register_buffer("aff", torch.zeros(G, 2, MAXC))
 
     def load(self, w27, bn: tuple, dtype: torch.dtype) -> None:
-        self.w.copy_(FO.prep_upconv_weights(w27, self.widths, dtype))
+        self._set(FO.prep_upconv_weights(w27, self.widths, dtype),
+                  Q.quantize_upconv_weights)
         self.aff.copy_(FO.prep_affines(*bn, self.widths))
 
     def forward(self, groups: list, cfm: FGrid, impl: str | None = None
                 ) -> FGrid:
         _check_widths(groups, self.widths, "up site")
         return FO.upconv_fused(groups, cfm, None, self.w, self.cout,
-                               aff=self.aff, impl=impl)
+                               aff=self.aff, quantize=self.quantize,
+                               ws=self.ws, impl=impl)
 
 
 class HeadSite(nn.Module):
@@ -181,10 +216,10 @@ class ResBlock(nn.Module):
     """Two BN -> conv sites; the identity branch is added inside the
     second kernel, after its mask."""
 
-    def __init__(self, nf: int):
+    def __init__(self, nf: int, q: bool = False):
         super().__init__()
-        self.conv0 = ConvSite([nf], nf, affine=True)
-        self.conv1 = ConvSite([nf], nf, affine=True)
+        self.conv0 = ConvSite([nf], nf, affine=True, quantize=q)
+        self.conv1 = ConvSite([nf], nf, affine=True, quantize=q)
 
     def load(self, p: dict, s: dict, dtype: torch.dtype) -> None:
         self.conv0.load(p["conv0"], dtype, (p["bn0"], s["bn0"]))
@@ -202,11 +237,12 @@ class UNet(nn.Module):
     with ``defer`` the (group, scale) pairs at their native resolutions
     (scale = the NN-upsample factor to this one; nothing is upsampled)."""
 
-    def __init__(self, nf: int, levels: int = 3):
+    def __init__(self, nf: int, levels: int = 3, q: bool = False):
         super().__init__()
-        self.block = ResBlock(nf)
-        self.down = DownSite(nf, nf, affine=True) if levels > 1 else None
-        self.deeper = UNet(nf, levels - 1) if levels > 1 else None
+        self.block = ResBlock(nf, q)
+        self.down = (DownSite(nf, nf, affine=True, quantize=q)
+                     if levels > 1 else None)
+        self.deeper = UNet(nf, levels - 1, q) if levels > 1 else None
 
     def load(self, p: dict, s: dict, dtype: torch.dtype) -> None:
         self.block.load(p["block"], s["block"], dtype)
@@ -232,12 +268,12 @@ class UNet(nn.Module):
 class EncoderLayer(nn.Module):
     """p1 conv -> residual block -> BN (the skip) -> stride-2 conv -> BN."""
 
-    def __init__(self, nf_in: int, nf: int):
+    def __init__(self, nf_in: int, nf: int, q: bool = False):
         super().__init__()
-        self.p1 = ConvSite([nf_in], nf)
-        self.p2 = ResBlock(nf)
+        self.p1 = ConvSite([nf_in], nf, quantize=q)
+        self.p2 = ResBlock(nf, q)
         self.p2_bn = BNFolded(nf)
-        self.p3 = DownSite(nf, nf, affine=False)
+        self.p3 = DownSite(nf, nf, affine=False, quantize=q)
         self.p3_bn = BNFolded(nf)
 
     def load(self, p: dict, s: dict, dtype: torch.dtype) -> None:
@@ -260,11 +296,11 @@ class Refinement(nn.Module):
     """One generative level: conv -> U-Net -> upsample-conv -> heads and
     the occupancy gate, at twice the input resolution."""
 
-    def __init__(self, widths_in, nf: int):
+    def __init__(self, widths_in, nf: int, q: bool = False):
         super().__init__()
-        self.p1 = ConvSite(widths_in, nf)
-        self.p2 = UNet(nf)
-        self.up = UpSite([nf] * 3, nf)
+        self.p1 = ConvSite(widths_in, nf, quantize=q)
+        self.p2 = UNet(nf, q=q)
+        self.up = UpSite([nf] * 3, nf, quantize=q)
         self.head = HeadSite(nf)
 
     def load(self, p: dict, s: dict, dtype: torch.dtype) -> None:
@@ -285,10 +321,10 @@ class Refinement(nn.Module):
 class SurfacePred(nn.Module):
     """conv -> U-Net -> surface head; returns (sdf, mask) [B, Z, Y, X]."""
 
-    def __init__(self, widths_in, nf: int, pack: bool):
+    def __init__(self, widths_in, nf: int, pack: bool, q: bool = False):
         super().__init__()
-        self.p1 = ConvSite(widths_in, nf)
-        self.p2 = UNet(nf)
+        self.p1 = ConvSite(widths_in, nf, quantize=q)
+        self.p2 = UNet(nf, q=q)
         self.head = SurfHead([nf] * 3, pack)
 
     def load(self, p: dict, s: dict, dtype: torch.dtype) -> None:
@@ -335,7 +371,8 @@ def refine_widths(cfg: SGNNConfig) -> tuple[list, list]:
 
 class GenModelFolded(nn.Module):
     """The serving forward. Weights enter through params.load_jax_params.
-    ``surf_pack=False`` takes the summed surface head (module docstring).
+    ``surf_pack=False`` takes the summed surface head; ``cfg.quantize_int8``
+    the int8 sites (module docstring).
     """
 
     def __init__(self, cfg: SGNNConfig, surf_pack: bool = True):
@@ -343,14 +380,16 @@ class GenModelFolded(nn.Module):
         self.cfg = cfg
         self.dtype = getattr(torch, cfg.compute_dtype)
         nfs = cfg.nf_per_level
+        q8 = bool(cfg.quantize_int8)
         self.encoder = nn.ModuleList(
-            EncoderLayer(cfg.input_nf if i == 0 else nfs[i - 1], nf)
+            EncoderLayer(cfg.input_nf if i == 0 else nfs[i - 1], nf, q8)
             for i, nf in enumerate(nfs)
         )
         self.trunk = DenseTrunk(cfg)
         ref_w, surf_w = refine_widths(cfg)
-        self.refinement = nn.ModuleList(Refinement(w, cfg.nf) for w in ref_w)
-        self.surface = SurfacePred(surf_w, cfg.nf, surf_pack)
+        self.refinement = nn.ModuleList(Refinement(w, cfg.nf, q8)
+                                        for w in ref_w)
+        self.surface = SurfacePred(surf_w, cfg.nf, surf_pack, q8)
 
     def load(self, params: dict, stats: dict) -> None:
         dt = self.dtype

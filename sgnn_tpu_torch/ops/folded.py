@@ -14,7 +14,8 @@ replicated over the voxel's cpad lanes. Since 128 = F * cpad, a row
 is that view, and every op here is written on it.
 
 The input scatter and the fused sites (conv, downconv, upconv, head,
-multi-scale surface head) run
+multi-scale surface head; the first three also in their int8 mode,
+``quantize=True``, with the weights of ``ops/quant.py``) run
 the CUDA kernels of ``ops/kernels``, or their plain versions on the CPU.
 The sites take kernel-ready weights prepared once by the ``prep_*``
 functions below (the port's replacement for the JAX package's
@@ -301,27 +302,39 @@ def prep_affines(params: dict, stats: dict, widths: list) -> torch.Tensor:
 
 def subm_conv_fused(groups: list, fm: FGrid, w: torch.Tensor, cout: int, *,
                     aff: torch.Tensor | None = None,
-                    residual: FGrid | None = None,
+                    residual: FGrid | None = None, quantize: bool = False,
+                    ws: torch.Tensor | None = None,
                     impl: str | None = None) -> FGrid:
     """Conv site: [optional eval-BN + ReLU + mask] -> 3^3 conv over the
-    groups -> mask [-> + residual] (kernel K1)."""
+    groups -> mask [-> + residual] (kernel K1). ``quantize``: the int8
+    mode, with ``w``/``ws`` from ``quant.quantize_conv_weights``."""
     g0 = groups[0]
-    out = K_conv.conv_site(
-        [g.data for g in groups], fm.data, w, [g.real_c for g in groups],
-        g0.cpad, aff=aff,
-        residual=residual.data if residual is not None else None, impl=impl,
-    )
+    xs, cins = [g.data for g in groups], [g.real_c for g in groups]
+    r = residual.data if residual is not None else None
+    if quantize:
+        out = K_conv.conv_site_q(xs, fm.data, w, ws, cins, g0.cpad, aff=aff,
+                                 residual=r, impl=impl)
+    else:
+        out = K_conv.conv_site(xs, fm.data, w, cins, g0.cpad, aff=aff,
+                               residual=r, impl=impl)
     return FGrid(out, g0.dims, cout, g0.cpad)
 
 
 def downconv_fused(fg: FGrid, fm: FGrid, w: torch.Tensor, cout: int, *,
                    aff: torch.Tensor | None = None,
-                   cpad_out: int | None = None, impl: str | None = None
+                   cpad_out: int | None = None, quantize: bool = False,
+                   ws: torch.Tensor | None = None, impl: str | None = None
                    ) -> tuple[FGrid, FGrid]:
-    """Stride-2 down site -> (coarse FGrid, coarse mask FGrid) (K2)."""
+    """Stride-2 down site -> (coarse FGrid, coarse mask FGrid) (K2).
+    ``quantize``: the int8 mode, with ``w``/``ws`` from
+    ``quant.quantize_downconv_weights``."""
     co = cpad_out or fg.cpad
-    out, mout = K_down.downconv(fg.data, fm.data, w, fg.real_c, fg.cpad, co,
-                                aff=aff, impl=impl)
+    if quantize:
+        out, mout = K_down.downconv_q(fg.data, fm.data, w, ws, fg.real_c,
+                                      fg.cpad, co, aff=aff, impl=impl)
+    else:
+        out, mout = K_down.downconv(fg.data, fm.data, w, fg.real_c, fg.cpad,
+                                    co, aff=aff, impl=impl)
     Z, Y, X = fg.dims
     dims = (Z // 2, Y // 2, X // 2)
     return FGrid(out, dims, cout, co), FGrid(mout, dims, co, co)
@@ -329,20 +342,26 @@ def downconv_fused(fg: FGrid, fm: FGrid, w: torch.Tensor, cout: int, *,
 
 def upconv_fused(groups: list, cfm: FGrid, ffm: FGrid | None,
                  w: torch.Tensor, cout: int, *,
-                 aff: torch.Tensor | None = None,
+                 aff: torch.Tensor | None = None, quantize: bool = False,
+                 ws: torch.Tensor | None = None,
                  impl: str | None = None) -> FGrid:
     """Generative upsample site: [optional eval-BN + ReLU + coarse mask]
     -> 2x NN upsample -> 3^3 conv -> fine mask, from the coarse groups
-    (K3). ``ffm=None`` expands the fine mask from ``cfm``."""
+    (K3). ``ffm=None`` expands the fine mask from ``cfm``. ``quantize``:
+    the int8 mode, with ``w``/``ws`` from ``quant.quantize_upconv_weights``.
+    """
     g0 = groups[0]
     Zc, Yc, Xc = g0.dims
     xqf = (_xq_for(2 * Xc, g0.cpad) if ffm is None
            else ffm.data.shape[3])
-    out = K_up.upconv(
-        [g.data for g in groups], cfm.data,
-        ffm.data if ffm is not None else None, w,
-        [g.real_c for g in groups], g0.cpad, xqf, aff=aff, impl=impl,
-    )
+    xs, cins = [g.data for g in groups], [g.real_c for g in groups]
+    f = ffm.data if ffm is not None else None
+    if quantize:
+        out = K_up.upconv_q(xs, cfm.data, f, w, ws, cins, g0.cpad, xqf,
+                            aff=aff, impl=impl)
+    else:
+        out = K_up.upconv(xs, cfm.data, f, w, cins, g0.cpad, xqf, aff=aff,
+                          impl=impl)
     return FGrid(out, (2 * Zc, 2 * Yc, 2 * Xc), cout, g0.cpad)
 
 

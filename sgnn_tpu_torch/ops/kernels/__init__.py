@@ -1,7 +1,8 @@
 """Hand-written CUDA kernels of the serving and training paths, one module
 per kernel (K7, ``conv_raw``, and K4's raw mode run only in training; K8
 only in the dense-flow execution, K10 only in the coordinate-list one,
-K9 on no path; K8 and K9 share ``conv3d_cl``).
+K9 on no path; K8 and K9 share ``conv3d_cl``; the int8 modes of K1-K3
+sit beside their other modes and share ``tile_amax``'s scale pre-pass).
 
 Each module holds a wrapper (launches the kernel for CUDA tensors), its
 plain PyTorch version (taken for CPU tensors, or with ``impl="plain"``)
@@ -12,7 +13,7 @@ from __future__ import annotations
 
 from sgnn_tpu_torch.ops.kernels import (conv3d_cl, conv_raw, conv_site,
                                         downconv, gather_gemm, head, scatter,
-                                        surf_head, upconv)
+                                        surf_head, tile_amax, upconv)
 
 # counter name -> (module, attribute holding its launch count)
 _COUNTERS = {
@@ -28,6 +29,10 @@ _COUNTERS = {
     "conv3d_folded": (conv3d_cl, "folded_launches"),
     "conv3d": (conv3d_cl, "launches"),
     "gather_gemm": (gather_gemm, "launches"),
+    "conv_site_q": (conv_site, "q_launches"),
+    "downconv_q": (downconv, "q_launches"),
+    "upconv_q": (upconv, "q_launches"),
+    "tile_amax": (tile_amax, "launches"),
 }
 
 

@@ -61,6 +61,15 @@ SIGNATURES = {
     "sgnn_conv3d": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P],
     "sgnn_gather_gemm": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I,
                          _P],
+    "sgnn_tile_amax": [_PP, _I, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
+                       _IP, _I, _P],
+    "sgnn_conv_site_q": [_PP, _IP, _I, _P, _P, _P, _P, _P, _P, _P,
+                         _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P],
+    "sgnn_downconv_q": [_P, _P, _P, _P, _P, _P, _I, _P, _P,
+                        _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I,
+                        _P],
+    "sgnn_upconv_q": [_PP, _IP, _I, _P, _P, _P, _P, _P, _P, _P,
+                      _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P],
 }
 
 _lib = None
@@ -205,12 +214,19 @@ def check_grid(name: str, t: torch.Tensor, like: torch.Tensor) -> None:
         raise ValueError(f"{name}: dtype {t.dtype} not float32/bfloat16")
 
 
+def check_tensor(name: str, t: torch.Tensor, dtype: torch.dtype,
+                 shape: tuple, like: torch.Tensor) -> None:
+    """A prepared array: of dtype and shape, contiguous, on like's
+    device."""
+    if (t.dtype != dtype or tuple(t.shape) != tuple(shape)
+            or not t.is_contiguous() or t.device != like.device):
+        raise ValueError(
+            f"{name}: need contiguous {dtype} {tuple(shape)} on "
+            f"{like.device}, got {t.dtype} {tuple(t.shape)} on {t.device}"
+        )
+
+
 def check_f32(name: str, t: torch.Tensor, shape: tuple, like: torch.Tensor
               ) -> None:
     """A prepared weight/affine array: f32, contiguous, on like's device."""
-    if (t.dtype != torch.float32 or tuple(t.shape) != tuple(shape)
-            or not t.is_contiguous() or t.device != like.device):
-        raise ValueError(
-            f"{name}: need contiguous float32 {tuple(shape)} on "
-            f"{like.device}, got {t.dtype} {tuple(t.shape)} on {t.device}"
-        )
+    check_tensor(name, t, torch.float32, shape, like)

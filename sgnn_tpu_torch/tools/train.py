@@ -9,10 +9,11 @@ It trains the folded execution on the CUDA device ``--gpu`` with the
 hand-written kernels; ``--cpu`` runs it on the host with every kernel's
 plain PyTorch version. Without ``--cpu`` a missing CUDA device is an
 error. Not ported, and refused with a message: ``--execution sparse`` and
-``dense_flow`` (ROADMAP slice 4), ``--fuse_train_bn 0``,
-``--ckpt_backend orbax``, ``--rss_restart_gb`` > 0 and ``--num_devices``
-> 1. The JAX trainer's per-epoch prediction dump (``visualize_batch``)
-is not ported: no meshes are written during training.
+``dense_flow`` (their training forwards, ROADMAP Queue 1), ``--fuse_train_bn
+0``, ``--ckpt_backend orbax``, ``--rss_restart_gb`` > 0 and
+``--num_devices`` > 1. The JAX trainer's per-epoch prediction dump
+(``visualize_batch``) is not ported: no meshes are written during
+training.
 """
 
 from __future__ import annotations

@@ -9,7 +9,8 @@ after every epoch (with the Adam state, readable by either package), and
 ``retrain`` from a ``.ckpt`` of either package (``"auto"``: the newest in
 the run directory). Batches go to the device through pinned memory, one
 batch ahead of the step. The JAX trainer's per-epoch ``visualize_batch``
-is not ported (it needs the eval forward of ``dense_flow``).
+is not ported yet: its own port, with ``utils/vis.py``, is queued (ROADMAP
+Queue 1); the dense-flow eval forward it runs exists (``GenModelDense``).
 """
 
 from __future__ import annotations

@@ -89,6 +89,8 @@ def test_port_imports_without_jax():
         "import sgnn_tpu_torch.ops.kernels.conv_raw, sgnn_tpu_torch.losses\n"
         "import sgnn_tpu_torch.ops.kernels.conv3d_cl\n"
         "import sgnn_tpu_torch.ops.kernels.gather_gemm\n"
+        "import sgnn_tpu_torch.ops.quant\n"
+        "import sgnn_tpu_torch.ops.kernels.tile_amax\n"
         "import sgnn_tpu_torch.models.sgnn, sgnn_tpu_torch.nn.blocks\n"
         "import sgnn_tpu_torch.schedules, sgnn_tpu_torch.data.capacity\n"
         "import sgnn_tpu_torch.models.folded_train\n"

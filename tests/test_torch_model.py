@@ -53,17 +53,24 @@ def _surface_rows(dims, truncation, cap, seed=0, keep=0.85):
 
 @pytest.fixture(scope="module")
 def jax_forward():
-    """(JAX's default forward output, its params, the input rows)."""
+    """(JAX's default forward output, its params, the input rows). The
+    Pallas kernels run in the TPU interpreter (pltpu.InterpretParams):
+    the same outputs as the generic interpreter, bit for bit, in ~60% of
+    its time (~52 s against ~83 s on the CPU)."""
     import jax.experimental.pallas as pl
+    import jax.experimental.pallas.tpu as pltpu
 
     import sgnn_tpu.ops.pallas.conv3d_folded as PC
 
     jcfg = JConfig(**CFG)
-    params, stats = JM.genmodel_init(jax.random.PRNGKey(0), jcfg)
+    # drawn under jax.jit: ~10 s where eager takes ~21 s
+    params, stats = jax.jit(lambda k: JM.genmodel_init(k, jcfg))(
+        jax.random.PRNGKey(0))
     locs, feats, n = _surface_rows(jcfg.input_dim, jcfg.truncation,
                                    jcfg.input_cap)
     orig = pl.pallas_call
-    PC.pl.pallas_call = lambda *a, **k: orig(*a, **{**k, "interpret": True})
+    PC.pl.pallas_call = lambda *a, **k: orig(
+        *a, **{**k, "interpret": pltpu.InterpretParams()})
     try:
         ref = JFF.genmodel_apply_folded(
             params, stats, jcfg,

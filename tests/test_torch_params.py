@@ -138,8 +138,9 @@ def test_load_jax_params_round_trip():
     """Every site's prepared weights give back the JAX arrays it was
     loaded from (f32: the rounding is the identity)."""
     cfg = SGNNConfig(**CONFIGS[0])
-    params, stats = jax.device_get(JM.genmodel_init(jax.random.PRNGKey(1),
-                                                    JConfig(**CONFIGS[0])))
+    params, stats = jax.device_get(jax.jit(
+        JM.genmodel_init, static_argnums=1)(jax.random.PRNGKey(1),
+                                            JConfig(**CONFIGS[0])))
     model = GenModelFolded(cfg)
     load_jax_params(model, params, stats)
     seen = {ConvSite: 0, DownSite: 0, UpSite: 0}

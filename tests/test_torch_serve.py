@@ -58,7 +58,8 @@ def _assert_tree_equal(a, b, path=""):
 
 @pytest.fixture(scope="module")
 def jax_weights():
-    params, stats = genmodel_init(jax.random.PRNGKey(1), JConfig(**CFG))
+    params, stats = jax.jit(genmodel_init, static_argnums=1)(
+        jax.random.PRNGKey(1), JConfig(**CFG))
     return jax.device_get(params), jax.device_get(stats)
 
 
@@ -96,8 +97,9 @@ def test_port_ckpt_to_jax(jax_weights, tmp_path):
     C.save_checkpoint(path, params, stats, epoch=1, iteration=9, step=4,
                       mu=mu, count=3)
     state, meta = JC.load_checkpoint(
-        path, JS.create_train_state(*genmodel_init(jax.random.PRNGKey(7),
-                                                   JConfig(**CFG))))
+        path, JS.create_train_state(*jax.jit(
+            genmodel_init, static_argnums=1)(jax.random.PRNGKey(7),
+                                             JConfig(**CFG))))
     _assert_tree_equal(params, jax.device_get(state.params), "params")
     _assert_tree_equal(stats, jax.device_get(state.stats), "stats")
     _assert_tree_equal(mu, jax.device_get(state.opt_state.mu), "mu")

@@ -52,7 +52,8 @@ def test_trainer_ckpt_to_jax(chunks, tmp_path, weight_decay):
     path = str(tmp_path / "m.ckpt")
     tr.save_ckpt(path, epoch=1)
     template = JS.create_train_state(
-        *genmodel_init(jax.random.PRNGKey(0), JConfig(**CFG)), weight_decay)
+        *jax.jit(genmodel_init, static_argnums=1)(
+            jax.random.PRNGKey(0), JConfig(**CFG)), weight_decay)
     state, meta = JC.load_checkpoint(path, template)
     assert meta == {"epoch": 1, "iteration": 1}
     params, stats = export_params(tr.model)
@@ -73,7 +74,8 @@ def test_trainer_ckpt_to_jax(chunks, tmp_path, weight_decay):
 
 
 def test_trainer_resumes_jax_ckpt(tmp_path):
-    params, stats = genmodel_init(jax.random.PRNGKey(5), JConfig(**CFG))
+    params, stats = jax.jit(genmodel_init, static_argnums=1)(
+        jax.random.PRNGKey(5), JConfig(**CFG))
     state = JS.create_train_state(params, stats)
     grads = jax.tree_util.tree_map(lambda p: 0.1 * p + 0.01, params)
     state = JS.apply_updates(state, grads, stats, 1e-3)

@@ -56,7 +56,8 @@ def _loss_t(out):
 @pytest.fixture(scope="module")
 def runs():
     cfg = JConfig(execution="folded", **CFG)
-    params, stats = M.genmodel_init(jax.random.PRNGKey(0), cfg)
+    params, stats = jax.jit(M.genmodel_init, static_argnums=1)(
+        jax.random.PRNGKey(0), cfg)
     locs, feats = _rows()
     st = make_sparse(jnp.asarray(locs), jnp.asarray(feats), len(locs),
                      cfg.input_dim, cfg.batch_size)

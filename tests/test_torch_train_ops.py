@@ -450,8 +450,8 @@ def test_dense_trunk_train():
     kw = dict(input_dim=(32, 32, 32), batch_size=B, num_hierarchy_levels=3,
               encoder_dim=4, nf_coarse=8, nf=8, compute_dtype="float32")
     jcfg = JConfig(**kw)
-    params, stats = jax.device_get(genmodel_init(jax.random.PRNGKey(2),
-                                                 jcfg))
+    params, stats = jax.device_get(jax.jit(
+        genmodel_init, static_argnums=1)(jax.random.PRNGKey(2), jcfg))
     enc_p = {k: v for k, v in params["encoder"].items()
              if k != "process_sparse"}
     enc_s = {k: v for k, v in stats["encoder"].items()

@@ -201,8 +201,8 @@ def step_runs(chunks):
     _, files = chunks
     jcfg = JConfig(execution="folded", **CFG)
     # host copies: the step donates its state
-    params, stats = jax.device_get(genmodel_init(jax.random.PRNGKey(3),
-                                                 jcfg))
+    params, stats = jax.device_get(jax.jit(
+        genmodel_init, static_argnums=1)(jax.random.PRNGKey(3), jcfg))
     ds = D.SceneDataset(files, TRUNC, 3, sparse_targets=True)
     caps = estimate_row_capacities(files, 3, TRUNC, 2)
     batch = D.collate_sparse([ds[0], ds[1]], jcfg.input_cap, *caps)
