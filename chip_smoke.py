@@ -662,6 +662,7 @@ class KernelChecks:
                 return o.data, om.data
             return call
         self.run("downconv", "cpad16 affine", down16, [0], masks=[1])
+        self.edge_cases()
 
         # K3 from the 48x96x96 coarse level, 3 groups, fine mask expanded
         cfm = self.mask(coarse, 16)
@@ -774,6 +775,98 @@ class KernelChecks:
         self.training_cases()
         self.secondary_cases()
         return self.results
+
+    def edge_cases(self):
+        """K1 and K2 where their Hopper designs have edges: K1 (bricks of 2 x
+        4 x 32 voxels) at cpad 8 and 16 with 1-4 groups, with and without
+        the affine and the residual, on a random, a fully active and a fully
+        inactive mask, with Z + 2, Y + 2 and the x slots (xq cut from the
+        folded 8-block multiple) not multiples of the brick; K2 in cross
+        and same-cpad modes on an odd fine width, a fully active and a
+        fully inactive mask. Weights prepared in f32 and in the compute
+        type by turns; inputs without an affine are dense (the kernel reads
+        neighbours whose mask is 0), and so are the residuals (copied where
+        the mask is 0)."""
+        FO = self.FO
+        dims = (9, 29, 40)
+        masks = {"random": torch.rand(1, *dims, generator=torch.Generator()
+                                      .manual_seed(3)) < 0.3,
+                 "fully active": torch.ones(1, *dims, dtype=torch.bool),
+                 "fully inactive": torch.zeros(1, *dims, dtype=torch.bool)}
+        dense = masks["fully active"]
+
+        def cut(fg, xq):
+            return FO.FGrid(fg.data[:, :, :, :xq].contiguous(), fg.dims,
+                            fg.real_c, fg.cpad)
+
+        # cpad, widths, affine, residual, mask, xq (None: as folded)
+        k1 = [(16, [16, 16, 2, 8], True, True, "random", 5),
+              (16, [16], False, False, "fully active", 5),
+              (16, [16, 8], True, False, "fully inactive", None),
+              (16, [16, 2, 8], False, True, "fully inactive", 5),
+              (8, [8], False, True, "fully active", 3),
+              (8, [8, 1], True, False, "random", 3),
+              (8, [8, 8, 8, 1], False, True, "random", None),
+              (8, [1, 8, 4], True, True, "fully inactive", 3)]
+        for i, (cpad, widths, has_aff, has_res, mk, xq) in enumerate(k1):
+            fm = self.mask(masks[mk], cpad)
+            data = masks[mk] if has_aff else dense
+            gs = [self.grid(dims, c, cpad, data) for c in widths]
+            res = self.grid(dims, cpad, cpad, dense) if has_res else None
+            if xq is not None:
+                fm, gs = cut(fm, xq), [cut(g, xq) for g in gs]
+                res = cut(res, xq) if res is not None else None
+            w27 = self.weights(27, sum(widths), cpad)
+            aff = self.affines(widths) if has_aff else None
+
+            def conv(dt, fm=fm, gs=gs, res=res, w27=w27, aff=aff,
+                     widths=widths, cpad=cpad, i=i):
+                w = FO.prep_conv_weights(
+                    w27, widths, torch.float32 if i % 2 == 0 else dt
+                ).to(self.dev)
+                grp = [g.with_data(g.data.to(dt)) for g in gs]
+                m = fm.with_data(fm.data.to(dt))
+                r = res.with_data(res.data.to(dt)) if res is not None \
+                    else None
+                return lambda impl: (FO.subm_conv_fused(
+                    grp, m, w, cpad, aff=aff, residual=r, impl=impl).data,)
+            label = (f"edge cpad{cpad} G{len(widths)} "
+                     f"{'affine' if has_aff else 'raw'}"
+                     f"{'+residual' if has_res else ''} {mk} mask, "
+                     f"{dims} xq {fm.data.shape[3]}")
+            self.run("conv_site", label, conv, [0], resid=res)
+
+        # cpad, cpad_out, affine, mask; fine dims with an odd width
+        fdims = (10, 30, 45)
+        fmasks = {"random": torch.rand(1, *fdims, generator=torch.Generator()
+                                       .manual_seed(4)) < 0.2,
+                  "fully active": torch.ones(1, *fdims, dtype=torch.bool),
+                  "fully inactive": torch.zeros(1, *fdims, dtype=torch.bool)}
+        k2 = [(8, 16, False, "random"), (8, 16, False, "fully active"),
+              (16, 16, True, "random"), (16, 16, True, "fully active"),
+              (16, 16, False, "fully inactive"), (8, 8, True, "random")]
+        for i, (cpad, co, has_aff, mk) in enumerate(k2):
+            fm = self.mask(fmasks[mk], cpad)
+            x = self.grid(fdims, cpad, cpad,
+                          fmasks[mk] if has_aff else fmasks["fully active"])
+            w8 = self.weights(8, cpad, co)
+            aff = self.affines([cpad])[0] if has_aff else None
+
+            def down(dt, fm=fm, x=x, w8=w8, aff=aff, cpad=cpad, co=co, i=i):
+                w = FO.prep_downconv_weights(
+                    w8, cpad, torch.float32 if i % 2 == 0 else dt
+                ).to(self.dev)
+                xd, m = x.with_data(x.data.to(dt)), fm.with_data(
+                    fm.data.to(dt))
+
+                def call(impl):
+                    o, om = FO.downconv_fused(xd, m, w, cpad, aff=aff,
+                                              cpad_out=co, impl=impl)
+                    return o.data, om.data
+                return call
+            self.run("downconv", f"edge cpad{cpad}->{co} "
+                     f"{'affine' if has_aff else 'raw'} {mk} mask, {fdims}",
+                     down, [0], masks=[1])
 
     def int8_cases(self):
         """K1q, K2q, K3q (the int8 modes of the conv, down and upsample
@@ -1603,7 +1696,11 @@ def phase_int8(results: dict, weights) -> None:
     # launched from Python, so the CUDA-event times include host gaps
     for label, m in (("int8", model), ("exact", exact)):
         _profile("int8", f"one bfloat16 forward, {label} sites",
-                 lambda m=m: m(locs, feats, SCENE))
+                 lambda m=m: m(locs, feats, SCENE),
+                 sums={"K1 (conv_site)": "conv_site_kernel",
+                       "K2 (downconv)": "downconv_kernel",
+                       "K1q (conv_site_q)": "conv_site_q_kernel",
+                       "K2q (downconv_q)": "downconv_q_kernel"})
 
     # every kernel call of one forward against its plain version there
     with MainPathCheck() as chk:
@@ -2156,10 +2253,12 @@ def _step(model, batch, lw, plain=False):
     return m, [p.grad.clone() for p in model.weights]
 
 
-def _profile(tag: str, what: str, fn, top: int = 14) -> None:
+def _profile(tag: str, what: str, fn, top: int = 14,
+             sums: dict | None = None) -> None:
     """Where one call's device time goes: torch.profiler's CUDA time per
     kernel name (the hand-written kernels and PyTorch's own), the largest
-    first, beside the call's host-clock time (ends in a synchronize)."""
+    first, beside the call's host-clock time (ends in a synchronize);
+    ``sums``: label -> a kernel name's part, whose rows are summed."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -2183,6 +2282,12 @@ def _profile(tag: str, what: str, fn, top: int = 14) -> None:
         f"largest:")
     for t, n, key in rows[:top]:
         log(f"[{tag}]   {t:9.2f} ms {n:5d} x {key[:90]}")
+    for label, part in (sums or {}).items():
+        mine = [r for r in rows if part in r[2]]
+        log(f"[{tag}] {label} in {what}: {sum(r[0] for r in mine):.3f} ms "
+            f"of device time in {sum(r[1] for r in mine)} launches ("
+            + "; ".join(f"{t:.3f} ms {n} x {key[:60]}" for t, n, key in mine)
+            + ")")
 
 
 def phase_train(results: dict) -> None:
@@ -2313,7 +2418,9 @@ def phase_train(results: dict) -> None:
                 b.synchronize()
                 times[label].append(a.elapsed_time(b))
         _profile("train", "one bfloat16 step",
-                 lambda: _step(model, dev, lw))
+                 lambda: _step(model, dev, lw),
+                 sums={"K1 (conv_site)": "conv_site_kernel",
+                       "K2 (downconv)": "downconv_kernel"})
         ms = {k: float(np.median(v)) for k, v in times.items()}
         each = {k: " ".join(f"{t:.1f}" for t in v) for k, v in times.items()}
         log(f"[train] bfloat16 step, batch {B} at {TRAIN_DIMS}: kernels "

@@ -108,10 +108,14 @@ __device__ __forceinline__ void store_voxel(T* __restrict__ o,
   }
 }
 
+// o[0..C) = +0 (all bits clear in f32 and bf16), as 16-byte vectors.
 template <typename T, int C>
 __device__ __forceinline__ void store_zero(T* o) {
+  static_assert((C * sizeof(T)) % 16 == 0, "a voxel row of 16-byte words");
+  uint4* q = reinterpret_cast<uint4*>(o);
 #pragma unroll
-  for (int c = 0; c < C; ++c) o[c] = from_f<T>(0.f);
+  for (int i = 0; i < C * static_cast<int>(sizeof(T)) / 16; ++i)
+    q[i] = make_uint4(0u, 0u, 0u, 0u);
 }
 
 // Row kernels (K8/K9 conv3d_cl.cu, K10 gather_gemm.cu) keep weights of

@@ -12,20 +12,33 @@
 // with both outputs halo'd and zero on the ring. Cross mode reads a cpad-8
 // fine grid and writes cpad-16 coarse grids (the encoder's level-0 exit).
 //
-// What bounds it on Hopper: every fine voxel's mask is read once (8 per
-// coarse voxel) and 8 * cin * cout MACs run per active coarse voxel; the
-// fine grid is read once and the two coarse grids (1/8 its voxels) are
-// written once, so it is a bandwidth-bound pass. Design: one thread per
-// coarse voxel with all output channels in registers; the 8 mask reads
-// come first and an inactive coarse voxel writes zeros and stops.
+// What bounds it on Hopper: bytes. The fine mask is read in full, the fine
+// input only where the function needs it, and the two coarse grids (1/8 of
+// the voxels) are written once. At 8 * cin * 16 MACs per active coarse
+// voxel it does a few operations per byte moved, far below the ~295 a byte
+// at which an H100's bf16 tensor cores would be the limit, so tensor cores
+// cannot help: the products stay f32 FMAs on the CUDA cores, the weights
+// broadcast from shared memory. What it needs is bytes in flight.
 //
-// K2q, the int8 mode (quantize=True, _kernel_downconv :1228-1264), in the
-// same design: the coarse voxel reads its TPU tile's amax (tile (iz, iy)
-// holds coarse interior rows [iz tz, (iz + 1) tz) x [iy ty, (iy + 1) ty);
-// its window is their fine children, no halo), quantizes each fine
-// child's f32 input on the fly, sums int8 products in int32 with __dp4a
-// against int8 weights [8, co, ci], and writes f32(iacc) * (s * ws[co])
-// times the coarse mask; the coarse mask is the exact mode's.
+// Design: one thread per coarse voxel, x fastest, so lane i of a warp owns
+// coarse x = i and its two fine x-children in each of the 4 (dz, dy) fine
+// rows are 2 * cpad contiguous values (a warp reads one contiguous run per
+// row). The 8 children's mask loads issue together before any arithmetic;
+// an inactive coarse voxel writes zeros as 16-byte vectors at once, and a
+// block with no active one ends without staging the weights. An active
+// coarse voxel reads its children's inputs as 16-byte vectors (with the
+// affine only the children whose mask is set, without it the whole 2^3
+// block), the 4 children of one fine z-row pair with their loads in flight
+// together, and writes both coarse outputs as 16-byte vector stores.
+//
+// K2q, the int8 mode (quantize=True, _kernel_downconv :1228-1264), keeps
+// a body of its own, one thread per coarse voxel: it reads its TPU
+// tile's amax (tile (iz, iy) holds coarse interior rows [iz tz, (iz + 1)
+// tz) x [iy ty, (iy + 1) ty); its window is their fine children, no halo),
+// quantizes each fine child's f32 input on the fly, sums int8 products in
+// int32 with __dp4a against int8 weights [8, co, ci], and writes f32(iacc)
+// * (s * ws[co]) times the coarse mask; the coarse mask is the exact
+// mode's.
 #include "common.cuh"
 
 namespace sgnn {
@@ -38,60 +51,88 @@ __global__ void __launch_bounds__(THREADS)
                     int cin, T* __restrict__ out,
                     T* __restrict__ mout, int B, int Zcp, int Ycp, int Xsc,
                     int Zfp, int Yfp, int Xsf) {
+  constexpr int VEC = CI * static_cast<int>(sizeof(T)) / 16;  // per child
+  __shared__ __align__(16) float sw[8 * CI * CO];  // [tap][ci][co]
+  __shared__ float sa[2 * CI];
   const long long idx =
       static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
-  if (idx >= static_cast<long long>(B) * Zcp * Ycp * Xsc) return;
-  const Voxel v = decode(idx, Zcp, Ycp, Xsc);
+  const bool inside = idx < static_cast<long long>(B) * Zcp * Ycp * Xsc;
+  const Voxel v = decode(inside ? idx : 0, Zcp, Ycp, Xsc);
+  // fine halo index of child d of coarse halo index c: 2 (c - 1) + d + 1;
+  // Xsf is even, so the x-children 2 x and 2 x + 1 exist together
+  const bool live = inside && v.z != 0 && v.z != Zcp - 1 && v.y != 0 &&
+                    v.y != Ycp - 1 && 2 * v.x < Xsf;
+  long long row[4];  // fine (dz, dy) rows' first child, dz * 2 + dy
+  float mk[8];       // tap t = dz * 4 + dy * 2 + dx
+  float mc = 0.f;
+  if (live) {
+#pragma unroll
+    for (int r = 0; r < 4; ++r)
+      row[r] = voxel_index(v.b, 2 * v.z - 1 + r / 2, 2 * v.y - 1 + r % 2,
+                           2 * v.x, Zfp, Yfp, Xsf);
+#pragma unroll
+    for (int t = 0; t < 8; ++t) mk[t] = to_f(fmask[(row[t / 2] + t % 2) * CI]);
+#pragma unroll
+    for (int t = 0; t < 8; ++t) mc = fmaxf(mc, mk[t]);
+  }
   T* o = out + idx * CO;
   T* mo = mout + idx * CO;
-  if (v.z == 0 || v.z == Zcp - 1 || v.y == 0 || v.y == Ycp - 1) {
+  if (inside && mc == 0.f) {  // inactive: zero, whatever the block does
     store_zero<T, CO>(o);
     store_zero<T, CO>(mo);
-    return;
   }
-  // fine halo index of child (d) of coarse halo index c: 2 (c - 1) + d + 1
-  float mc = 0.f;
-  for (int t = 0; t < 8; ++t) {
-    const int xf = 2 * v.x + (t & 1);
-    if (xf >= Xsf) continue;
-    const long long nv = voxel_index(v.b, 2 * v.z - 1 + (t >> 2),
-                                     2 * v.y - 1 + ((t >> 1) & 1), xf, Zfp,
-                                     Yfp, Xsf);
-    mc = fmaxf(mc, to_f(fmask[nv * CI]));
-  }
-  if (mc == 0.f) {
-    store_zero<T, CO>(o);
-    store_zero<T, CO>(mo);
-    return;
-  }
+  if (!__syncthreads_or(mc != 0.f)) return;
+  for (int i = threadIdx.x; i < 8 * CI * CO; i += THREADS)
+    sw[i] = w[(i / (CI * CO) * MAXC + i / CO % CI) * MAXC + i % CO];
+  if (aff != nullptr && threadIdx.x < 2 * CI)
+    sa[threadIdx.x] = aff[threadIdx.x / CI * MAXC + threadIdx.x % CI];
+  __syncthreads();
+  if (mc == 0.f) return;
   float acc[CO];
 #pragma unroll
   for (int c = 0; c < CO; ++c) acc[c] = 0.f;
-  for (int t = 0; t < 8; ++t) {  // tap = dz * 4 + dy * 2 + dx
-    const int xf = 2 * v.x + (t & 1);
-    if (xf >= Xsf) continue;
-    const long long nv = voxel_index(v.b, 2 * v.z - 1 + (t >> 2),
-                                     2 * v.y - 1 + ((t >> 1) & 1), xf, Zfp,
-                                     Yfp, Xsf) * CI;
-    float mi = 1.f;
-    if (aff != nullptr) {
-      mi = to_f(fmask[nv]);
-      if (mi == 0.f) continue;
-    }
-    const float* wt = w + t * MAXC * MAXC;
-    for (int ci = 0; ci < cin; ++ci) {
-      float a = to_f(x[nv + ci]);
-      if (aff != nullptr) {
-        a = round_to<T>(affine_relu_mask(a, aff[ci], aff[MAXC + ci], mi));
-      }
-      axpy<CO>(acc, a, wt + ci * MAXC);
-    }
-  }
 #pragma unroll
-  for (int c = 0; c < CO; ++c) {
-    o[c] = from_f<T>(acc[c]);
-    mo[c] = from_f<T>(1.f);
+  for (int dz = 0; dz < 2; ++dz) {
+    uint4 raw[4][VEC];
+#pragma unroll
+    for (int q = 0; q < 4; ++q) {
+      const int t = dz * 4 + q;
+      if (aff == nullptr || mk[t] != 0.f) {
+        const uint4* p =
+            reinterpret_cast<const uint4*>(x + (row[t / 2] + t % 2) * CI);
+#pragma unroll
+        for (int k = 0; k < VEC; ++k) raw[q][k] = __ldg(p + k);
+      }
+    }
+#pragma unroll
+    for (int q = 0; q < 4; ++q) {
+      const int t = dz * 4 + q;
+      if (aff != nullptr && mk[t] == 0.f) continue;  // relu(.) * 0 adds 0
+      const T* in = reinterpret_cast<const T*>(raw[q]);
+#pragma unroll
+      for (int ci = 0; ci < CI; ++ci) {  // constant indices: raw stays in
+        if (ci >= cin) break;            // registers
+        float a = to_f(in[ci]);
+        if (aff != nullptr)
+          a = round_to<T>(affine_relu_mask(a, sa[ci], sa[CI + ci], mk[t]));
+        const float4* wr =
+            reinterpret_cast<const float4*>(sw + (t * CI + ci) * CO);
+#pragma unroll
+        for (int c4 = 0; c4 < CO / 4; ++c4) {
+          const float4 wv = wr[c4];
+          acc[4 * c4 + 0] = fmaf(a, wv.x, acc[4 * c4 + 0]);
+          acc[4 * c4 + 1] = fmaf(a, wv.y, acc[4 * c4 + 1]);
+          acc[4 * c4 + 2] = fmaf(a, wv.z, acc[4 * c4 + 2]);
+          acc[4 * c4 + 3] = fmaf(a, wv.w, acc[4 * c4 + 3]);
+        }
+      }
+    }
   }
+  store_voxel<T, CO>(o, acc);
+  float ones[CO];
+#pragma unroll
+  for (int c = 0; c < CO; ++c) ones[c] = 1.f;
+  store_voxel<T, CO>(mo, ones);
 }
 
 template <typename T, int CI, int CO>

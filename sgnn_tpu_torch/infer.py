@@ -9,16 +9,17 @@ launches a scene's forward and returns a handle; ``collect`` crops,
 extracts and copies the results to the host, so a caller overlaps scene
 i+1's forward with scene i's meshing (``tools/test_scene.py``).
 
-Three forwards serve:
+Every forward sees the scene's first ``cfg.input_cap`` input rows in
+file order, sorted, as the JAX inferencer cuts them. Three forwards serve:
 - ``GenModelFolded``, the only-surface folded forward. The JAX
   inferencer's capacity refit and overflow refetch exist only because XLA
   shapes are static; PyTorch extracts the surface with a dynamic
-  ``nonzero``, so neither is needed, and the input rows are not cut to a
-  capacity.
+  ``nonzero``, so neither is needed, and only the real rows are passed
+  (no padding rows).
 - ``GenModelSparse`` (the coordinate-list execution) and
-  ``GenModelDense`` (the dense-flow execution): the input rows are cut to
-  the config's ``input_cap`` before sorting, as the JAX inferencer cuts
-  them, and the results carry what its ``_postprocess_sparse`` /
+  ``GenModelDense`` (the dense-flow execution): the rows are padded to
+  ``input_cap``, and the results carry what the JAX inferencer's
+  ``_postprocess_sparse`` /
   ``_postprocess_dense`` give: every refinement level's ``locs`` and
   ``out`` (occ logit, sdf) besides the surface (the coordinate lists
   cropped to ``orig_dims``, the dense levels not), and for the sparse
@@ -92,8 +93,9 @@ class SceneInferencer:
             raise ValueError(f"{sample['name']}: input_locs outside {dims}")
         in_sdf = np.asarray(sample["input_sdf"], np.float32)
         folded = isinstance(self.model, GenModelFolded)
-        cap = len(locs3) if folded else cfg.input_cap
-        locs3, in_sdf = locs3[:cap], in_sdf[:cap]
+        n = min(len(locs3), cfg.input_cap)
+        cap = n if folded else cfg.input_cap
+        locs3, in_sdf = locs3[:n], in_sdf[:n]
         order = np.lexsort((locs3[:, 2], locs3[:, 1], locs3[:, 0]))
         locs3, in_sdf = locs3[order], in_sdf[order]
         locs = torch.full((cap, 4), -1, dtype=torch.int64)

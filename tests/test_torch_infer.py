@@ -57,7 +57,15 @@ def test_scene_crop(inferencer):
 
 
 def test_rows_order_does_not_matter(inferencer):
+    """The rows the inferencer keeps are sorted: the same rows in another
+    order give the same surface. (Rows beyond ``cfg.input_cap`` are cut in
+    file order, as the JAX inferencer cuts them, so the scene is given as
+    many rows as it keeps.)"""
     s = synthetic_scene(DIMS, seed=2)
+    cap = inferencer.model.cfg.input_cap
+    assert len(s["input_locs"]) > cap
+    s = dict(s, input_locs=s["input_locs"][:cap],
+             input_sdf=s["input_sdf"][:cap])
     perm = np.random.RandomState(0).permutation(len(s["input_locs"]))
     shuffled = dict(s, input_locs=s["input_locs"][perm],
                     input_sdf=s["input_sdf"][perm])

@@ -1,0 +1,148 @@
+"""The plain versions of K1 and K2 against JAX at the edges of their Hopper
+designs (K1 runs in output bricks of 2 x 4 x 32 voxels of the halo'd grid,
+skipping bricks whose mask is empty; K2 one thread per coarse voxel).
+
+The plain versions are what ``chip_smoke.py`` holds the kernels to on the
+card, so these cases pin that reference to the JAX package: the same numpy
+inputs (from a seed) go through the JAX fused site of
+sgnn_tpu/ops/folded.py, whose Pallas kernel runs in interpret mode, and
+through the port's site on the CPU. Shapes: Z + 2 and Y + 2 not multiples
+of the brick, a real X that is not a multiple of 32 (its x-tail slots
+zero), an odd fine X for K2; masks dense, empty and random; inputs without
+an affine dense (the site reads neighbours whose mask is 0). Tolerance:
+atol = rtol = 1e-5 in f32 (the two sum in different orders); masks and
+zero halo rings bit-equal.
+"""
+
+import re
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from sgnn_tpu.ops import folded as JFO
+from sgnn_tpu_torch.ops import folded as FO
+from sgnn_tpu_torch.ops.kernels import build
+
+F32 = torch.float32
+TOL = dict(rtol=1e-5, atol=1e-5)
+
+
+@pytest.fixture(scope="module", autouse=True)
+def interpret_pallas():
+    import jax.experimental.pallas as pl
+
+    import sgnn_tpu.ops.pallas.conv3d_folded as PC
+
+    orig = pl.pallas_call
+    PC.pl.pallas_call = lambda *a, **k: orig(*a, **{**k, "interpret": True})
+    yield
+    PC.pl.pallas_call = orig
+
+
+def _mask(rng, dims, cpad, kind):
+    m = {"dense": np.ones((1, *dims), bool),
+         "empty": np.zeros((1, *dims), bool),
+         "random": rng.rand(1, *dims) < 0.3}[kind]
+    return m, FO.fold_mask(torch.from_numpy(m), cpad, F32)
+
+
+def _grid(rng, dims, c, cpad, mask=None):
+    d = rng.randn(1, *dims, c).astype(np.float32)
+    if mask is not None:
+        d = d * mask[..., None]
+    return FO.fold(torch.from_numpy(d), cpad)
+
+
+def _bn(rng, C):
+    return ({"scale": rng.uniform(0.5, 1.5, C).astype(np.float32),
+             "bias": (0.3 * rng.randn(C)).astype(np.float32)},
+            {"mean": (0.3 * rng.randn(C)).astype(np.float32),
+             "var": rng.uniform(0.5, 1.5, C).astype(np.float32)})
+
+
+def _j(fg):
+    return JFO.FGrid(jnp.asarray(fg.data.numpy()), fg.dims, fg.real_c,
+                     fg.cpad)
+
+
+def _assert_grid(got, want):
+    got, want = got.numpy(), np.asarray(want)
+    np.testing.assert_allclose(got, want, **TOL)
+    for a in (got, want):
+        assert not a[:, [0, -1]].any() and not a[:, :, [0, -1]].any()
+
+
+@pytest.mark.parametrize("cpad,widths,affine,resid,kind", [
+    (16, [16, 16, 2, 8], True, True, "random"),
+    (16, [16], False, False, "dense"),
+    (16, [16, 8], True, True, "empty"),
+    (8, [8], False, True, "dense"),
+    (8, [1, 8, 4], False, True, "empty"),
+])
+def test_conv_site_edges(cpad, widths, affine, resid, kind):
+    rng = np.random.RandomState(len(widths) * cpad)
+    dims = (3, 5, 40)  # halo'd 5 x 7, 40 real x slots
+    m, fm = _mask(rng, dims, cpad, kind)
+    groups = [_grid(rng, dims, c, cpad, m if affine else None)
+              for c in widths]
+    cout = cpad
+    w27 = (0.2 * rng.randn(27, sum(widths), cout)).astype(np.float32)
+    bn = _bn(rng, sum(widths)) if affine else (None, None)
+    res = _grid(rng, dims, cout, cpad) if resid else None
+    want = JFO.subm_conv_fused(
+        [_j(g) for g in groups], _j(fm), jnp.asarray(w27), cout,
+        bn_params=bn[0], bn_stats=bn[1],
+        residual=_j(res) if resid else None,
+    )
+    aff = FO.prep_affines(*bn, widths) if affine else None
+    got = FO.subm_conv_fused(groups, fm, FO.prep_conv_weights(
+        w27, widths, F32), cout, aff=aff, residual=res)
+    _assert_grid(got.data, want.data)
+    out = got.data.numpy()
+    if kind == "empty":  # every output voxel masked: the residual or zero
+        want_res = res.data.numpy() if resid else np.zeros_like(out)
+        want_res[:, [0, -1]] = want_res[:, :, [0, -1]] = 0
+        np.testing.assert_array_equal(out, want_res)
+    assert np.abs(out).max() > 0.1 or (kind == "empty" and not resid)
+
+
+@pytest.mark.parametrize("cpad,cpad_out,affine,kind", [
+    (8, 16, False, "random"),   # cross mode: the encoder's level-0 exit
+    (8, 16, False, "dense"),
+    (16, None, True, "dense"),
+    (16, None, False, "empty"),
+    (8, None, True, "random"),
+])
+def test_downconv_edges(cpad, cpad_out, affine, kind):
+    rng = np.random.RandomState(cpad + 3 * affine)
+    dims = (4, 6, 45)  # an odd fine width
+    m, fm = _mask(rng, dims, cpad, kind)
+    cin = cpad
+    fg = _grid(rng, dims, cin, cpad, m if affine else None)
+    w8 = (0.3 * rng.randn(8, cin, cin)).astype(np.float32)
+    bn = _bn(rng, cin) if affine else (None, None)
+    jout, jm = JFO.downconv_fused(_j(fg), _j(fm), jnp.asarray(w8), cin,
+                                  bn_params=bn[0], bn_stats=bn[1],
+                                  cpad_out=cpad_out)
+    aff = FO.prep_affines(*bn, [cin])[0] if affine else None
+    out, mo = FO.downconv_fused(fg, fm, FO.prep_downconv_weights(
+        w8, cin, F32), cin, aff=aff, cpad_out=cpad_out)
+    _assert_grid(out.data, jout.data)
+    np.testing.assert_array_equal(mo.data.numpy(), np.asarray(jm.data))
+    assert mo.dims == (2, 3, 22)
+    if kind == "empty":
+        assert not out.data.numpy().any() and not mo.data.numpy().any()
+    else:
+        assert np.abs(out.data.numpy()).max() > 0.1
+
+
+def test_conv_site_entry_point():
+    """K1's C entry point ends in (cpad, bf16, stream), and build.SIGNATURES
+    declares as many arguments as it takes."""
+    src = (build.CSRC / "conv_site.cu").read_text()
+    m = re.search(r'extern "C" int sgnn_conv_site\(([^)]*)\)', src)
+    args = [a.split()[-1] for a in m.group(1).split(",")]
+    assert args[-3:] == ["cpad", "bf16", "stream"]
+    assert len(args) == len(build.SIGNATURES["sgnn_conv_site"])

@@ -3,7 +3,9 @@ with GenModelSparse and GenModelDense against the JAX SceneInferencer
 with ``execution="sparse"`` and ``"dense_flow"`` on one tiny scene (rows
 and masks bit-equal and in the same order; coarse 1e-4, levels and
 surface 2e-3, f32), and the scene CLI with ``--execution sparse --cpu``
-(its meshes byte-equal to the port's inferencer's).
+(its meshes byte-equal to the port's inferencer's). Also the folded
+forward's input rows, cut to ``input_cap`` as the JAX inferencer cuts
+them.
 """
 
 import os
@@ -22,6 +24,7 @@ from sgnn_tpu_torch.data import formats as F
 from sgnn_tpu_torch.infer import SceneInferencer, synthetic_scene
 from sgnn_tpu_torch.meshing import export as E
 from sgnn_tpu_torch.models.dense_flow import GenModelDense
+from sgnn_tpu_torch.models.folded_flow import GenModelFolded
 from sgnn_tpu_torch.models.sgnn import GenModelSparse
 from sgnn_tpu_torch.params import init_params, load_jax_params
 
@@ -58,6 +61,35 @@ def test_inferencer_matches_jax(execution):
         np.testing.assert_allclose(a["out"], b["out"], rtol=0, atol=2e-3)
     if execution == "sparse":
         assert got["overflows"] == [0, 0]
+
+
+def test_folded_cuts_rows_to_input_cap():
+    """On a scene with more input rows than ``input_capacity``, the port's
+    folded SceneInferencer keeps the first rows in file order, as the JAX
+    inferencer does: its surface equals the JAX one's (on the CPU the JAX
+    inferencer runs the dense flow; f32: IoU 1.0, sdf to 2e-3)."""
+    cfg = dict(CFG, input_dim=DIMS, execution="dense_flow",
+               input_capacity=640)
+    params, stats = init_params(SGNNConfig(**cfg), SEED)
+    sample = synthetic_scene(DIMS, seed=1, orig_dims=(16, 13, 27))
+    # a file order other than the sorted one, so which rows the cut keeps
+    # matters
+    perm = np.random.RandomState(0).permutation(len(sample["input_locs"]))
+    sample = dict(sample, input_locs=sample["input_locs"][perm],
+                  input_sdf=sample["input_sdf"][perm])
+    assert len(perm) > SGNNConfig(**cfg).input_cap == 640
+    ref = JInferencer(JConfig(**cfg), params, stats, compact=False)(sample)
+    model = GenModelFolded(SGNNConfig(**cfg))
+    load_jax_params(model, params, stats)
+    got = SceneInferencer(model)(sample)
+    assert len(ref["surf_locs"]) > 0, "degenerate case: empty surface"
+    for key in ("input_locs", "input_sdf"):
+        np.testing.assert_array_equal(got[key], ref[key])
+    a = dict(zip(map(tuple, got["surf_locs"]), got["surf_sdf"]))
+    b = dict(zip(map(tuple, ref["surf_locs"]), ref["surf_sdf"]))
+    assert a.keys() == b.keys()  # IoU 1.0
+    np.testing.assert_allclose([a[k] for k in b], list(b.values()), rtol=0,
+                               atol=2e-3)
 
 
 def test_cli_sparse_cpu_matches_inferencer(tmp_path):
