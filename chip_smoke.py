@@ -16,8 +16,11 @@ where every phase passed prints the two JSON lines at the end):
    grids masked by the scene's sphere shell (C 8/16/32, Cout < C down to
    1, Y != X, K8's input gradient), K10 over the shell's rows (27 and 8
    taps, 16 to 48 inputs, rows with every neighbour missing), the int8
-   modes K1q, K2q, K3q (to their tolerance plus one activation step) and
-   tile_amax (bit-equal) with their TPU tiles;
+   modes K1q (bit-equal), K2q, K3q (to their tolerance plus one activation
+   step) and tile_amax (bit-equal) with their TPU tiles; K1, K2, K7 and
+   K1q also at the edges of their Hopper designs (output bricks of 2 x 4 x
+   32 voxels: dims off the brick, x-tail slots, empty and dense inputs,
+   cpad 8 with narrow groups, K1q's TPU tiles straddling bricks);
 4. forward: the full-width model (L=4, nf 16, bf16, seeded random
    weights) answers three synthetic sphere scenes through
    sgnn_tpu_torch.infer.SceneInferencer; every kernel of that path must
@@ -55,7 +58,8 @@ where every phase passed prints the two JSON lines at the end):
    with the plain versions from the same weights and batch (loss,
    gradients, running stats compared); one bf16 step at full width and
    batch 8 whose every kernel call is held against its plain version,
-   with each kernel's launches per step required; the training CLI,
+   with each kernel's launches per step required, and a profile of it
+   (each hand-written kernel's device time); the training CLI,
    sgnn_tpu_torch.tools.train, in-process for 12 steps on one chunk (the
    reference's overfit mode), whose loss must fall over the full-level
    steps and whose .ckpt must load into the serving model and serve a
@@ -66,11 +70,11 @@ where every phase passed prints the two JSON lines at the end):
    upsample site, each after one tile_amax scale pre-pass) via
    SceneInferencer; launches per forward required as derived
    (INT8_EXPECTED, no exact K1-K3 launch), every kernel call of one
-   forward held against its plain version, the f32 surfaces of kernels
-   and plain versions compared (IoU >= 0.999), the bf16 surface against
-   the plain int8 run and the exact forward; ms per forward, a profile
-   of each forward and peak device memory (this phase runs after phase
-   4);
+   forward held against its plain version (K1q bit-equal), the f32
+   surfaces of kernels and plain versions compared (IoU >= 0.999), the
+   bf16 surface against the plain int8 run and the exact forward; ms per
+   forward, a profile of each forward and peak device memory (this phase
+   runs after phase 4);
 9. the card's name and power limit again, a JSON line of per-kernel
    results (launches, error, ms against the plain version and against one
    PyTorch call where one computes the same function, and the card's bound
@@ -524,7 +528,7 @@ class KernelChecks:
     def run(self, name, label, make, values, masks=(), gate_cpad=0,
             resid=None, dense=False, work=None, library=None,
             dtypes=(torch.float32, torch.bfloat16), step=None,
-            peak=PEAK_BF16_FLOPS):
+            peak=PEAK_BF16_FLOPS, exact=False):
         """make(dt) -> call(impl) -> output grids, inputs converted once;
         compared as _compare does (``resid``: the residual grid; ``step``:
         dt -> an int8 site's activation step). The kernel's first bf16
@@ -532,7 +536,8 @@ class KernelChecks:
         (dt -> a call), one PyTorch call computing the same function;
         ``work(dt)`` gives that case's (bytes each input read once and
         each output written once, operations its data needs, of the type
-        whose rate is ``peak``), from which the card's bound follows."""
+        whose rate is ``peak``), from which the card's bound follows.
+        ``exact``: the kernel must give the plain version's bits."""
         for dt in dtypes:
             call = make(dt)
             outs_k, outs_p = call(None), call("plain")
@@ -542,6 +547,8 @@ class KernelChecks:
             err, ratio, flips, active, far = _compare(
                 what, outs_k, outs_p, values, masks, gate_cpad, r, dense,
                 st)
+            require(not exact or err == 0.0,
+                    f"{what}: max |kernel - plain| {err}, expected 0")
             if gate_cpad:
                 log(f"[kernels] {what}: gate flips {flips} of {active} "
                     f"active")
@@ -929,7 +936,7 @@ class KernelChecks:
                                     cw[dt][1])
         self.run("conv_site_q", "cpad16 G3 affine+residual", conv16, [0],
                  resid=res16, work=conv16_work, step=conv16_step,
-                 peak=PEAK_INT8_OPS)
+                 peak=PEAK_INT8_OPS, exact=True)
 
         fm8 = self.mask(fine, 8)
         x8 = self.grid(SCENE, 8, 8, fine)
@@ -954,7 +961,8 @@ class KernelChecks:
                                         cast(fm8, dt).data, aff, 8,
                                         qw[dt][1])
             self.run("conv_site_q", label, conv8, [0], resid=resid,
-                     step=conv8_step)
+                     step=conv8_step, exact=True)
+        self.k1q_edge_cases()
 
         # K2q: the encoder's level-0 exit (cpad 8 -> 16, no affine) and a
         # U-Net down site (cpad 16, affine)
@@ -1051,6 +1059,67 @@ class KernelChecks:
                         6 * int(act.sum()) * sum(g.real_c for g in xs))
             self.run("tile_amax", label, amax, [], masks=[0], dense=True,
                      work=amax_work, peak=PEAK_F32_FLOPS)
+
+    def k1q_edge_cases(self):
+        """K1q where its Hopper design has edges: TPU tiles of ty <= 3 rows
+        (the picker's choice at these dims) that straddle the 2 x 4 brick
+        rows in z and y, so one brick holds rows of up to four scales; a
+        random, a fully active and a fully inactive mask; cpad 8 and 16,
+        1-2 groups, with and without the affine and the residual; x slots
+        off the brick. Bit-equal to the plain version."""
+        from sgnn_tpu_torch.ops import quant as Q
+
+        FO = self.FO
+        dims = (10, 21, 40)
+        masks = {"random": torch.rand(1, *dims, generator=torch.Generator()
+                                      .manual_seed(5)) < 0.3,
+                 "fully active": torch.ones(1, *dims, dtype=torch.bool),
+                 "fully inactive": torch.zeros(1, *dims, dtype=torch.bool)}
+        # cpad, widths, affine, residual, mask; x blocks kept: 40 slots at
+        # cpad 16, 48 at cpad 8 (the folded grid pads them to 64 or 128)
+        cases = [(16, [16, 8], True, True, "random"),
+                 (16, [16], False, True, "fully active"),
+                 (8, [8, 1], True, False, "fully active"),
+                 (8, [8], False, True, "random"),
+                 (16, [16, 2], True, True, "fully inactive")]
+
+        def cut(fg, cpad):
+            xq = 5 if cpad == 16 else 3
+            return FO.FGrid(fg.data[:, :, :, :xq].contiguous(), fg.dims,
+                            fg.real_c, fg.cpad)
+        for cpad, widths, has_aff, has_res, mk in cases:
+            fm = cut(self.mask(masks[mk], cpad), cpad)
+            data = masks[mk] if has_aff else masks["fully active"]
+            gs = [cut(self.grid(dims, c, cpad, data), cpad) for c in widths]
+            res = cut(self.grid(dims, cpad, cpad, masks["fully active"]),
+                      cpad) if has_res else None
+            aff = self.affines(widths) if has_aff else None
+            w27 = self.weights(27, sum(widths), cpad)
+            qw = {dt: tuple(t.to(self.dev) for t in Q.quantize_conv_weights(
+                FO.prep_conv_weights(w27, widths, dt)))
+                for dt in (torch.float32, torch.bfloat16)}
+            t = Q.conv_tiles(fm.data, len(widths), has_res)
+            require(t.ty <= 3, f"K1q edge case: tiles {t}, expected ty <= 3")
+
+            def conv(dt, fm=fm, gs=gs, res=res, aff=aff, qw=qw, cpad=cpad):
+                grp = [g.with_data(g.data.to(dt)) for g in gs]
+                m = fm.with_data(fm.data.to(dt))
+                r = res.with_data(res.data.to(dt)) if res is not None \
+                    else None
+                return lambda impl: (FO.subm_conv_fused(
+                    grp, m, qw[dt][0], cpad, aff=aff, residual=r,
+                    quantize=True, ws=qw[dt][1], impl=impl).data,)
+
+            def step(dt, fm=fm, gs=gs, aff=aff, qw=qw, cpad=cpad):
+                return _activation_step([g.data.to(dt) for g in gs],
+                                        fm.data.to(dt), aff, cpad,
+                                        qw[dt][1])
+            label = (f"edge cpad{cpad} G{len(widths)} "
+                     f"{'affine' if has_aff else 'raw'}"
+                     f"{'+residual' if has_res else ''} {mk} mask, {dims}, "
+                     f"{t.nz}x{t.ny} tiles of {t.tz}x{t.ty}")
+            self.run("conv_site_q", label, conv, [0], resid=res, step=step,
+                     exact=True)
 
     def secondary_cases(self):
         """K8 and K9 (channels-last 3^3 conv) and K10 (gather-GEMM) at the
@@ -1193,7 +1262,7 @@ class KernelChecks:
             return FO.fold(d * m.to(self.dev)[..., None], cpad).data, m
 
         def conv_case(label, dims, cpad, cin, cout, dtypes, flipped=False,
-                      timed=False):
+                      timed=False, log_ms=()):
             x, _ = masked(dims, cin, cpad)
             w27 = torch.from_numpy(self.weights(27, cin, cout))
             if flipped:  # the input gradient's call: flipped, transposed
@@ -1218,16 +1287,25 @@ class KernelChecks:
                      work=work if timed else None,
                      library=_library_conv((B, cin, *dims), cout, 3,
                                            padding=1) if timed else None)
+            for dt in log_ms:  # times beside the one the results keep
+                call = make(dt)
+                tk = _time_ms(lambda: call(None))
+                tp = _time_ms(lambda: call("plain"))
+                log(f"[kernels] conv_raw {label} {str(dt)[6:]}: kernel "
+                    f"{tk:.3f} ms, plain {tp:.3f} ms")
 
         full = TRAIN_DIMS
         conv_case("cpad16 16->16 B8 128x64x64", full, 16, 16, 16,
-                  (torch.float32, torch.bfloat16), timed=True)
+                  (torch.float32, torch.bfloat16), timed=True,
+                  log_ms=(torch.float32,))
         conv_case("cpad8 8->8 B8 128x64x64", full, 8, 8, 8,
                   (torch.bfloat16,))
         conv_case("cpad16 12->9 B8 128x48x64 (Y != X)", (128, 48, 64), 16,
                   12, 9, (torch.float32, torch.bfloat16))
         conv_case("input gradient: flipped taps 16->12", full, 16, 12, 16,
-                  (torch.float32, torch.bfloat16), flipped=True)
+                  (torch.float32, torch.bfloat16), flipped=True,
+                  log_ms=(torch.float32, torch.bfloat16))
+        self.k7_edge_cases()
 
         # K4 with the raw output at the finest training level: mask_scale
         # 1 with the materialized fine mask, as the training step calls it
@@ -1248,6 +1326,41 @@ class KernelChecks:
                     2 * 16 * 2 * _active(fm, 16))
         self.run("head_gate_raw", "B8 128x64x64 mask_scale 1", raw,
                  [0, 1, 3], gate_cpad=16, work=raw_work)
+
+    def k7_edge_cases(self):
+        """K7 where its Hopper design has edges (output bricks of 2 x 4 x 32
+        voxels of the unpadded grid): Z, Y and the x slots not multiples of
+        the brick, x-tail slots past the real X (non-zero where a neighbour
+        is), an all-zero input (every brick skipped: exact zeros), cpad 8
+        with cin 1 and 5 < cpad; batch 2, inputs on random masks."""
+        from sgnn_tpu_torch.ops.kernels import conv_raw as K_raw
+
+        FO = self.FO
+        # label, dims, cpad, cin, cout, input density, x blocks kept (the
+        # folded grid pads them to a multiple of 8)
+        cases = [("Z 5, Y 7, 40 x slots", (5, 7, 40), 16, 16, 16, 0.3, 5),
+                 ("x tail: X 20 of 24 slots", (6, 9, 20), 16, 12, 16, 0.5,
+                  3),
+                 ("all-zero input", (8, 12, 64), 16, 16, 16, 0.0, 8),
+                 ("cpad8 cin 1, X 50 of 64 slots", (7, 10, 50), 8, 1, 8, 0.4,
+                  4),
+                 ("cpad8 cin 5 -> 3, 16 x slots", (3, 5, 16), 8, 5, 3, 1.0,
+                  1)]
+        for i, (label, dims, cpad, cin, cout, p, xq) in enumerate(cases):
+            m = torch.rand(2, *dims, generator=torch.Generator()
+                           .manual_seed(10 + i)) < p
+            d = torch.randn(2, *dims, cin, device=self.dev,
+                            generator=self.gen)
+            x = FO.fold(d * m.to(self.dev)[..., None], cpad).data
+            x = x[:, :, :, :xq].contiguous()
+            w27 = torch.from_numpy(self.weights(27, cin, cout))
+
+            def make(dt, x=x, w27=w27, cin=cin, cpad=cpad):
+                xd, wd = x.to(dt), FO._prep_taps(w27, dt).to(self.dev)
+                return lambda impl: (K_raw.conv_raw(xd, wd, cin, cpad,
+                                                    impl=impl),)
+            self.run("conv_raw", f"edge cpad{cpad} {cin}->{cout} B2 {label}",
+                     make, [0], dense=True, exact=p == 0.0)
 
 
 # ------------------------------------------------------------------ phase 4
@@ -1308,6 +1421,9 @@ class MainPathCheck:
              "downconv_q": ([0], [1], False, False),
              "upconv_q": ([0], [], False, False),
              "tile_amax": ([], [0], False, True)}
+    # kernels that must give their plain versions' bits: K1q sums integers
+    # exactly and dequantizes in the plain version's order
+    EXACT = {"conv_site_q"}
     # wrapper attributes whose counter has another name
     COUNTER = {"conv3d_3x3x3_folded": "conv3d_folded",
                "conv3d_3x3x3": "conv3d"}
@@ -1347,6 +1463,9 @@ class MainPathCheck:
                 f"main path {name} call {st['calls']}", outs, refs, values,
                 masks, args[5] if gate else 0, kw.get("residual"), dense,
                 _int8_step(name, args, kw))
+            require(name not in self.EXACT or err == 0.0,
+                    f"main path {name} call {st['calls']}: max |kernel - "
+                    f"plain| {err}, expected 0")
             st["calls"] += 1
             st["err"] = max(st["err"], err)
             st["ratio"] = max(st["ratio"], ratio)
@@ -1696,11 +1815,7 @@ def phase_int8(results: dict, weights) -> None:
     # launched from Python, so the CUDA-event times include host gaps
     for label, m in (("int8", model), ("exact", exact)):
         _profile("int8", f"one bfloat16 forward, {label} sites",
-                 lambda m=m: m(locs, feats, SCENE),
-                 sums={"K1 (conv_site)": "conv_site_kernel",
-                       "K2 (downconv)": "downconv_kernel",
-                       "K1q (conv_site_q)": "conv_site_q_kernel",
-                       "K2q (downconv_q)": "downconv_q_kernel"})
+                 lambda m=m: m(locs, feats, SCENE))
 
     # every kernel call of one forward against its plain version there
     with MainPathCheck() as chk:
@@ -2253,12 +2368,22 @@ def _step(model, batch, lw, plain=False):
     return m, [p.grad.clone() for p in model.weights]
 
 
-def _profile(tag: str, what: str, fn, top: int = 14,
-             sums: dict | None = None) -> None:
+# the hand-written kernels by their CUDA names (csrc/*.cu)
+KERNEL_NAMES = {"conv_site_kernel": "K1", "conv_site_q_kernel": "K1q",
+                "downconv_kernel": "K2", "downconv_q_kernel": "K2q",
+                "upconv_kernel": "K3", "upconv_q_kernel": "K3q",
+                "head_gate_kernel": "K4 gate and raw",
+                "head_sum_kernel": "K4 summed", "surf_head_kernel": "K5",
+                "scatter_kernel": "K6", "conv_raw_kernel": "K7",
+                "conv3d_cl_kernel": "K8 and K9",
+                "gather_gemm_kernel": "K10", "tile_amax_kernel": "tile_amax"}
+
+
+def _profile(tag: str, what: str, fn, top: int = 14) -> None:
     """Where one call's device time goes: torch.profiler's CUDA time per
     kernel name (the hand-written kernels and PyTorch's own), the largest
-    first, beside the call's host-clock time (ends in a synchronize);
-    ``sums``: label -> a kernel name's part, whose rows are summed."""
+    first, beside the call's host-clock time (ends in a synchronize); then
+    each hand-written kernel's rows summed (KERNEL_NAMES)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -2282,12 +2407,14 @@ def _profile(tag: str, what: str, fn, top: int = 14,
         f"largest:")
     for t, n, key in rows[:top]:
         log(f"[{tag}]   {t:9.2f} ms {n:5d} x {key[:90]}")
-    for label, part in (sums or {}).items():
-        mine = [r for r in rows if part in r[2]]
-        log(f"[{tag}] {label} in {what}: {sum(r[0] for r in mine):.3f} ms "
-            f"of device time in {sum(r[1] for r in mine)} launches ("
-            + "; ".join(f"{t:.3f} ms {n} x {key[:60]}" for t, n, key in mine)
-            + ")")
+    for name, label in KERNEL_NAMES.items():
+        mine = [r for r in rows if f"::{name}<" in r[2]]
+        if mine:
+            log(f"[{tag}] {label} ({name}) in {what}: "
+                f"{sum(r[0] for r in mine):.3f} ms of device time in "
+                f"{sum(r[1] for r in mine)} launches (" + "; ".join(
+                    f"{t:.3f} ms {n} x {key[:60]}" for t, n, key in mine)
+                + ")")
 
 
 def phase_train(results: dict) -> None:
@@ -2418,9 +2545,7 @@ def phase_train(results: dict) -> None:
                 b.synchronize()
                 times[label].append(a.elapsed_time(b))
         _profile("train", "one bfloat16 step",
-                 lambda: _step(model, dev, lw),
-                 sums={"K1 (conv_site)": "conv_site_kernel",
-                       "K2 (downconv)": "downconv_kernel"})
+                 lambda: _step(model, dev, lw))
         ms = {k: float(np.median(v)) for k, v in times.items()}
         each = {k: " ".join(f"{t:.1f}" for t in v) for k, v in times.items()}
         log(f"[train] bfloat16 step, batch {B} at {TRAIN_DIMS}: kernels "

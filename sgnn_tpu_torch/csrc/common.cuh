@@ -118,6 +118,91 @@ __device__ __forceinline__ void store_zero(T* o) {
     q[i] = make_uint4(0u, 0u, 0u, 0u);
 }
 
+// ------------------------------------------------- output bricks (K1, K7)
+//
+// K1, K1q (conv_site.cu) and K7 (conv_raw.cu) give a block of THREADS
+// threads one output brick of BZ x BY x BX voxels, x fastest, so warp w
+// holds brick row w (one (z, y), 32 consecutive x slots). The block stages
+// the brick's halo'd input, HZ x HY x HX voxels, in shared memory with
+// cp.async; staged slot i is halo'd-brick voxel (i / (HY HX), i / HX % HY,
+// i % HX).
+constexpr int BZ = 2, BY = 4, BX = 32;
+constexpr int NV = BZ * BY * BX;
+constexpr int HZ = BZ + 2, HY = BY + 2, HX = BX + 2;
+constexpr int NH = HZ * HY * HX;  // staged (halo'd) voxels
+constexpr int WARPS = THREADS / 32;
+static_assert(NV == THREADS && BX == 32, "one voxel a thread, a row a warp");
+
+// offset between a voxel's staged slot and its tap t = (dz * 3 + dy) * 3
+// + dx neighbour's
+__host__ __device__ constexpr int tap_offset(int t) {
+  return ((t / 9 - 1) * HY + (t / 3 % 3 - 1)) * HX + (t % 3 - 1);
+}
+
+// staged slot of output voxel v of the brick
+__device__ __forceinline__ int center_slot(int v) {
+  return ((v / (BY * BX) + 1) * HY + (v / BX % BY + 1)) * HX + v % BX + 1;
+}
+
+__device__ __forceinline__ unsigned smem_addr(const void* p) {
+  return static_cast<unsigned>(__cvta_generic_to_shared(p));
+}
+
+// 16 bytes from global memory at p to shared address s, or 16 zero bytes
+// (n = 0), asynchronously
+__device__ __forceinline__ void cp_async16(unsigned s, const void* p, int n) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s),
+               "l"(p), "r"(n));
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+
+// waits until at most N of this thread's committed copy groups are pending
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// ------------------------------------------ tensor-core fragments (sm_80+)
+//
+// mma.sync tiles, in PTX's fragment layouts: lane = 4 * gid + tig; an A
+// fragment holds rows gid and gid + 8, B column gid, C rows gid and gid + 8
+// at columns 2 tig and 2 tig + 1.
+
+// r[0..4) = four 8x8 b16 matrices from shared memory; lanes 8 i .. 8 i + 7
+// give the 16-byte row addresses of matrix i
+__device__ __forceinline__ void ldmatrix_x4(unsigned* r, unsigned addr) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(addr)
+      : "memory");
+}
+
+// d[0..4) += A (16 x 16 bf16, a[0..4)) * B (16 x 8 bf16, b[0..2)), f32
+__device__ __forceinline__ void mma_bf16(float* d, const unsigned* a,
+                                         const unsigned* b) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, "
+      "{%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+}
+
+// d[0..4) += A (16 x 32 s8, a[0..4)) * B (32 x 8 s8, b[0..2)), exact s32
+__device__ __forceinline__ void mma_s8(int* d, const unsigned* a,
+                                       const unsigned* b) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k32.row.col.s32.s8.s8.s32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, "
+      "{%0, %1, %2, %3};\n"
+      : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+}
+
 // Row kernels (K8/K9 conv3d_cl.cu, K10 gather_gemm.cu) keep weights of
 // their own layout: f32 [taps, cin, coutp] with coutp a multiple of the
 // output chunk CO (4, 8 or 16), values rounded to the compute type; a
@@ -190,17 +275,14 @@ __device__ __forceinline__ int quantize_s8(float tf, float inv) {
   return static_cast<int>(fminf(fmaxf(q, -127.f), 127.f));
 }
 
-// words[0..CI/4) = one voxel's CI channels at p as the site's f32 input
-// (relu(v * s + b) * mi with the affine sc, else v), quantized with inv
-// and packed four to a word (channel ci in byte ci % 4 of word ci / 4;
+// words[0..CI/4) = one voxel's CI channel values v as the site's f32
+// input (relu(v * s + b) * mi with the affine sc, else v), quantized with
+// inv and packed four to a word (channel ci in byte ci % 4 of word ci / 4;
 // channels >= cin are 0). Returns false when every value is 0.
-template <typename T, int CI>
-__device__ __forceinline__ bool quantize_voxel(const T* __restrict__ p,
-                                               int cin, const float* sc,
-                                               float mi, float inv,
-                                               int* words) {
-  float v[CI];
-  load_voxel<T, CI>(p, v);
+template <int CI>
+__device__ __forceinline__ bool quantize_values(const float* v, int cin,
+                                                const float* sc, float mi,
+                                                float inv, int* words) {
   unsigned any = 0;
 #pragma unroll
   for (int w = 0; w < CI / 4; ++w) {
@@ -222,6 +304,17 @@ __device__ __forceinline__ bool quantize_voxel(const T* __restrict__ p,
     any |= word;
   }
   return any != 0;
+}
+
+// quantize_values of the voxel at p (global memory)
+template <typename T, int CI>
+__device__ __forceinline__ bool quantize_voxel(const T* __restrict__ p,
+                                               int cin, const float* sc,
+                                               float mi, float inv,
+                                               int* words) {
+  float v[CI];
+  load_voxel<T, CI>(p, v);
+  return quantize_values<CI>(v, cin, sc, mi, inv, words);
 }
 
 // iacc[co] += sum_ci q[ci] * w[co][ci] for co < CO, over the CI/4 packed

@@ -39,37 +39,31 @@
 //   order, draw another serving surface from the bf16 occupancy gates
 //   (PERF.md, Findings).
 //
-// K1q, the int8 mode (quantize=True, _kernel_fused :413-451), keeps one
-// thread per output voxel over the whole grid: the thread reads its TPU
-// tile's amax per group (tile (iz, iy) holds interior rows [iz tz, (iz + 1)
-// tz) x [iy ty, (iy + 1) ty)), turns it into s and 1 / s, quantizes each
-// neighbour's f32 input (the affine's value before any rounding to the
-// compute type) on the fly, sums int8 products in int32 with __dp4a against
-// int8 weights [G, 27, co, ci], and dequantizes per group, acc += f32(iacc)
-// * (s * ws[g, co]), before the mask. Bound: the same bytes as K1, and
-// 27 * cin * cout int8 MACs per active voxel (int8 tensor-core rate).
+// K1q, the int8 mode (quantize=True, _kernel_fused :413-451), runs in the
+// same bricks: masked voxels written at once (a brick with no active voxel
+// is a copy), each group's halo'd input brick staged by cp.async two
+// buffers deep, the brick's active voxels as rows. The scale of a product
+// is that of the TPU tile holding the OUTPUT voxel (tile (iz, iy) holds
+// interior rows [iz tz, (iz + 1) tz) x [iy ty, (iy + 1) ty), whole x rows),
+// so it is set per brick row; a brick's 8 rows can span several tiles.
+// For each group and each distinct tile among the brick's active rows (one
+// or two at the serving shapes), the staged group is quantized once per
+// staged voxel into an int8 brick: the f32 input (the affine's value before
+// any rounding to the compute type, relu(x s + b) m_neighbour, else x)
+// times 1 / s, rintf, clipped (quantize_values, common.cuh). Warps then take
+// 16 rows at a time through mma.sync m16n8k32 s8 x s8 -> s32: A is 16 rows
+// by 32 int8 values (two taps at cpad 16, four at cpad 8; a 28th tap of
+// zero weights pads the last step), B the int8 weights [G, 27, co, ci]
+// (k-contiguous per output channel, read through L1), N cpad. Integer sums
+// are exact in any order, and each row keeps its own tile's sums,
+// dequantized per group in group order, acc += f32(iacc) * (s * ws[g, co]),
+// then the mask, the rounding and the residual: the plain version's values
+// bit for bit. The outputs go through shared memory and out as 16-byte
+// vectors. Bound: the same bytes as K1, and 27 * cin * cout int8 MACs per
+// active voxel (int8 tensor-core rate).
 #include "common.cuh"
 
 namespace sgnn {
-
-// the exact modes' output brick; one voxel per thread
-constexpr int BZ = 2, BY = 4, BX = 32;
-constexpr int NV = BZ * BY * BX;
-constexpr int HZ = BZ + 2, HY = BY + 2, HX = BX + 2;
-constexpr int NH = HZ * HY * HX;  // staged (halo'd) voxels
-constexpr int WARPS = THREADS / 32;
-static_assert(NV == THREADS, "one output voxel per thread");
-
-// offset between a voxel's staged slot and its tap t = (dz * 3 + dy) * 3
-// + dx neighbour's
-__host__ __device__ constexpr int tap_offset(int t) {
-  return ((t / 9 - 1) * HY + (t / 3 % 3 - 1)) * HX + (t % 3 - 1);
-}
-
-// staged slot of output voxel v of the brick
-__device__ __forceinline__ int center_slot(int v) {
-  return ((v / (BY * BX) + 1) * HY + (v / BX % BY + 1)) * HX + v % BX + 1;
-}
 
 // Dynamic shared memory of one brick, byte offsets.
 template <typename T, int CPAD>
@@ -89,23 +83,6 @@ struct SiteSmem {
     return i * SLOT + v * 16;
   }
 };
-
-__device__ __forceinline__ unsigned smem_addr(const void* p) {
-  return static_cast<unsigned>(__cvta_generic_to_shared(p));
-}
-
-// 16 bytes from global memory at p to shared address s, or 16 zero bytes
-// (n = 0), asynchronously
-__device__ __forceinline__ void cp_async16(unsigned s, const void* p, int n) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s),
-               "l"(p), "r"(n));
-}
-
-// waits until at most N of this thread's committed copy groups are pending
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
-}
 
 // Issues the copies of one group's halo'd input brick (origin z0 - 1,
 // y0 - 1, x0 - 1) into the staged slots of buf, zero outside the grid,
@@ -127,7 +104,7 @@ __device__ __forceinline__ void issue_group(unsigned buf,
     for (int v = 0; v < S::SLOT / 16; ++v)
       cp_async16(buf + S::word(i, v), p + v * (16 / sizeof(T)), in ? 16 : 0);
   }
-  asm volatile("cp.async.commit_group;\n" ::);
+  cp_async_commit();
 }
 
 // The affine in place on a staged group: round(relu(x s + b) m_i) in the
@@ -159,6 +136,84 @@ __device__ __forceinline__ void affine_group(unsigned char* buf, int cin,
   }
 }
 
+// Voxel (b, z, y, x)'s mask, 0 on the halo ring and outside the grid. A
+// masked voxel's output is the residual (inside the ring) or zero whatever
+// its brick does: it is written at once as 16-byte vectors, its residual
+// load issued with the mask's, so a skipped brick is a copy with no
+// barrier between its loads and stores.
+template <typename T, int CPAD>
+__device__ __forceinline__ float site_mask(const T* __restrict__ mask,
+                                           const T* __restrict__ resid,
+                                           T* __restrict__ out, int b, int z,
+                                           int y, int x, int Zp, int Yp,
+                                           int Xs) {
+  constexpr int W = CPAD * static_cast<int>(sizeof(T)) / 16;
+  const bool inside = z < Zp && y < Yp && x < Xs;
+  const bool ring = z == 0 || z == Zp - 1 || y == 0 || y == Yp - 1;
+  const long long idx = voxel_index(b, z, y, x, Zp, Yp, Xs);
+  T* o = out + idx * CPAD;
+  const bool copy = inside && !ring && resid != nullptr;
+  uint4 rv[W];
+  if (copy) {
+#pragma unroll
+    for (int v = 0; v < W; ++v)
+      rv[v] = __ldg(reinterpret_cast<const uint4*>(resid + idx * CPAD) + v);
+  }
+  const float m = inside && !ring ? to_f(mask[idx * CPAD]) : 0.f;
+  if (inside && m == 0.f) {
+    if (copy) {
+#pragma unroll
+      for (int v = 0; v < W; ++v) reinterpret_cast<uint4*>(o)[v] = rv[v];
+    } else {
+      store_zero<T, CPAD>(o);
+    }
+  }
+  return m;
+}
+
+// An active brick's masks, before a barrier: sm[v] each voxel's, cnt[w]
+// the active voxels of brick row w; with an affine aff ([G, 2, MAXC]) also
+// sa = aff and hm[i] the halo'd brick's (0 outside the grid).
+template <typename T>
+__device__ __forceinline__ void stage_masks(float m,
+                                            const T* __restrict__ mask,
+                                            const float* __restrict__ aff,
+                                            int G, int b, int z0, int y0,
+                                            int x0, int Zp, int Yp, int Xs,
+                                            int cpad, float* sm, int* cnt,
+                                            float* sa, float* hm) {
+  const int tid = threadIdx.x;
+  sm[tid] = m;
+  const unsigned ball = __ballot_sync(0xffffffffu, m != 0.f);
+  if (tid % 32 == 0) cnt[tid / 32] = __popc(ball);
+  if (aff != nullptr) {
+    for (int i = tid; i < G * 2 * MAXC; i += THREADS) sa[i] = aff[i];
+#pragma unroll 4
+    for (int i = tid; i < NH; i += THREADS) {
+      const int hz = z0 - 1 + i / (HY * HX), hy = y0 - 1 + i / HX % HY,
+                hx = x0 - 1 + i % HX;
+      hm[i] = hz >= 0 && hz < Zp && hy >= 0 && hy < Yp && hx >= 0 && hx < Xs
+                  ? to_f(mask[voxel_index(b, hz, hy, hx, Zp, Yp, Xs) * cpad])
+                  : 0.f;
+    }
+  }
+}
+
+// After stage_masks' barrier: list[0, rows) = the brick's active voxels in
+// order (visible after the next barrier); returns rows.
+__device__ __forceinline__ int list_rows(bool active, const int* cnt,
+                                         unsigned short* list) {
+  const int tid = threadIdx.x, lane = tid % 32, warp = tid / 32;
+  const unsigned ball = __ballot_sync(0xffffffffu, active);
+  int off = 0, rows = 0;
+  for (int wi = 0; wi < WARPS; ++wi) {
+    off += wi < warp ? cnt[wi] : 0;
+    rows += cnt[wi];
+  }
+  if (active) list[off + __popc(ball & ((1u << lane) - 1u))] = tid;
+  return rows;
+}
+
 // bf16: 3 blocks of 256 threads an SM (80 registers a thread, ~57 KB of
 // shared memory at cpad 16); f32: 2 (~110 KB at cpad 16)
 template <typename T, int CPAD>
@@ -170,37 +225,13 @@ __global__ void __launch_bounds__(THREADS, sizeof(T) == 2 ? 3 : 2)
                      T* __restrict__ out, int Zp, int Yp, int Xs, int nbz) {
   using S = SiteSmem<T, CPAD>;
   extern __shared__ __align__(16) unsigned char smem[];
-  const int tid = threadIdx.x, lane = tid % 32, warp = tid / 32;
+  const int tid = threadIdx.x;
   const int b = blockIdx.z / nbz;
   const int z0 = blockIdx.z % nbz * BZ, y0 = blockIdx.y * BY,
             x0 = blockIdx.x * BX;
-  const int z = z0 + tid / (BY * BX), y = y0 + tid / BX % BY,
-            x = x0 + tid % BX;
-  const bool inside = z < Zp && y < Yp && x < Xs;
-  const bool ring = z == 0 || z == Zp - 1 || y == 0 || y == Yp - 1;
-  const long long idx = voxel_index(b, z, y, x, Zp, Yp, Xs);
-  T* o = out + idx * CPAD;
-  // A masked voxel's output is the residual (inside the ring) or zero
-  // whatever its brick does: it is written at once, its residual load
-  // issued with the mask's, so a skipped brick is a copy with no barrier
-  // between its loads and stores.
-  const bool copy = inside && !ring && resid != nullptr;
-  uint4 rv[S::SLOT / 16];
-  if (copy) {
-#pragma unroll
-    for (int v = 0; v < S::SLOT / 16; ++v)
-      rv[v] = __ldg(reinterpret_cast<const uint4*>(resid + idx * CPAD) + v);
-  }
-  const float m = inside && !ring ? to_f(mask[idx * CPAD]) : 0.f;
-  if (inside && m == 0.f) {
-    if (copy) {
-#pragma unroll
-      for (int v = 0; v < S::SLOT / 16; ++v)
-        reinterpret_cast<uint4*>(o)[v] = rv[v];
-    } else {
-      store_zero<T, CPAD>(o);
-    }
-  }
+  const float m = site_mask<T, CPAD>(mask, resid, out, b,
+                                     z0 + tid / (BY * BX), y0 + tid / BX % BY,
+                                     x0 + tid % BX, Zp, Yp, Xs);
   if (!__syncthreads_or(m != 0.f)) return;
 
   // an active brick: group 0's copies first, then its masks, affines and
@@ -213,29 +244,10 @@ __global__ void __launch_bounds__(THREADS, sizeof(T) == 2 ? 3 : 2)
   float* sa = reinterpret_cast<float*>(smem + S::AFF);
   unsigned short* list = reinterpret_cast<unsigned short*>(smem + S::LIST);
   int* cnt = reinterpret_cast<int*>(smem + S::CNT);
-  sm[tid] = m;
-  const unsigned ball = __ballot_sync(0xffffffffu, m != 0.f);
-  if (lane == 0) cnt[warp] = __popc(ball);
-  if (aff != nullptr) {
-    for (int i = tid; i < xs.n * 2 * MAXC; i += THREADS) sa[i] = aff[i];
-#pragma unroll 4
-    for (int i = tid; i < NH; i += THREADS) {
-      const int hz = z0 - 1 + i / (HY * HX), hy = y0 - 1 + i / HX % HY,
-                hx = x0 - 1 + i % HX;
-      hm[i] = hz >= 0 && hz < Zp && hy >= 0 && hy < Yp && hx >= 0 && hx < Xs
-                  ? to_f(mask[voxel_index(b, hz, hy, hx, Zp, Yp, Xs) * CPAD])
-                  : 0.f;
-    }
-  }
+  stage_masks<T>(m, mask, aff, xs.n, b, z0, y0, x0, Zp, Yp, Xs, CPAD, sm,
+                 cnt, sa, hm);
   __syncthreads();
-
-  // the rows: the brick's active voxels, in order
-  int off = 0, rows = 0;
-  for (int wi = 0; wi < WARPS; ++wi) {
-    off += wi < warp ? cnt[wi] : 0;
-    rows += cnt[wi];
-  }
-  if (m != 0.f) list[off + __popc(ball & ((1u << lane) - 1u))] = tid;
+  const int rows = list_rows(m != 0.f, cnt, list);
 
   // each row's voxel is summed over the staged groups in f32 FMAs, in the
   // order of the kernel this design replaced (group, tap (dz, dy, dx),
@@ -325,75 +337,260 @@ __global__ void __launch_bounds__(THREADS, sizeof(T) == 2 ? 3 : 2)
   }
 }
 
+// Dynamic shared memory of one K1q brick, byte offsets.
 template <typename T, int CPAD>
-__global__ void __launch_bounds__(THREADS)
+struct SiteQSmem {
+  static constexpr int SLOT = CPAD * static_cast<int>(sizeof(T));
+  static constexpr int BUF = NH * SLOT;        // a staged group
+  static constexpr int NT = CPAD / 8;          // 8-wide N tiles
+  static constexpr int IN = 0;   // group g in buffer g % 2; then the outputs
+  static constexpr int Q = IN + 2 * BUF;       // int8 [NH][CPAD]
+  static constexpr int HM = Q + NH * CPAD;     // float [NH]
+  static constexpr int M = HM + NH * 4;        // float [NV]
+  static constexpr int AFF = M + NV * 4;       // float [G][2][MAXC]
+  static constexpr int LIST = AFF + MAXG * 2 * MAXC * 4;  // ushort [NV]
+  static constexpr int CNT = LIST + NV * 2;    // int [WARPS]
+  static constexpr int KEY = CNT + WARPS * 4;  // int [WARPS]
+  static constexpr int BYTES = KEY + WARPS * 4;
+  static_assert(NV * SLOT <= BUF, "the outputs fit buffer 0");
+};
+
+// Quantizes a staged group (K1's layout) into q, int8 [NH][CPAD]: each
+// staged voxel's f32 input (with the affine sa, relu(x s + b) hm[i]; 0 where
+// the neighbour's mask is 0) with 1 / s = inv, channels >= cin 0.
+template <typename T, int CPAD>
+__device__ __forceinline__ void quantize_group(const unsigned char* buf,
+                                               unsigned char* q, int cin,
+                                               const float* sa,
+                                               const float* hm, float inv) {
+  using S = SiteSmem<T, CPAD>;
+  constexpr int E = 16 / static_cast<int>(sizeof(T));
+  for (int i = threadIdx.x; i < NH; i += THREADS) {
+    const float mi = sa != nullptr ? hm[i] : 1.f;
+    int words[CPAD / 4] = {};
+    if (mi != 0.f) {
+      float v[CPAD];
+#pragma unroll
+      for (int c = 0; c < S::SLOT / 16; ++c) {
+        const uint4 u = *reinterpret_cast<const uint4*>(buf + S::word(i, c));
+        const T* t = reinterpret_cast<const T*>(&u);
+#pragma unroll
+        for (int e = 0; e < E; ++e) v[c * E + e] = to_f(t[e]);
+      }
+      quantize_values<CPAD>(v, cin, sa, mi, inv, words);
+    }
+    if constexpr (CPAD == 16) {
+      *reinterpret_cast<int4*>(q + i * CPAD) =
+          make_int4(words[0], words[1], words[2], words[3]);
+    } else {
+      *reinterpret_cast<int2*>(q + i * CPAD) = make_int2(words[0], words[1]);
+    }
+  }
+}
+
+// int8 products of 16 rows (this lane's rows gid and gid + 8 at staged
+// slots s0, s1) with group wg's int8 weights [27, co, ci] over the
+// quantized brick q: ia[nt] = the C fragment of N tile nt.
+template <int CPAD>
+__device__ __forceinline__ void mma_rows_s8(const unsigned char* q, int s0,
+                                            int s1,
+                                            const int* __restrict__ wg,
+                                            int (*ia)[4]) {
+  constexpr int TPK = 32 / CPAD, KSTEPS = (27 + TPK - 1) / TPK;
+  constexpr int NT = CPAD / 8;
+  const int lane = threadIdx.x % 32, gid = lane / 4, tig = lane % 4;
+#pragma unroll
+  for (int nt = 0; nt < NT; ++nt)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) ia[nt][e] = 0;
+#pragma unroll  // the taps' offsets become constants
+  for (int j = 0; j < KSTEPS; ++j) {
+    // k values 4 tig .. (a0, a1; b0) and 16 + 4 tig .. (a2, a3; b1): tap
+    // TPK j + k / CPAD, channels k % CPAD ..
+    unsigned a[4], b[NT][2];
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int k = 16 * h + 4 * tig;
+      const int tap = TPK * j + k / CPAD, ci = k % CPAD;
+      if (tap < 27) {
+        const int off = tap_offset(tap) * CPAD + ci;
+        a[2 * h] = *reinterpret_cast<const unsigned*>(q + s0 * CPAD + off);
+        a[2 * h + 1] = *reinterpret_cast<const unsigned*>(q + s1 * CPAD + off);
+#pragma unroll
+        for (int nt = 0; nt < NT; ++nt)
+          b[nt][h] = static_cast<unsigned>(
+              __ldg(wg + ((tap * MAXC + nt * 8 + gid) * MAXC + ci) / 4));
+      } else {
+        a[2 * h] = a[2 * h + 1] = 0u;
+#pragma unroll
+        for (int nt = 0; nt < NT; ++nt) b[nt][h] = 0u;
+      }
+    }
+#pragma unroll
+    for (int nt = 0; nt < NT; ++nt) mma_s8(ia[nt], a, b[nt]);
+  }
+}
+
+// bf16: 3 blocks of 256 threads an SM (~69 KB of shared memory at cpad
+// 16); f32: 1 (~120 KB)
+template <typename T, int CPAD>
+__global__ void __launch_bounds__(THREADS, sizeof(T) == 2 ? 3 : 1)
     conv_site_q_kernel(Groups xs, const T* __restrict__ mask,
                        const T* __restrict__ resid,
-                       const int4* __restrict__ wq,    // [G, 27, MAXC] x 16
+                       const int* __restrict__ wq,     // int8 [G, 27, co, ci]
                        const float* __restrict__ ws,   // [G, MAXC]
                        const float* __restrict__ aff,  // [G, 2, MAXC] or null
                        const float* __restrict__ amax,  // [B, nz, ny, G]
-                       T* __restrict__ out, int B, int Zp, int Yp, int Xs,
+                       T* __restrict__ out, int Zp, int Yp, int Xs, int nbz,
                        int tz, int ty, int nz, int ny) {
-  const long long idx =
-      static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
-  if (idx >= static_cast<long long>(B) * Zp * Yp * Xs) return;
-  const Voxel v = decode(idx, Zp, Yp, Xs);
-  T* o = out + idx * CPAD;
-  const bool ring = v.z == 0 || v.z == Zp - 1 || v.y == 0 || v.y == Yp - 1;
-  const float m = ring ? 0.f : to_f(mask[idx * CPAD]);
-  if (m == 0.f) {
-    if (resid != nullptr && !ring) {
-#pragma unroll
-      for (int c = 0; c < CPAD; ++c) o[c] = resid[idx * CPAD + c];
-    } else {
-      store_zero<T, CPAD>(o);
-    }
-    return;
+  using S = SiteQSmem<T, CPAD>;
+  constexpr int NT = S::NT;
+  extern __shared__ __align__(16) unsigned char smem[];
+  const int tid = threadIdx.x, lane = tid % 32, warp = tid / 32;
+  const int gid = lane / 4, tig = lane % 4;
+  const int b = blockIdx.z / nbz;
+  const int z0 = blockIdx.z % nbz * BZ, y0 = blockIdx.y * BY,
+            x0 = blockIdx.x * BX;
+  const float m = site_mask<T, CPAD>(mask, resid, out, b,
+                                     z0 + tid / (BY * BX), y0 + tid / BX % BY,
+                                     x0 + tid % BX, Zp, Yp, Xs);
+  if (!__syncthreads_or(m != 0.f)) return;
+
+  // an active brick: group 0's copies first, then its masks, affines, each
+  // brick row's TPU tile (key iz * ny + iy; -1 for a row with no active
+  // voxel, as every ring row) and the row list
+  unsigned char* bufs[2] = {smem + S::IN, smem + S::IN + S::BUF};
+  unsigned char* qb = smem + S::Q;
+  issue_group<T, CPAD>(smem_addr(bufs[0]), static_cast<const T*>(xs.p[0]),
+                       b, z0, y0, x0, Zp, Yp, Xs);
+  float* hm = reinterpret_cast<float*>(smem + S::HM);
+  float* sm = reinterpret_cast<float*>(smem + S::M);
+  float* sa = reinterpret_cast<float*>(smem + S::AFF);
+  unsigned short* list = reinterpret_cast<unsigned short*>(smem + S::LIST);
+  int* cnt = reinterpret_cast<int*>(smem + S::CNT);
+  int* key = reinterpret_cast<int*>(smem + S::KEY);
+  stage_masks<T>(m, mask, aff, xs.n, b, z0, y0, x0, Zp, Yp, Xs, CPAD, sm,
+                 cnt, sa, hm);
+  {
+    const bool row_active = __any_sync(0xffffffffu, m != 0.f);
+    const int z = z0 + warp / BY, y = y0 + warp % BY;
+    if (lane == 0)
+      key[warp] = row_active ? (z - 1) / tz * ny + (y - 1) / ty : -1;
   }
-  const float* am =
-      amax + ((static_cast<long long>(v.b) * nz + (v.z - 1) / tz) * ny +
-              (v.y - 1) / ty) * xs.n;
-  float acc[CPAD];
+  __syncthreads();
+  const int rows = list_rows(m != 0.f, cnt, list);
+
+  // warp w takes the 16-row chunks w and w + WARPS of the list; this lane
+  // holds rows gid and gid + 8 of each (its A rows and C rows)
+  int slot[2][2], rkey[2][2];
+  float acc[2][NT][4];
 #pragma unroll
-  for (int c = 0; c < CPAD; ++c) acc[c] = 0.f;
+  for (int j = 0; j < 2; ++j) {
+#pragma unroll
+    for (int nt = 0; nt < NT; ++nt)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[j][nt][e] = 0.f;
+  }
   for (int g = 0; g < xs.n; ++g) {
-    const T* __restrict__ xg = static_cast<const T*>(xs.p[g]);
     const int cin = xs.cin[g];
-    const float* sc = aff != nullptr ? aff + g * 2 * MAXC : nullptr;
-    const float s = tile_scale(am[g]);
-    const float inv = 1.0f / s;
-    int iacc[CPAD];
+    const unsigned char* buf = bufs[g % 2];
+    if (g + 1 < xs.n) {
+      issue_group<T, CPAD>(smem_addr(bufs[(g + 1) % 2]),
+                           static_cast<const T*>(xs.p[g + 1]), b, z0, y0, x0,
+                           Zp, Yp, Xs);
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
+    }
+    __syncthreads();
+    if (g == 0) {  // the list is visible from here on
 #pragma unroll
-    for (int c = 0; c < CPAD; ++c) iacc[c] = 0;
-    for (int dz = 0; dz < 3; ++dz) {
-      for (int dy = 0; dy < 3; ++dy) {
-        const long long row =
-            voxel_index(v.b, v.z + dz - 1, v.y + dy - 1, 0, Zp, Yp, Xs);
-        for (int dx = 0; dx < 3; ++dx) {
-          const int xx = v.x + dx - 1;
-          if (xx < 0 || xx >= Xs) continue;
-          const long long nv = (row + xx) * CPAD;
-          float mi = 1.f;
-          if (sc != nullptr) {
-            mi = to_f(mask[nv]);
-            if (mi == 0.f) continue;  // relu(.) * 0 quantizes to 0
-          }
-          int words[CPAD / 4];
-          if (!quantize_voxel<T, CPAD>(xg + nv, cin, sc, mi, inv, words))
-            continue;
-          dp4a_voxel<CPAD, CPAD>(
-              iacc, words, wq + (g * 27 + (dz * 3 + dy) * 3 + dx) * MAXC);
+      for (int j = 0; j < 2; ++j) {
+#pragma unroll
+        for (int hi = 0; hi < 2; ++hi) {
+          const int r = (warp + j * WARPS) * 16 + gid + 8 * hi;
+          const int v = r < rows ? list[r] : 0;
+          slot[j][hi] = center_slot(v);
+          rkey[j][hi] = r < rows ? key[v / BX] : -1;
         }
       }
     }
-    dequant_add<CPAD>(acc, iacc, s, ws + g * MAXC);
-  }
+    const int* wg = wq + g * 27 * MAXC * MAXC / 4;
+    const float* wsg = ws + g * MAXC;
+    // one pass per distinct tile among the brick rows, in row order
+    for (int wr = 0; wr < WARPS; ++wr) {
+      const int k = key[wr];
+      bool seen = k < 0;
+      for (int p = 0; p < wr; ++p) seen = seen || key[p] == k;
+      if (seen) continue;
+      const float s =
+          tile_scale(amax[(static_cast<long long>(b) * nz * ny + k) * xs.n +
+                          g]);
+      quantize_group<T, CPAD>(buf, qb, cin,
+                              aff != nullptr ? sa + g * 2 * MAXC : nullptr,
+                              hm, 1.0f / s);
+      __syncthreads();
 #pragma unroll
-  for (int c = 0; c < CPAD; ++c) {
-    T r = from_f<T>(acc[c] * m);
-    if (resid != nullptr) r = from_f<T>(to_f(r) + to_f(resid[idx * CPAD + c]));
-    o[c] = r;
+      for (int j = 0; j < 2; ++j) {
+        const bool mine = rkey[j][0] == k || rkey[j][1] == k;
+        if (!__any_sync(0xffffffffu, mine)) continue;
+        int ia[NT][4];
+        mma_rows_s8<CPAD>(qb, slot[j][0], slot[j][1], wg, ia);
+#pragma unroll
+        for (int nt = 0; nt < NT; ++nt) {
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            if (rkey[j][e / 2] != k) continue;
+            const int co = nt * 8 + 2 * tig + e % 2;
+            acc[j][nt][e] = __fadd_rn(
+                acc[j][nt][e],
+                __fmul_rn(static_cast<float>(ia[nt][e]),
+                          __fmul_rn(s, __ldg(wsg + co))));
+          }
+        }
+      }
+      __syncthreads();  // before q or this group's buffer is written again
+    }
+  }
+
+  // the active voxels' outputs: round(acc m) into buffer 0 by row, then
+  // each row's voxel + its residual, rounded, as 16-byte vectors
+  T* ot = reinterpret_cast<T*>(smem + S::IN);
+#pragma unroll
+  for (int j = 0; j < 2; ++j) {
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int r = (warp + j * WARPS) * 16 + gid + 8 * (e / 2);
+      if (r >= rows) continue;
+      const float mv = sm[list[r]];
+#pragma unroll
+      for (int nt = 0; nt < NT; ++nt)
+        ot[r * CPAD + nt * 8 + 2 * tig + e % 2] =
+            from_f<T>(__fmul_rn(acc[j][nt][e], mv));
+    }
+  }
+  __syncthreads();
+  if (tid < rows) {
+    const int v = list[tid];
+    const long long iv =
+        voxel_index(b, z0 + v / (BY * BX), y0 + v / BX % BY, x0 + v % BX, Zp,
+                    Yp, Xs) * CPAD;
+    float r[CPAD];
+#pragma unroll
+    for (int c = 0; c < S::SLOT / 16; ++c) {
+      const uint4 u = reinterpret_cast<const uint4*>(ot + tid * CPAD)[c];
+      const T* t = reinterpret_cast<const T*>(&u);
+#pragma unroll
+      for (int e = 0; e < 16 / static_cast<int>(sizeof(T)); ++e)
+        r[c * (16 / static_cast<int>(sizeof(T))) + e] = to_f(t[e]);
+    }
+    if (resid != nullptr) {
+      float rr[CPAD];
+      load_voxel<T, CPAD>(resid + iv, rr);
+#pragma unroll
+      for (int c = 0; c < CPAD; ++c) r[c] = __fadd_rn(r[c], rr[c]);
+    }
+    store_voxel<T, CPAD>(out + iv, r);
   }
 }
 
@@ -404,12 +601,19 @@ static int launch_conv_site_q(const Groups& g, const void* mask,
                               const float* amax, void* out, int B, int Zp,
                               int Yp, int xq, int tz, int ty, int nz, int ny,
                               cudaStream_t stream) {
+  using S = SiteQSmem<T, CPAD>;
+  static_assert(S::BYTES <= 227 * 1024, "a brick's shared memory");
+  const cudaError_t attr = cudaFuncSetAttribute(
+      conv_site_q_kernel<T, CPAD>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, S::BYTES);
+  if (attr != cudaSuccess) return static_cast<int>(attr);
   const int Xs = xq * (LANES / CPAD);
-  const long long n = static_cast<long long>(B) * Zp * Yp * Xs;
-  conv_site_q_kernel<T, CPAD><<<blocks_for(n), THREADS, 0, stream>>>(
+  const int nbz = (Zp + BZ - 1) / BZ;
+  const dim3 grid((Xs + BX - 1) / BX, (Yp + BY - 1) / BY, B * nbz);
+  conv_site_q_kernel<T, CPAD><<<grid, THREADS, S::BYTES, stream>>>(
       g, static_cast<const T*>(mask), static_cast<const T*>(resid),
-      static_cast<const int4*>(wq), ws, aff, amax, static_cast<T*>(out), B,
-      Zp, Yp, Xs, tz, ty, nz, ny);
+      static_cast<const int*>(wq), ws, aff, amax, static_cast<T*>(out), Zp,
+      Yp, Xs, nbz, tz, ty, nz, ny);
   return static_cast<int>(cudaGetLastError());
 }
 

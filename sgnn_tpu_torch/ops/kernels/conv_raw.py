@@ -12,6 +12,12 @@ with flipped, in/out-transposed taps, and it needs every voxel). ``w
 [27, 16, 16]``: the taps (C order over (dz, dy, dx)) zero-padded to 16
 channels and rounded to the compute type; ``cin`` input channels are
 read.
+
+Precondition of the bf16 kernel: ``w`` is f32 holding bf16 values (every
+caller prepares it with ``ops/folded.py`` ``_prep_taps(w, x.dtype)``). The
+kernel runs its products on the tensor cores in bf16, so it takes those
+values as they are; other values would be rounded there, and the plain
+version would not be.
 """
 
 from __future__ import annotations

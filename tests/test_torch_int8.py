@@ -6,7 +6,8 @@ re-expanded to the TPU layouts; the plain versions of the int8 conv (K1),
 down (K2) and upsample (K3) sites match JAX's fused sites with
 ``quantize=True``, their Pallas kernels in interpret mode, at shapes
 whose pickers give several tiles (each tile has its own activation
-scale). Site tolerance, f32: atol = rtol = 1e-5 on at least 99.9% of the
+scale), K1 also where tiles of 2 x 3 rows straddle the Hopper kernel's
+2 x 4 brick rows, on empty and dense masks. Site tolerance, f32: atol = rtol = 1e-5 on at least 99.9% of the
 output values and one activation step (s_tile * ws[co] * 127: one int8
 value moved by one) on the rest, because the JAX side runs on XLA:CPU,
 which fuses ``t * a + b`` into an FMA and computes ``amax / 127`` as
@@ -287,14 +288,31 @@ def test_quantize_upconv_weights(cpad, widths, cout, dtype):
     (8, [1], 8, False, False),
 ])
 def test_conv_site_q(cpad, widths, cout, affine, resid):
+    _check_conv_site_q(cpad, widths, cout, affine, resid, (10, 20, 32), 0.6,
+                       (2, 4, 5, 5))
+
+
+@pytest.mark.parametrize("kind,p", [("empty", 0.0), ("dense", 1.0)])
+def test_conv_site_q_tiles_straddle_bricks(kind, p):
+    """At Z = 10, Y = 9 the picker gives tiles of 2 x 3 rows, whose
+    activation scales change inside the Hopper kernel's 2 x 4 brick rows
+    (which start at the halo ring, one row off the tiles' origin), on an
+    empty and a dense mask; the residual is dense, so a masked voxel's
+    output is its copy."""
+    _check_conv_site_q(16, [16, 8], 16, True, True, (10, 9, 40), p,
+                       (2, 3, 5, 3), dense_resid=True)
+
+
+def _check_conv_site_q(cpad, widths, cout, affine, resid, dims, p, tiles,
+                       dense_resid=False):
     rng = np.random.RandomState(sum(widths) + cpad + 1)
-    dims = (10, 20, 32)
-    m, fm = _mask(rng, dims, cpad)
+    m, fm = _mask(rng, dims, cpad, p)
     groups = [_grid(rng, dims, c, cpad, m if not affine else None)
               for c in widths]
     w27 = (0.2 * rng.randn(27, sum(widths), cout)).astype(np.float32)
     bn = _bn(rng, sum(widths)) if affine else (None, None)
-    res = _grid(rng, dims, cout, cpad, m) if resid else None
+    res = _grid(rng, dims, cout, cpad, None if dense_resid else m) \
+        if resid else None
     want = JFO.subm_conv_fused(
         [_j(g) for g in groups], _j(fm), jnp.asarray(w27), cout,
         bn_params=bn[0], bn_stats=bn[1],
@@ -303,11 +321,17 @@ def test_conv_site_q(cpad, widths, cout, affine, resid):
     aff = _aff(bn, widths, cpad) if affine else None
     wq, ws = Q.quantize_conv_weights(FO.prep_conv_weights(w27, widths, F32))
     t = Q.conv_tiles(fm.data, len(widths), resid)
-    assert (t.tz, t.ty, t.nz, t.ny) == (2, 4, 5, 5)
+    assert (t.tz, t.ty, t.nz, t.ny) == tiles
     got = FO.subm_conv_fused(groups, fm, wq, cout, aff=aff, residual=res,
                              quantize=True, ws=ws)
     s = Q.tile_scales_plain([g.data for g in groups], fm.data, aff, cpad, t)
     _assert_close(got.data, want.data, _step(s, ws))
+    if p == 0.0:  # every voxel masked: the residual, or zero
+        want_res = res.data if resid else torch.zeros_like(got.data)
+        want_res = want_res.clone()
+        want_res[:, [0, -1]] = 0
+        want_res[:, :, [0, -1]] = 0
+        assert torch.equal(got.data, want_res)
 
 
 @pytest.mark.parametrize("cpad,cpad_out,cin,cout,affine", [

@@ -2,7 +2,9 @@
 
 K7 (``conv_raw``) and K4's raw mode are held, through their plain PyTorch
 versions, against the Pallas kernels in interpret mode (f32, atol = rtol =
-1e-5: the two sum in different orders). Every training site
+1e-5: the two sum in different orders); K7 also at the edges of its
+Hopper design's output bricks (2 x 4 x 32 voxels): dims off the brick,
+x-tail slots, cpad 8 with cin 1 and 5, an all-zero input. Every training site
 (``ops/folded.py``'s autograd Functions) is held against its JAX function:
 outputs, new running stats and the gradients of one random linear
 functional of the outputs, to atol = rtol = 2e-4 (as
@@ -95,13 +97,30 @@ def _close(got, want, tol=TOL, what=""):
     (16, 11, 7, (6, 10, 24)),
     (8, 8, 8, (4, 6, 48)),
     (8, 5, 3, (4, 10, 32)),
+    # the edges of the Hopper kernel's output bricks (2 x 4 x 32 voxels)
+    (16, 16, 16, (5, 7, 40)),   # Z and Y off the brick
+    (16, 9, 12, (3, 5, 20)),    # x-tail slots 20..63
+    (8, 1, 8, (5, 6, 40)),      # cpad 8, cin 1
+    (8, 5, 8, (3, 9, 24)),      # cpad 8, cin 5
 ])
 @pytest.mark.parametrize("flipped", [False, True])
 def test_conv_raw(cpad, cin, cout, dims, flipped):
     """K7's plain version against conv_folded_raw (Pallas, interpret), and
-    with the flipped, in/out-transposed taps of the input gradient."""
+    with the flipped, in/out-transposed taps of the input gradient; every
+    x-tail slot is computed (a neighbour makes slot X non-zero)."""
+    _check_conv_raw(cpad, cin, cout, dims, flipped)
+
+
+def test_conv_raw_all_zero_input():
+    """An all-zero input (each of the Hopper kernel's bricks skipped):
+    exact zeros, as conv_folded_raw gives."""
+    _check_conv_raw(16, 16, 16, (4, 6, 32), False, zero=True)
+
+
+def _check_conv_raw(cpad, cin, cout, dims, flipped, zero=False):
     rng = np.random.RandomState(cpad + cin + cout)
-    fg, jfg = _grid(rng, dims, cin, cpad, _mask_np(rng, dims))
+    m = np.zeros((B, *dims), bool) if zero else _mask_np(rng, dims)
+    fg, jfg = _grid(rng, dims, cin, cpad, m)
     w27 = (0.2 * rng.randn(27, cin, cout)).astype(np.float32)
     if flipped:
         w27 = np.flip(w27.reshape(3, 3, 3, cin, cout), (0, 1, 2)).reshape(
@@ -118,7 +137,12 @@ def test_conv_raw(cpad, cin, cout, dims, flipped):
     _close(out, jout)
     lanes = out.view(*out.shape[:4], 128 // cpad, cpad)
     assert not lanes[..., cout:].any(), "dead lanes must stay zero"
-    assert out.abs().max() > 0.1
+    if zero:
+        assert not out.any()
+    else:
+        assert out.abs().max() > 0.1
+        slots = out.view(*out.shape[:3], -1, cpad)
+        assert slots[:, :, :, dims[2]].any(), "x-tail slot X is computed"
 
 
 def test_conv_folded_train_grads():

@@ -13,6 +13,8 @@ JAX package, on the CPU.
   every gradient (the JAX side's from its first Adam moment, mu / (1 -
   b1)) to 5e-3 of its largest |g|; the new running stats to 1e-4; Adam's
   moments to the gradients' tolerance; the updated parameters to 1e-6.
+- A bf16 step hands K7 taps that hold bf16 values at every call (the
+  precondition of its tensor-core mode).
 Checkpoints and the CLI: tests/test_torch_train_cli.py.
 """
 
@@ -20,6 +22,7 @@ Checkpoints and the CLI: tests/test_torch_train_cli.py.
 import jax
 import numpy as np
 import pytest
+import torch
 
 from sgnn_tpu.config import SGNNConfig as JConfig
 from sgnn_tpu.data import dataset as JD
@@ -34,7 +37,8 @@ from sgnn_tpu_torch.data import dataset as D
 from sgnn_tpu_torch.data import formats as F
 from sgnn_tpu_torch.data.capacity import estimate_row_capacities
 from sgnn_tpu_torch.models.folded_train import GenModelFoldedTrain
-from sgnn_tpu_torch.params import load_jax_params, tree_items
+from sgnn_tpu_torch.ops.kernels import conv_raw as K_raw
+from sgnn_tpu_torch.params import init_params, load_jax_params, tree_items
 from sgnn_tpu_torch.train import state as ST
 from sgnn_tpu_torch.train import step as TS
 
@@ -278,3 +282,33 @@ def test_step_stats(step_runs):
     for k, v in tree_items(model.stat_tree()):
         np.testing.assert_allclose(v.numpy(), want[k], rtol=1e-4, atol=1e-4,
                                    err_msg=k)
+
+
+def test_bf16_step_gives_k7_bf16_weights(chunks, monkeypatch):
+    """Every K7 call of a bf16 train step (the forward of each training
+    conv site and every input gradient) gets taps that hold bf16 values:
+    the precondition of K7's tensor-core mode, which converts them to
+    bf16 (csrc/conv_raw.cu)."""
+    _, files = chunks
+    cfg = SGNNConfig(**{**CFG, "compute_dtype": "bfloat16"})
+    model = GenModelFoldedTrain(cfg)
+    load_jax_params(model, *init_params(cfg, seed=1))
+    ds = D.SceneDataset(files, TRUNC, 3, sparse_targets=True)
+    caps = estimate_row_capacities(files, 3, TRUNC, 2)
+    batch = D.collate_sparse([ds[0], ds[1]], cfg.input_cap, *caps)
+    seen, orig = [], K_raw.conv_raw
+
+    def record(x, w, cin, cpad, **kw):
+        seen.append((x.dtype, w.clone()))
+        return orig(x, w, cin, cpad, **kw)
+    monkeypatch.setattr(K_raw, "conv_raw", record)
+    m = TS.train_step(model, ST.make_optimizer(model),
+                      TS.to_device(batch, "cpu"), np.ones(4, np.float32),
+                      1e-3, num_refine_active=2, do_surf=True)
+    assert np.isfinite(float(m["loss"]))
+    assert len(seen) > 20, len(seen)  # forwards and input gradients
+    for dt, w in seen:
+        assert dt == torch.bfloat16
+        assert w.dtype == torch.float32
+        assert torch.equal(w, w.bfloat16().float())
+        assert w.abs().max() > 0
