@@ -20,7 +20,13 @@ where every phase passed prints the two JSON lines at the end):
    step) and tile_amax (bit-equal) with their TPU tiles; K1, K2, K7 and
    K1q also at the edges of their Hopper designs (output bricks of 2 x 4 x
    32 voxels: dims off the brick, x-tail slots, empty and dense inputs,
-   cpad 8 with narrow groups, K1q's TPU tiles straddling bricks);
+   cpad 8 with narrow groups, K1q's TPU tiles straddling bricks), K10 at
+   the seams of its row tiles (a row count off the tile, taps and tiles
+   with no neighbour, indices outside the table, rows of 2 to 400 bytes,
+   channels staged in several units and weights in windows, two column
+   groups) and tile_amax at its (empty, full and one-voxel masks in rows
+   that two or four windows hold, 1-4 groups, cpad 8 and 16, with and
+   without the affine);
 4. forward: the full-width model (L=4, nf 16, bf16, seeded random
    weights) answers three synthetic sphere scenes through
    sgnn_tpu_torch.infer.SceneInferencer; every kernel of that path must
@@ -48,7 +54,8 @@ where every phase passed prints the two JSON lines at the end):
    voxels so nothing overflows) and the dense-flow execution
    (GenModelDense with use_pallas_conv, at the default pallas_min_voxels
    and at 0) via SceneInferencer; K10's and K8's launches per forward
-   required as derived (SECONDARY), every call of one forward held
+   required as derived (SECONDARY), the shapes of K10's calls (taps,
+   widths, rows, present neighbours) logged, every call of one forward held
    against its plain version; in f32 the surfaces of the folded, dense-
    flow and both coordinate-list backends compared on the card; in bf16
    each execution's kernels against its plain versions on the card and
@@ -1059,6 +1066,97 @@ class KernelChecks:
                         6 * int(act.sum()) * sum(g.real_c for g in xs))
             self.run("tile_amax", label, amax, [], masks=[0], dense=True,
                      work=amax_work, peak=PEAK_F32_FLOPS)
+            if aff is None:  # the full-grid pass, timed beside the one kept
+                call = amax(torch.bfloat16)
+                tk = _time_ms(lambda: call(None))
+                nbytes, ops = amax_work(torch.bfloat16)
+                b = _bound(nbytes + _nbytes(*call(None)), ops, PEAK_F32_FLOPS)
+                log(f"[kernels] tile_amax {label} bfloat16: kernel {tk:.3f} "
+                    f"ms; bound {b['bound_ms']:.4f} ms by {b['bound_by']} "
+                    f"({nbytes / 1e6:.1f} MB)")
+        self.amax_edge_cases()
+
+    def amax_edge_cases(self):
+        """tile_amax at the edges of its Hopper design (a mask vector read
+        once for every group, the groups only where it is set; a block's 8
+        rows combined per tile): conv windows of tiles of 2 x 3 rows at
+        10x21x40, up and down windows; an all-zero and a fully active mask,
+        one active voxel in a padded row that two or four windows hold, a
+        random mask; cpad 8 and 16, 1-4 groups, with and without the
+        affine. Bit-equal to the plain version."""
+        from sgnn_tpu_torch.ops import quant as Q
+        from sgnn_tpu_torch.ops.kernels import tile_amax as K_amax
+
+        dims = (10, 21, 40)
+        gen = torch.Generator().manual_seed(11)
+        full = torch.ones(1, *dims, dtype=torch.bool)
+        t16 = Q.conv_tiles(self.mask(full, 16).data, 1, False)
+        require(t16.ty <= 3 and t16.nz > 1 and t16.ny > 1,
+                f"tile_amax edge cases: tiles {t16}")
+
+        def one_voxel(windows):
+            """A mask with one active voxel in a padded row held by
+            ``windows`` (2 or 4) conv windows."""
+            t = t16
+            for z in range(1, dims[0] + 1):
+                for y in range(1, dims[1] + 1):
+                    nz = sum(iz * t.sz <= z < iz * t.sz + t.lz
+                             for iz in range(t.nz))
+                    ny = sum(iy * t.sy <= y < iy * t.sy + t.ly
+                             for iy in range(t.ny))
+                    if nz * ny == windows:
+                        m = torch.zeros(1, *dims, dtype=torch.bool)
+                        m[0, z - 1, y - 1, 17] = True
+                        return m
+            raise SmokeError(f"no row in {windows} windows of {t}")
+
+        masks = {"all-zero": torch.zeros(1, *dims, dtype=torch.bool),
+                 "fully active": full,
+                 "one voxel in 4 windows": one_voxel(4),
+                 "one voxel in 2 windows": one_voxel(2),
+                 "random": torch.rand(1, *dims, generator=gen) < 0.3}
+        # cpad, widths, affine, mask, site whose windows
+        cases = [(16, [16, 16, 2, 8], True, "all-zero", "conv"),
+                 (16, [16, 8], True, "fully active", "conv"),
+                 (8, [8, 8, 1], True, "one voxel in 4 windows", "conv"),
+                 (16, [16], True, "one voxel in 2 windows", "conv"),
+                 (8, [8], True, "random", "conv"),
+                 (16, [16, 16, 16], True, "random", "up"),
+                 (16, [16, 2, 8], False, "random", "conv"),
+                 (8, [8], False, "random", "down"),
+                 (16, [5, 16, 16, 16], False, "fully active", "conv")]
+        for cpad, widths, has_aff, mk, site in cases:
+            fm = self.mask(masks[mk], cpad)
+            data = masks[mk] if has_aff else full
+            xs = [self.grid(dims, c, cpad, data) for c in widths]
+            aff = self.affines(widths) if has_aff else None
+
+            def tiles(dt, fm=fm, site=site, G=len(widths), cpad=cpad):
+                d = fm.data.to(dt)
+                if site == "conv":
+                    return Q.conv_tiles(d, G, False)
+                if site == "up":
+                    return Q.upconv_tiles(d, self.FO._xq_for(
+                        2 * dims[2], cpad), G)
+                return Q.downconv_tiles(d, d.shape[3])
+
+            def amax(dt, xs=xs, fm=fm, aff=aff, cpad=cpad, tiles=tiles):
+                xd, m, t = [g.data.to(dt) for g in xs], fm.data.to(dt), \
+                    tiles(dt)
+                return lambda impl: (K_amax.tile_amax(xd, m, aff, cpad, t,
+                                                      impl=impl),)
+            t = tiles(torch.float32)
+            label = (f"edge cpad{cpad} G{len(widths)} "
+                     f"{'affine' if has_aff else 'raw'} {mk} mask, {site} "
+                     f"windows, {t.nz}x{t.ny} tiles of {t.tz}x{t.ty}")
+            self.run("tile_amax", label, amax, [], masks=[0], dense=True)
+            if mk.startswith("one voxel"):
+                got = amax(torch.bfloat16)(None)[0]
+                held = int((got > 0).any(-1).sum())
+                want = int(mk.split()[3])
+                log(f"[kernels] tile_amax {label}: {held} tiles non-zero")
+                require(held == want, f"tile_amax {label}: {held} tiles "
+                        f"non-zero, expected {want}")
 
     def k1q_edge_cases(self):
         """K1q where its Hopper design has edges: TPU tiles of ty <= 3 rows
@@ -1246,6 +1344,53 @@ class KernelChecks:
         gg_case(f"K8 16->16 {n_par} of {n} rows", down, 16, 16, both)
         gg_case(f"K27 48->16 {n} rows, every neighbour missing",
                 torch.zeros_like(sub), 48, 16, (torch.bfloat16,), masks=[0])
+        self.k10_edge_cases()
+
+    def k10_edge_cases(self):
+        """K10 at the seams of its Hopper design (tiles of 128 rows and 16
+        columns, a tap's channels staged by cp.async as one unit of at most
+        64, weights in shared memory): 1000 rows (no multiple of the tile)
+        of a random table, half the neighbours present; in one tile four
+        taps no row has, one tile with no neighbour at all, and entries
+        outside [1, n] that the kernel must read as missing (the plain
+        version gets them as 0); cin 34 (68-byte rows, 4-byte copies), 12
+        (8-byte), 1 (2-byte rows, plain loads), 8, 26, 48, and 80 and 200
+        (several units a tap; at 200 the weights are staged in windows);
+        cout 8, 12, 16 and 20 (two column groups); K = 27 and K = 8; f32
+        and bf16."""
+        from sgnn_tpu_torch.ops.kernels import gather_gemm as K_gg
+
+        n = 1000
+        g = torch.Generator().manual_seed(9)
+        tables = {}
+        for K in (27, 8):
+            nbr = torch.randint(1, n + 1, (n, K), generator=g,
+                                dtype=torch.int32)
+            nbr[torch.rand(n, K, generator=g) < 0.5] = 0
+            nbr[128:256, [0, 5, K // 2, K - 1]] = 0  # taps no row has
+            nbr[384:512] = 0  # a tile with no neighbour
+            nbr[700, 1] = nbr[701, 2] = nbr[702, 3] = 0
+            junk = nbr.clone()
+            junk[700, 1], junk[701, 2], junk[702, 3] = n + 1, -3, 2 ** 30
+            tables[K] = junk.to(self.dev), nbr.to(self.dev)
+        for K, cin, cout in ((27, 34, 16), (27, 12, 12), (27, 1, 8),
+                             (27, 8, 8), (27, 26, 16), (27, 48, 12),
+                             (8, 16, 16), (8, 34, 8), (27, 80, 20),
+                             (27, 200, 16)):
+            f = torch.randn(n, cin, device=self.dev, generator=self.gen)
+            w = torch.from_numpy(self.weights(K, cin, cout)).to(self.dev)
+            junk, clean = tables[K]
+
+            def make(dt, f=f, w=w, junk=junk, clean=clean):
+                fd = f.to(dt)
+                return lambda impl: (K_gg.gather_gemm(
+                    fd, junk if impl is None else clean, w, impl=impl),)
+            self.run("gather_gemm", f"edge K{K} {cin}->{cout} {n} rows", make,
+                     [0], dense=True)
+            out = make(torch.bfloat16)(None)[0]
+            require(not out[384:512].any(),
+                    f"gather_gemm edge K{K} {cin}->{cout}: the tile with no "
+                    f"neighbour is not zero")
 
     def training_cases(self):
         """K7 and K4's raw mode at the training shapes: batch 8 at
@@ -2146,6 +2291,26 @@ def phase_secondary(results: dict, weights) -> None:
     results["gather_gemm"]["launches"] = SECONDARY["gather_gemm"]
     results["conv3d_folded"]["launches"] = SECONDARY["conv3d_folded"]
     results["conv3d"]["launches"] = 0  # K9 is on no path
+
+    # the shapes K10 takes on this path: (K, cin, cout, cap, present
+    # neighbours) of every call of one coordinate-list forward
+    from sgnn_tpu_torch.ops.kernels import gather_gemm as K_gg
+
+    orig_gg, shapes = K_gg.gather_gemm, {}
+
+    def logged(feats, nbr, weight, impl=None):
+        shapes.setdefault(tuple(nbr.shape[1:]) + (feats.shape[1],
+                                                  weight.shape[2]), []) \
+            .append((feats.shape[0], int((nbr > 0).sum())))
+        return orig_gg(feats, nbr, weight, impl=impl)
+    K_gg.gather_gemm = logged
+    try:
+        SceneInferencer(models["coordinate lists"][0])(s0)
+    finally:
+        K_gg.gather_gemm = orig_gg
+    for (K, cin, cout), calls in sorted(shapes.items()):
+        log(f"[secondary] gather_gemm K {K} cin {cin} cout {cout}: "
+            f"{len(calls)} calls, (cap, present neighbours) {calls}")
 
     # every kernel call of one forward against its plain version there
     with MainPathCheck() as chk:

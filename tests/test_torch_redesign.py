@@ -1,6 +1,8 @@
-"""The plain versions of K1 and K2 against JAX at the edges of their Hopper
-designs (K1 runs in output bricks of 2 x 4 x 32 voxels of the halo'd grid,
-skipping bricks whose mask is empty; K2 one thread per coarse voxel).
+"""The plain versions of K1, K2 and tile_amax against JAX at the edges of
+their Hopper designs (K1 runs in output bricks of 2 x 4 x 32 voxels of the
+halo'd grid, skipping bricks whose mask is empty; K2 one thread per coarse
+voxel; tile_amax reads a group only where the mask is set and combines
+rows per TPU tile, whose windows overlap).
 
 The plain versions are what ``chip_smoke.py`` holds the kernels to on the
 card, so these cases pin that reference to the JAX package: the same numpy
@@ -11,11 +13,18 @@ of the brick, a real X that is not a multiple of 32 (its x-tail slots
 zero), an odd fine X for K2; masks dense, empty and random; inputs without
 an affine dense (the site reads neighbours whose mask is 0). Tolerance:
 atol = rtol = 1e-5 in f32 (the two sum in different orders); masks and
-zero halo rings bit-equal.
+zero halo rings bit-equal. tile_amax_plain is held to the JAX int8 conv
+body's own per-tile amax (conv3d_folded.py:421), read from its interpreted
+Pallas kernel: bit-equal without the affine; with it, to 4 f32 ulps,
+because XLA:CPU fuses t * a + b into one FMA where the port rounds twice
+(tests/test_torch_int8.py).
 """
+
+import functools
 
 import re
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -23,7 +32,9 @@ import torch
 
 from sgnn_tpu.ops import folded as JFO
 from sgnn_tpu_torch.ops import folded as FO
+from sgnn_tpu_torch.ops import quant as Q
 from sgnn_tpu_torch.ops.kernels import build
+from test_torch_int8 import _aff
 
 F32 = torch.float32
 TOL = dict(rtol=1e-5, atol=1e-5)
@@ -136,6 +147,90 @@ def test_downconv_edges(cpad, cpad_out, affine, kind):
         assert not out.data.numpy().any() and not mo.data.numpy().any()
     else:
         assert np.abs(out.data.numpy()).max() > 0.1
+
+
+class _AmaxSpy:
+    """Stands in for ``jnp`` in the JAX kernels' module: a ``jnp.max``
+    without an axis is an int8 body's activation amax (the weight preps
+    give one), recorded per grid step (b, iz, iy) and group (the order of
+    the calls in the traced body)."""
+
+    def __init__(self, groups):
+        self.groups, self.calls, self.seen = groups, 0, {}
+
+    def __getattr__(self, name):
+        return getattr(jnp, name)
+
+    def max(self, x, axis=None, **kw):
+        import jax.experimental.pallas as pl
+
+        m = jnp.max(x, axis=axis, **kw)
+        if axis is None:
+            g = self.calls % self.groups
+            self.calls += 1
+            jax.debug.callback(functools.partial(self._record, g),
+                               pl.program_id(0), pl.program_id(1),
+                               pl.program_id(2), m)
+        return m
+
+    def _record(self, g, b, iz, iy, v):
+        self.seen[int(b), int(iz), int(iy), g] = np.float32(v)
+
+
+@pytest.mark.parametrize("cpad,widths,affine,kind", [
+    (16, [16], True, "empty"),
+    (8, [8, 3], True, "one voxel"),  # a row that four windows hold
+    (16, [16], False, "random"),
+    (8, [8, 3], False, "random"),
+])
+def test_tile_amax_plain_matches_jax(monkeypatch, cpad, widths, affine,
+                                     kind):
+    """tile_amax_plain against the per-tile amax of the JAX int8 conv site
+    (K1's windows: tiles of 3 x 3 rows whose halo'd windows overlap by 2
+    rows in z and y) on an all-zero mask, a mask with one active voxel in
+    the padded row (3, 3) that four windows hold, and random masks, cpad 8
+    and 16, with and without the affine (without it every value counts,
+    mask or not)."""
+    import sgnn_tpu.ops.pallas.conv3d_folded as PC
+
+    rng = np.random.RandomState(cpad + len(widths))
+    dims = (9, 9, 16)
+    if kind == "one voxel":
+        m = np.zeros((1, *dims), bool)
+        m[0, 2, 2, 7] = True  # padded (z, y) = (3, 3)
+        fm = FO.fold_mask(torch.from_numpy(m), cpad, F32)
+    else:
+        m, fm = _mask(rng, dims, cpad, kind)
+    groups = [_grid(rng, dims, c, cpad) for c in widths]
+    bn = _bn(rng, sum(widths)) if affine else (None, None)
+    spy = _AmaxSpy(len(widths))
+    monkeypatch.setattr(PC, "jnp", spy)
+    w27 = (0.2 * rng.randn(27, sum(widths), 8)).astype(np.float32)
+    out = JFO.subm_conv_fused([_j(g) for g in groups], _j(fm),
+                              jnp.asarray(w27), 8, bn_params=bn[0],
+                              bn_stats=bn[1], quantize=True)
+    jax.block_until_ready(out.data)
+    t = Q.conv_tiles(fm.data, len(widths), False)
+    assert (t.tz, t.ty, t.nz, t.ny) == (3, 3, 3, 3)
+    want = np.zeros((1, t.nz, t.ny, len(widths)), np.float32)
+    assert len(spy.seen) == want.size
+    for idx, v in spy.seen.items():
+        want[idx] = v
+    aff = _aff(bn, widths, cpad) if affine else None
+    got = Q.tile_amax_plain([g.data for g in groups], fm.data, aff, cpad,
+                            t).numpy()
+    if affine:
+        np.testing.assert_allclose(got, want, rtol=2.0 ** -21, atol=0)
+    else:
+        np.testing.assert_array_equal(got, want)
+    held = (want > 0).any(-1)
+    if kind == "empty":
+        assert not held.any()
+    elif kind == "one voxel":
+        wz, wy = np.nonzero(held[0])
+        assert sorted(zip(wz, wy)) == [(0, 0), (0, 1), (1, 0), (1, 1)]
+    else:
+        assert held.all()
 
 
 def test_conv_site_entry_point():

@@ -151,23 +151,33 @@ def _tol(ref, dtype):
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-@pytest.mark.parametrize("K,cin,cout", [(27, 16, 16), (8, 48, 16),
-                                        (27, 48, 12)])
+@pytest.mark.parametrize("K,cin,cout,cap,band", [
+    pytest.param(27, 16, 16, 700, None, id="27-16-16"),
+    pytest.param(8, 48, 16, 700, None, id="8-48-16"),
+    pytest.param(27, 48, 12, 700, None, id="27-48-12"),
+    pytest.param(27, 34, 16, 1000, (200, 400), id="27-34-16-band"),
+    pytest.param(8, 8, 8, 1000, (250, 390), id="8-8-8-band"),
+])
 def test_gather_gemm_plain_matches_jax(rng, monkeypatch, dtype, K, cin,
-                                       cout):
+                                       cout, cap, band):
     """K10's plain version against gather_gemm_pallas in interpret mode
     and the XLA gather_gemm; a capacity that is no multiple of the TPU
     tile (512), some rows with every neighbour missing (output exactly
-    0)."""
+    0). The Hopper kernel's seams: cin 34 (68-byte bf16 rows) and 8, 1000
+    rows (no multiple of its 64- or 128-row tiles), and a band of rows
+    with every tap missing that holds a whole 128-row tile."""
     import jax.experimental.pallas as pl
 
     from sgnn_tpu.ops.pallas import gather_gemm as JPG
 
-    cap = 700
     feats = rng.randn(cap, cin).astype(np.float32)
     nbr = rng.randint(0, cap + 1, size=(cap, K)).astype(np.int32)
     nbr[rng.rand(cap, K) < 0.4] = 0
     nbr[:50] = 0
+    missing = [slice(0, 50)]
+    if band is not None:
+        nbr[band[0]:band[1]] = 0
+        missing.append(slice(*band))
     w = (0.2 * rng.randn(K, cin, cout)).astype(np.float32)
     jdt = jnp.dtype(dtype)
     jf = jnp.asarray(feats).astype(jdt)
@@ -185,7 +195,8 @@ def test_gather_gemm_plain_matches_jax(rng, monkeypatch, dtype, K, cin,
                            torch.from_numpy(nbr), torch.from_numpy(w))
     assert got.dtype == getattr(torch, dtype) and got.shape == (cap, cout)
     got = got.float().numpy()
-    assert not got[:50].any()
+    for rows in missing:
+        assert not got[rows].any()
     for ref in (xla, pallas):
         np.testing.assert_allclose(got, ref, rtol=0, atol=_tol(ref, dtype))
 
