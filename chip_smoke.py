@@ -17,10 +17,14 @@ where every phase passed prints the two JSON lines at the end):
    1, Y != X, K8's input gradient), K10 over the shell's rows (27 and 8
    taps, 16 to 48 inputs, rows with every neighbour missing), the int8
    modes K1q (bit-equal), K2q, K3q (to their tolerance plus one activation
-   step) and tile_amax (bit-equal) with their TPU tiles; K1, K2, K7 and
-   K1q also at the edges of their Hopper designs (output bricks of 2 x 4 x
-   32 voxels: dims off the brick, x-tail slots, empty and dense inputs,
-   cpad 8 with narrow groups, K1q's TPU tiles straddling bricks), K10 at
+   step) and tile_amax (bit-equal) with their TPU tiles; K1, K2, K3, K7,
+   K8 and K1q also at the edges of their Hopper designs (output bricks of
+   2 x 4 x 32 voxels: dims off the brick, x-tail slots, empty and dense
+   inputs, cpad 8 with narrow groups, K1q's TPU tiles straddling bricks;
+   K3 with 1-4 groups, the fine mask given and expanded, empty, full and
+   single-voxel masks; K8 at X = 128 / C, Cout 1 to C, an all-zero input
+   and single voxels at brick and volume corners; K8's f32 time logged
+   beside its bf16 one), K10 at
    the seams of its row tiles (a row count off the tile, taps and tiles
    with no neighbour, indices outside the table, rows of 2 to 400 bytes,
    channels staged in several units and weights in windows, two column
@@ -324,6 +328,17 @@ def _time_ms(fn, reps: int = 5) -> float:
     b.record()
     b.synchronize()
     return a.elapsed_time(b) / reps
+
+
+def _log_ms(name, label, make, dtypes) -> None:
+    """Logs a kernel's and its plain version's times on make(dt)'s inputs,
+    beside the one case per kernel that the results keep."""
+    for dt in dtypes:
+        call = make(dt)
+        tk = _time_ms(lambda: call(None))
+        tp = _time_ms(lambda: call("plain"))
+        log(f"[kernels] {name} {label} {str(dt)[6:]}: kernel {tk:.3f} ms, "
+            f"plain {tp:.3f} ms")
 
 
 def _ulp_bf16(x: torch.Tensor) -> torch.Tensor:
@@ -696,6 +711,7 @@ class KernelChecks:
         self.run("upconv", "G3 fmask=None", up, [0], work=up_work,
                  library=_library_conv((1, 48, *cd), 16, 4, stride=2,
                                        padding=1, transpose=True))
+        self.k3_edge_cases()
 
         # K4 gated at the finest level, mask from the coarse level
         wh = FO.prep_head_weights(self.weights(16, 2), [16],
@@ -1254,6 +1270,8 @@ class KernelChecks:
                      work=conv_work(x, w) if timed else None,
                      library=_library_conv((1, cin, *dims), cout, 3,
                                            padding=1) if timed else None)
+            if timed and kernel == "conv3d_folded":
+                _log_ms(kernel, label, make, (torch.float32,))
 
         both = (torch.float32, torch.bfloat16)
         # K8 at the dense-flow execution's full-resolution sites (encoder
@@ -1287,6 +1305,17 @@ class KernelChecks:
             return call
         self.run("conv3d_folded", "input gradient C16 96x192x192", dx, [0],
                  dense=True)
+        # the backward's K8 call alone: the dense cotangent through the
+        # flipped, transposed taps
+        wt = torch.flip(w.reshape(3, 3, 3, 16, 16), (0, 1, 2)).reshape(
+            27, 16, 16).transpose(1, 2)
+
+        def dx_call(dt):
+            gd = g.to(dt)
+            return lambda impl: (K_cl.conv3d_3x3x3_folded(gd, wt, impl=impl),)
+        _log_ms("conv3d_folded", "input gradient's call (dense cotangent "
+                "C16 96x192x192)", dx_call, (torch.float32, torch.bfloat16))
+        self.k8_edge_cases()
 
         # K9: the widths of tests/test_pallas_gather.py:46, the 96x192x192
         # C = 16 grid, and two widths K8 does not take
@@ -1345,6 +1374,111 @@ class KernelChecks:
         gg_case(f"K27 48->16 {n} rows, every neighbour missing",
                 torch.zeros_like(sub), 48, 16, (torch.bfloat16,), masks=[0])
         self.k10_edge_cases()
+
+    def k8_edge_cases(self):
+        """K8 where its Hopper design has edges (persistent blocks over
+        output bricks of 2 x 4 x 32 voxels, the halo'd input staged with
+        zeros outside the volume, all-zero bricks skipped, the outputs
+        written as runs of Cout values): Z and Y not multiples of the
+        brick, X = 128 / C (the smallest supported() admits) and X not a
+        multiple of 32, an all-zero input (every brick skipped: exact
+        zeros), a single non-zero voxel at a brick's corner and at the
+        volume's corners, Cout 1, 8 and 12 below C and C32 -> 32; batch
+        2, f32 and bf16."""
+        from sgnn_tpu_torch.ops.kernels import conv3d_cl as K_cl
+
+        # label, dims, C, Cout, input: a density or the voxels set
+        cases = [("Z 3, Y 5, X 16 = 128/C", (3, 5, 16), 8, 8, 0.4),
+                 ("X 8 = 128/C, dense", (4, 6, 8), 16, 16, 1.0),
+                 ("C32->32, X 4 = 128/C", (3, 5, 4), 32, 32, 0.5),
+                 ("X 48, Cout 8 < C", (5, 7, 48), 16, 8, 0.3),
+                 ("C32->12, Y 9, X 36", (3, 9, 36), 32, 12, 0.3),
+                 ("all-zero input", (4, 8, 64), 16, 16, 0.0),
+                 ("one voxel at a brick corner, Cout 1", (6, 10, 80), 8, 1,
+                  [(1, 2, 4, 32)]),
+                 ("one voxel at each volume corner", (5, 7, 40), 16, 16,
+                  [(0, 0, 0, 0), (1, 4, 6, 39)])]
+        for i, (label, dims, C, cout, inp) in enumerate(cases):
+            d = torch.randn(2, *dims, C, device=self.dev, generator=self.gen)
+            if isinstance(inp, list):
+                keep = torch.zeros(2, *dims, dtype=torch.bool)
+                for v in inp:
+                    keep[v] = True
+            else:
+                keep = torch.rand(2, *dims, generator=torch.Generator()
+                                  .manual_seed(20 + i)) < inp
+            x = d * keep.to(self.dev)[..., None]
+            w = torch.from_numpy(self.weights(27, C, cout)).to(self.dev)
+
+            def make(dt, x=x, w=w):
+                xd = x.to(dt)
+                return lambda impl: (K_cl.conv3d_3x3x3_folded(xd, w,
+                                                              impl=impl),)
+            self.run("conv3d_folded", f"edge C{C}->{cout} B2 {label}", make,
+                     [0], dense=True, exact=inp == 0.0)
+
+    def k3_edge_cases(self):
+        """K3 where its Hopper design has edges (fine output bricks of 2 x
+        4 x 32 voxels over the padded fine grid, ring included; a coarse
+        window of 3 x 4 x 18 voxels a group staged by cp.async; rows
+        grouped by parity): fine Y + 2 not a multiple of the brick, a fine
+        x tail (fewer fine x blocks than twice the coarse ones), 1-4
+        groups with widths below cpad, cpad 8 and 16, with and without the
+        affine, the fine mask given (training) and expanded from the
+        coarse one (serving), on random, full, empty and single-voxel
+        masks. Inputs without an affine are dense (the kernel reads coarse
+        neighbours whose mask is 0)."""
+        FO = self.FO
+        # cpad, widths, affine, fine mask given, mask kind, coarse dims
+        cases = [(16, [16], True, False, "random", (3, 4, 70)),
+                 (16, [16, 5, 16, 2], True, True, "random", (3, 5, 40)),
+                 (8, [8], False, False, "full", (4, 4, 40)),
+                 (8, [3, 8], True, True, "single", (3, 5, 24)),
+                 (16, [16, 16], False, True, "empty", (2, 3, 40)),
+                 (16, [6], False, False, "single", (3, 4, 70)),
+                 (8, [8, 8, 1, 4], True, False, "full", (2, 5, 40)),
+                 (16, [16, 8, 16], True, False, "empty", (3, 4, 40))]
+        for i, (cpad, widths, has_aff, given, kind, cdims) in enumerate(
+                cases):
+            fdims = tuple(2 * d for d in cdims)
+            g = torch.Generator().manual_seed(30 + i)
+
+            def mask_of(dims, g=g, kind=kind):
+                if kind == "single":
+                    m = torch.zeros(1, *dims, dtype=torch.bool)
+                    m[0, dims[0] // 2, dims[1] - 1, dims[2] // 2 + 1] = True
+                    return m
+                return {"random": torch.rand(1, *dims, generator=g) < 0.3,
+                        "full": torch.ones(1, *dims, dtype=torch.bool),
+                        "empty": torch.zeros(1, *dims, dtype=torch.bool)
+                        }[kind]
+            cm = mask_of(cdims)
+            cfm = self.mask(cm, cpad)
+            ffm = self.mask(mask_of(fdims), cpad) if given else None
+            data = cm if has_aff else torch.ones_like(cm)
+            gs = [self.grid(cdims, c, cpad, data) for c in widths]
+            w27 = self.weights(27, sum(widths), cpad)
+            aff = self.affines(widths) if has_aff else None
+
+            def up(dt, gs=gs, cfm=cfm, ffm=ffm, w27=w27, aff=aff,
+                   widths=widths, cpad=cpad, i=i):
+                w = FO.prep_upconv_weights(
+                    w27, widths, torch.float32 if i % 2 == 0 else dt
+                ).to(self.dev)
+                grp = [x.with_data(x.data.to(dt)) for x in gs]
+                m = cfm.with_data(cfm.data.to(dt))
+                f = ffm.with_data(ffm.data.to(dt)) if ffm is not None \
+                    else None
+                return lambda impl: (FO.upconv_fused(
+                    grp, m, f, w, cpad, aff=aff, impl=impl).data,)
+            xqf = (ffm.data.shape[3] if given
+                   else FO._xq_for(2 * cdims[2], cpad))
+            label = (f"edge cpad{cpad} G{len(widths)} {widths} "
+                     f"{'affine' if has_aff else 'raw'} "
+                     f"fmask={'given' if given else 'None'} {kind} mask, "
+                     f"coarse {cdims} xq {cfm.data.shape[3]} -> {xqf}")
+            self.run("upconv", label, up, [0],
+                     exact=kind == "empty")
 
     def k10_edge_cases(self):
         """K10 at the seams of its Hopper design (tiles of 128 rows and 16
@@ -1432,12 +1566,7 @@ class KernelChecks:
                      work=work if timed else None,
                      library=_library_conv((B, cin, *dims), cout, 3,
                                            padding=1) if timed else None)
-            for dt in log_ms:  # times beside the one the results keep
-                call = make(dt)
-                tk = _time_ms(lambda: call(None))
-                tp = _time_ms(lambda: call("plain"))
-                log(f"[kernels] conv_raw {label} {str(dt)[6:]}: kernel "
-                    f"{tk:.3f} ms, plain {tp:.3f} ms")
+            _log_ms("conv_raw", label, make, log_ms)
 
         full = TRAIN_DIMS
         conv_case("cpad16 16->16 B8 128x64x64", full, 16, 16, 16,
@@ -2540,7 +2669,7 @@ KERNEL_NAMES = {"conv_site_kernel": "K1", "conv_site_q_kernel": "K1q",
                 "head_gate_kernel": "K4 gate and raw",
                 "head_sum_kernel": "K4 summed", "surf_head_kernel": "K5",
                 "scatter_kernel": "K6", "conv_raw_kernel": "K7",
-                "conv3d_cl_kernel": "K8 and K9",
+                "conv3d_brick_kernel": "K8", "conv3d_any_kernel": "K9",
                 "gather_gemm_kernel": "K10", "tile_amax_kernel": "tile_amax"}
 
 

@@ -118,11 +118,12 @@ __device__ __forceinline__ void store_zero(T* o) {
     q[i] = make_uint4(0u, 0u, 0u, 0u);
 }
 
-// ------------------------------------------------- output bricks (K1, K7)
+// ------------------------------------------- output bricks (K1, K3, K7, K8)
 //
-// K1, K1q (conv_site.cu) and K7 (conv_raw.cu) give a block of THREADS
-// threads one output brick of BZ x BY x BX voxels, x fastest, so warp w
-// holds brick row w (one (z, y), 32 consecutive x slots). The block stages
+// K1, K1q (conv_site.cu), K3 (upconv.cu), K7 (conv_raw.cu) and K8
+// (conv3d_cl.cu) give a block of THREADS threads one output brick of BZ x
+// BY x BX voxels, x fastest, so warp w holds brick row w (one (z, y), 32
+// consecutive x slots). K1, K7 and K8 stage
 // the brick's halo'd input, HZ x HY x HX voxels, in shared memory with
 // cp.async; staged slot i is halo'd-brick voxel (i / (HY HX), i / HX % HY,
 // i % HX).
@@ -203,10 +204,12 @@ __device__ __forceinline__ void mma_s8(int* d, const unsigned* a,
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
 }
 
-// Row kernels (K8/K9 conv3d_cl.cu, K10 gather_gemm.cu) keep weights of
-// their own layout: f32 [taps, cin, coutp] with coutp a multiple of the
-// output chunk CO (4, 8 or 16), values rounded to the compute type; a
-// block row of threads computes CO outputs (blockIdx.y = chunk).
+// Row kernels (K9 conv3d_cl.cu, K10 gather_gemm.cu; K8 reads the same
+// weights in its bricks) keep weights of their own layout: f32 [taps, cin,
+// coutp] with coutp a multiple of the output chunk CO (4, 8 or 16), values
+// rounded to the compute type; a block row of threads computes CO outputs
+// (blockIdx.y = chunk). accumulate_row and store_row serve K9 only, whose
+// one-thread-per-voxel kernel runs on no path (conv3d_cl.cu).
 //
 // acc[0..CO) += sum_ci p[ci] * w[ci * ws + (0..CO)] over one row of cin
 // values at p; zero values skip their FMAs. vec: read the row as 16-byte
@@ -373,6 +376,107 @@ __device__ __forceinline__ Voxel decode(long long idx, int Zp, int Yp,
 __device__ __forceinline__ long long voxel_index(int b, int z, int y, int x,
                                                  int Zp, int Yp, int Xs) {
   return ((static_cast<long long>(b) * Zp + z) * Yp + y) * Xs + x;
+}
+
+// ------------------------------------------------ staged windows (K1, K3)
+//
+// A window of WZ x WY x WX voxels of a grid [B, Zp, Yp, Xs, CPAD] staged in
+// shared memory: slot i is window voxel (i / (WY WX), i / WX % WY, i % WX),
+// CPAD * sizeof(T) bytes, 16-byte word v of it at i * SLOT + 16 v.
+
+// Starts the copies of the window at (z0, y0, x0) of grid xg into buf,
+// zero outside the grid, as one copy group. The grid's dead lanes are zero
+// and meet zero weight rows, so slots are copied whole.
+template <typename T, int CPAD, int WZ, int WY, int WX>
+__device__ __forceinline__ void copy_window(unsigned buf,
+                                            const T* __restrict__ xg, int b,
+                                            int z0, int y0, int x0, int Zp,
+                                            int Yp, int Xs) {
+  constexpr int SLOT = CPAD * static_cast<int>(sizeof(T));
+  for (int i = threadIdx.x; i < WZ * WY * WX; i += THREADS) {
+    const int z = z0 + i / (WY * WX), y = y0 + i / WX % WY,
+              x = x0 + i % WX;
+    const bool in =
+        z >= 0 && z < Zp && y >= 0 && y < Yp && x >= 0 && x < Xs;
+    const T* p = in ? xg + voxel_index(b, z, y, x, Zp, Yp, Xs) * CPAD : xg;
+#pragma unroll
+    for (int v = 0; v < SLOT / 16; ++v)
+      cp_async16(buf + i * SLOT + v * 16, p + v * (16 / sizeof(T)),
+                 in ? 16 : 0);
+  }
+  cp_async_commit();
+}
+
+// The affine in place on the N slots of a staged window: round(relu(x s +
+// b) m_i) in the compute type for channels < cin, where the voxel's mask
+// hm[i] is set, else 0 (relu(.) * 0), once per staged voxel.
+template <typename T, int CPAD, int N>
+__device__ __forceinline__ void affine_window(unsigned char* buf, int cin,
+                                              const float* sa,
+                                              const float* hm) {
+  constexpr int SLOT = CPAD * static_cast<int>(sizeof(T));
+  constexpr int E = 16 / static_cast<int>(sizeof(T));
+  for (int i = threadIdx.x; i < N; i += THREADS) {
+    const float mi = hm[i];
+#pragma unroll
+    for (int v = 0; v < SLOT / 16; ++v) {
+      uint4* q = reinterpret_cast<uint4*>(buf + i * SLOT + v * 16);
+      uint4 u = *q;
+      T* t = reinterpret_cast<T*>(&u);
+#pragma unroll
+      for (int e = 0; e < E; ++e) {
+        const int c = v * E + e;
+        t[e] = from_f<T>(c < cin && mi != 0.f
+                             ? affine_relu_mask(to_f(t[e]), sa[c],
+                                                sa[MAXC + c], mi)
+                             : 0.f);
+      }
+      *q = u;
+    }
+  }
+}
+
+// ------------------------------------------- persistent bricks (K7, K8)
+//
+// Persistent blocks walk output bricks (BZ x BY x BX, x fastest) and stage
+// each brick's halo'd input, NH slots of NC 16-byte chunks, by cp.async;
+// thread t copies chunks t, t + THREADS, ... Chunk c of slot i lies at
+// chunk_off: XOR-swizzled so that 8 consecutive slots' chunk c fall in
+// distinct banks.
+
+template <int NC>
+__device__ __forceinline__ int chunk_off(int i, int c) {
+  return (i * NC + (c ^ (i / (8 / NC) % NC))) * 16;
+}
+
+struct Brick {
+  int b, z0, y0, x0;
+};
+
+__device__ __forceinline__ Brick brick_at(int i, int nbx, int nby, int nbz) {
+  Brick k;
+  k.x0 = i % nbx * BX;
+  i /= nbx;
+  k.y0 = i % nby * BY;
+  i /= nby;
+  k.z0 = i % nbz * BZ;
+  k.b = i / nbz;
+  return k;
+}
+
+// Whether any value of the chunks this thread copied into buf is non-zero
+// (its own copies are visible to it once waited for). -0 counts as zero:
+// a masked grid holds x * 0, which is -0 for a negative x.
+template <typename T, int NC>
+__device__ __forceinline__ bool own_chunks_nonzero(const unsigned char* buf) {
+  constexpr unsigned MAG = sizeof(T) == 2 ? 0x7fff7fffu : 0x7fffffffu;
+  unsigned any = 0;
+  for (int q = threadIdx.x; q < NH * NC; q += THREADS) {
+    const uint4 u = *reinterpret_cast<const uint4*>(
+        buf + chunk_off<NC>(q / NC, q % NC));
+    any |= u.x | u.y | u.z | u.w;
+  }
+  return (any & MAG) != 0;
 }
 
 }  // namespace sgnn

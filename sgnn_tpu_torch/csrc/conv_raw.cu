@@ -43,22 +43,17 @@
 //   The sums are f32 in the tensor cores' order, rounded to bf16 once per
 //   output, staged in shared memory and written as 16-byte vectors.
 // - f32: f32 FMAs on the CUDA cores in (tap, ci) order (no TF32), the
-//   order of the one-thread-per-slot kernel this design replaced. A thread takes half of the output
-//   channels of two voxels (v and v + 128), so each uniform float4 weight
-//   load serves two voxels; neighbour values are read from the staged slots
-//   as float4; outputs go out as 16-byte vectors.
+//   order of the one-thread-per-slot kernel this design replaced. A thread
+//   takes half of the output channels of two voxels (v and v + 128), so
+//   each uniform float4 weight load serves two voxels; neighbour values are
+//   read from the staged slots as float4; outputs go out as 16-byte
+//   vectors.
 #include <algorithm>
 
 #include "common.cuh"
 
 namespace sgnn {
 namespace {
-
-// byte offset of 16-byte chunk c of staged slot i, NC chunks a slot
-template <int NC>
-__device__ __forceinline__ int chunk_off(int i, int c) {
-  return (i * NC + (c ^ (i / (8 / NC) % NC))) * 16;
-}
 
 template <typename T, int CPAD>
 struct RawSmem {
@@ -73,21 +68,6 @@ struct RawSmem {
   static constexpr int OUT = WF + (TC ? KSTEPS * NT * 32 * 8 : 0);
   static constexpr int BYTES = OUT + (TC ? NV * CPAD * 2 : 0);  // bf16 out
 };
-
-struct Brick {
-  int b, z0, y0, x0;
-};
-
-__device__ __forceinline__ Brick brick_at(int i, int nbx, int nby, int nbz) {
-  Brick k;
-  k.x0 = i % nbx * BX;
-  i /= nbx;
-  k.y0 = i % nby * BY;
-  i /= nby;
-  k.z0 = i % nbz * BZ;
-  k.b = i / nbz;
-  return k;
-}
 
 // Issues the copies of brick k's halo'd input (padded rows z0 .. z0 + 3,
 // y0 .. y0 + 5, slots x0 - 1 .. x0 + 32) into buf, zero outside the grid,
@@ -109,22 +89,6 @@ __device__ __forceinline__ void stage_brick(unsigned buf,
     cp_async16(buf + chunk_off<NC>(i, c), p, in ? 16 : 0);
   }
   cp_async_commit();
-}
-
-// Whether any value of the chunks this thread copied into buf is non-zero
-// (its own copies are visible to it once waited for). -0 counts as zero:
-// a masked grid holds x * 0, which is -0 for a negative x.
-template <typename T, int CPAD>
-__device__ __forceinline__ bool own_chunks_nonzero(const unsigned char* buf) {
-  constexpr int NC = RawSmem<T, CPAD>::NC;
-  constexpr unsigned MAG = sizeof(T) == 2 ? 0x7fff7fffu : 0x7fffffffu;
-  unsigned any = 0;
-  for (int q = threadIdx.x; q < NH * NC; q += THREADS) {
-    const uint4 u = *reinterpret_cast<const uint4*>(
-        buf + chunk_off<NC>(q / NC, q % NC));
-    any |= u.x | u.y | u.z | u.w;
-  }
-  return (any & MAG) != 0;
 }
 
 // The B fragments of every k16 step and N tile, bf16 from the f32 taps
@@ -275,7 +239,7 @@ __global__ void __launch_bounds__(THREADS, 2)
   for (int it = 0; brick < nbricks; ++it, brick += gridDim.x) {
     const unsigned char* buf = smem + S::IN + it % 2 * S::BUF;
     cp_async_wait<0>();
-    const bool mine = own_chunks_nonzero<T, CPAD>(buf);
+    const bool mine = own_chunks_nonzero<T, S::NC>(buf);
     // every thread is done with the previous brick and every copy of this
     // one is visible
     const bool any = __syncthreads_or(mine);

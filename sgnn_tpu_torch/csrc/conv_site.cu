@@ -84,58 +84,6 @@ struct SiteSmem {
   }
 };
 
-// Issues the copies of one group's halo'd input brick (origin z0 - 1,
-// y0 - 1, x0 - 1) into the staged slots of buf, zero outside the grid,
-// and commits them as one copy group. The grid's dead lanes are zero and
-// meet zero weight rows, so slots are copied whole.
-template <typename T, int CPAD>
-__device__ __forceinline__ void issue_group(unsigned buf,
-                                            const T* __restrict__ xg, int b,
-                                            int z0, int y0, int x0, int Zp,
-                                            int Yp, int Xs) {
-  using S = SiteSmem<T, CPAD>;
-  for (int i = threadIdx.x; i < NH; i += THREADS) {
-    const int z = z0 - 1 + i / (HY * HX), y = y0 - 1 + i / HX % HY,
-              x = x0 - 1 + i % HX;
-    const bool in =
-        z >= 0 && z < Zp && y >= 0 && y < Yp && x >= 0 && x < Xs;
-    const T* p = in ? xg + voxel_index(b, z, y, x, Zp, Yp, Xs) * CPAD : xg;
-#pragma unroll
-    for (int v = 0; v < S::SLOT / 16; ++v)
-      cp_async16(buf + S::word(i, v), p + v * (16 / sizeof(T)), in ? 16 : 0);
-  }
-  cp_async_commit();
-}
-
-// The affine in place on a staged group: round(relu(x s + b) m_i) in the
-// compute type for channels < cin, where the neighbour's mask hm is set,
-// else 0 (relu(.) * 0), once per staged voxel.
-template <typename T, int CPAD>
-__device__ __forceinline__ void affine_group(unsigned char* buf, int cin,
-                                             const float* sa,
-                                             const float* hm) {
-  using S = SiteSmem<T, CPAD>;
-  constexpr int E = 16 / static_cast<int>(sizeof(T));
-  for (int i = threadIdx.x; i < NH; i += THREADS) {
-    const float mi = hm[i];
-#pragma unroll
-    for (int v = 0; v < S::SLOT / 16; ++v) {
-      uint4* q = reinterpret_cast<uint4*>(buf + S::word(i, v));
-      uint4 u = *q;
-      T* t = reinterpret_cast<T*>(&u);
-#pragma unroll
-      for (int e = 0; e < E; ++e) {
-        const int c = v * E + e;
-        t[e] = from_f<T>(c < cin && mi != 0.f
-                             ? affine_relu_mask(to_f(t[e]), sa[c],
-                                                sa[MAXC + c], mi)
-                             : 0.f);
-      }
-      *q = u;
-    }
-  }
-}
-
 // Voxel (b, z, y, x)'s mask, 0 on the halo ring and outside the grid. A
 // masked voxel's output is the residual (inside the ring) or zero whatever
 // its brick does: it is written at once as 16-byte vectors, its residual
@@ -237,8 +185,9 @@ __global__ void __launch_bounds__(THREADS, sizeof(T) == 2 ? 3 : 2)
   // an active brick: group 0's copies first, then its masks, affines and
   // row list
   unsigned char* bufs[2] = {smem + S::IN, smem + S::IN + S::BUF};
-  issue_group<T, CPAD>(smem_addr(bufs[0]), static_cast<const T*>(xs.p[0]),
-                       b, z0, y0, x0, Zp, Yp, Xs);
+  copy_window<T, CPAD, HZ, HY, HX>(
+      smem_addr(bufs[0]), static_cast<const T*>(xs.p[0]), b, z0 - 1,
+      y0 - 1, x0 - 1, Zp, Yp, Xs);
   float* hm = reinterpret_cast<float*>(smem + S::HM);
   float* sm = reinterpret_cast<float*>(smem + S::M);
   float* sa = reinterpret_cast<float*>(smem + S::AFF);
@@ -271,9 +220,9 @@ __global__ void __launch_bounds__(THREADS, sizeof(T) == 2 ? 3 : 2)
     const int cin = xs.cin[g];
     unsigned char* buf = bufs[g % 2];
     if (g + 1 < xs.n) {
-      issue_group<T, CPAD>(smem_addr(bufs[(g + 1) % 2]),
-                           static_cast<const T*>(xs.p[g + 1]), b, z0, y0, x0,
-                           Zp, Yp, Xs);
+      copy_window<T, CPAD, HZ, HY, HX>(
+          smem_addr(bufs[(g + 1) % 2]), static_cast<const T*>(xs.p[g + 1]),
+          b, z0 - 1, y0 - 1, x0 - 1, Zp, Yp, Xs);
       cp_async_wait<1>();
     } else {
       cp_async_wait<0>();
@@ -290,7 +239,7 @@ __global__ void __launch_bounds__(THREADS, sizeof(T) == 2 ? 3 : 2)
       }
     }
     if (aff != nullptr) {
-      affine_group<T, CPAD>(buf, cin, sa + g * 2 * MAXC, hm);
+      affine_window<T, CPAD, NH>(buf, cin, sa + g * 2 * MAXC, hm);
       __syncthreads();
     }
 #pragma unroll
@@ -461,8 +410,9 @@ __global__ void __launch_bounds__(THREADS, sizeof(T) == 2 ? 3 : 1)
   // voxel, as every ring row) and the row list
   unsigned char* bufs[2] = {smem + S::IN, smem + S::IN + S::BUF};
   unsigned char* qb = smem + S::Q;
-  issue_group<T, CPAD>(smem_addr(bufs[0]), static_cast<const T*>(xs.p[0]),
-                       b, z0, y0, x0, Zp, Yp, Xs);
+  copy_window<T, CPAD, HZ, HY, HX>(
+      smem_addr(bufs[0]), static_cast<const T*>(xs.p[0]), b, z0 - 1,
+      y0 - 1, x0 - 1, Zp, Yp, Xs);
   float* hm = reinterpret_cast<float*>(smem + S::HM);
   float* sm = reinterpret_cast<float*>(smem + S::M);
   float* sa = reinterpret_cast<float*>(smem + S::AFF);
@@ -495,9 +445,9 @@ __global__ void __launch_bounds__(THREADS, sizeof(T) == 2 ? 3 : 1)
     const int cin = xs.cin[g];
     const unsigned char* buf = bufs[g % 2];
     if (g + 1 < xs.n) {
-      issue_group<T, CPAD>(smem_addr(bufs[(g + 1) % 2]),
-                           static_cast<const T*>(xs.p[g + 1]), b, z0, y0, x0,
-                           Zp, Yp, Xs);
+      copy_window<T, CPAD, HZ, HY, HX>(
+          smem_addr(bufs[(g + 1) % 2]), static_cast<const T*>(xs.p[g + 1]),
+          b, z0 - 1, y0 - 1, x0 - 1, Zp, Yp, Xs);
       cp_async_wait<1>();
     } else {
       cp_async_wait<0>();

@@ -1,5 +1,7 @@
 """K8 and K9: the zero-padded 3^3 convolution over a channels-last grid
-(csrc/conv3d_cl.cu; one CUDA kernel, two entry points, two counters).
+(csrc/conv3d_cl.cu; two entry points, each with its own CUDA kernel and
+counter: K8's in output bricks on the tensor cores in bf16, K9's one
+thread per voxel).
 
     out = round(conv3x3x3(x, W))      x [B, Z, Y, X, Cin], f32 sums
 
@@ -78,6 +80,8 @@ def _conv_folded(x: torch.Tensor, w: torch.Tensor, impl: str | None
     global folded_launches
     if not build.use_kernel(x, impl):
         return conv3d_plain(x, w)
+    if x.is_contiguous() and x.data_ptr() % 16:
+        x = x.clone()  # K8 stages 16-byte chunks: an aligned copy
     out = _launch("sgnn_conv3d_folded", x, w)
     folded_launches += 1
     return out

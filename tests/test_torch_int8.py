@@ -654,5 +654,31 @@ def test_kernel_entry_points_match_their_bindings():
         assert m, name
         assert len(m.group(1).split(",")) == len(argtypes), name
     for kernel in ("conv_site_q_kernel", "downconv_q_kernel",
-                   "upconv_q_kernel", "tile_amax_kernel"):
+                   "upconv_q_kernel", "tile_amax_kernel", "upconv_kernel",
+                   "conv3d_brick_kernel", "conv3d_any_kernel"):
         assert f"{kernel}(" in src, kernel
+
+
+def test_profile_names_are_kernels():
+    """chip_smoke.py sums each hand-written kernel's device time in the
+    profiles by its CUDA name (KERNEL_NAMES): every name there is a
+    __global__ kernel of csrc, each label names one TPU kernel's port (K8
+    and K9 apart), and no kernel of csrc is left out."""
+    import ast
+    import re
+    from pathlib import Path
+
+    from sgnn_tpu_torch.ops.kernels import build
+
+    src = "".join(p.read_text() for p in build.sources())
+    tree = ast.parse((Path(__file__).resolve().parents[1]
+                      / "chip_smoke.py").read_text())
+    names = next(ast.literal_eval(n.value) for n in tree.body
+                 if isinstance(n, ast.Assign)
+                 and getattr(n.targets[0], "id", "") == "KERNEL_NAMES")
+    kernels = set(re.findall(r"__global__[^;{]*?\b(\w+_kernel)\(", src))
+    assert set(names) == kernels
+    assert len(set(names.values())) == len(names)
+    assert names["conv3d_brick_kernel"] == "K8"
+    assert names["conv3d_any_kernel"] == "K9"
+    assert names["upconv_kernel"] == "K3"

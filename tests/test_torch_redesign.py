@@ -1,23 +1,29 @@
-"""The plain versions of K1, K2 and tile_amax against JAX at the edges of
-their Hopper designs (K1 runs in output bricks of 2 x 4 x 32 voxels of the
-halo'd grid, skipping bricks whose mask is empty; K2 one thread per coarse
-voxel; tile_amax reads a group only where the mask is set and combines
-rows per TPU tile, whose windows overlap).
+"""The plain versions of K1, K2, K3, K8 and tile_amax against JAX at the
+edges of their Hopper designs (K1 runs in output bricks of 2 x 4 x 32
+voxels of the halo'd grid, skipping bricks whose mask is empty; K2 one
+thread per coarse voxel; K3 in fine output bricks of 2 x 4 x 32 voxels
+over the padded fine grid, its halo ring included, reading a coarse window
+per group; K8 in persistent blocks over output bricks of the unpadded
+channels-last grid, zeros outside the volume; tile_amax reads a group only
+where the mask is set and combines rows per TPU tile, whose windows
+overlap).
 
 The plain versions are what ``chip_smoke.py`` holds the kernels to on the
 card, so these cases pin that reference to the JAX package: the same numpy
-inputs (from a seed) go through the JAX fused site of
-sgnn_tpu/ops/folded.py, whose Pallas kernel runs in interpret mode, and
-through the port's site on the CPU. Shapes: Z + 2 and Y + 2 not multiples
-of the brick, a real X that is not a multiple of 32 (its x-tail slots
-zero), an odd fine X for K2; masks dense, empty and random; inputs without
-an affine dense (the site reads neighbours whose mask is 0). Tolerance:
-atol = rtol = 1e-5 in f32 (the two sum in different orders); masks and
-zero halo rings bit-equal. tile_amax_plain is held to the JAX int8 conv
-body's own per-tile amax (conv3d_folded.py:421), read from its interpreted
-Pallas kernel: bit-equal without the affine; with it, to 4 f32 ulps,
-because XLA:CPU fuses t * a + b into one FMA where the port rounds twice
-(tests/test_torch_int8.py).
+inputs (from a seed) go through the JAX site of sgnn_tpu/ops/folded.py (or
+K8's conv3d_3x3x3_folded), whose Pallas kernel runs in interpret mode, and
+through the port's on the CPU. Shapes: Z + 2 and Y + 2 not multiples of
+the brick, a real X that is not a multiple of 32 (its x-tail slots zero),
+an odd fine X for K2, a fine x tail for K3 (fewer fine x blocks than twice
+the coarse ones), X = 128 / C for K8; masks dense, empty and random (K3
+also with the fine mask given); inputs without an affine dense (the site
+reads neighbours whose mask is 0). Tolerance: atol = rtol = 1e-5 in f32
+(the two sum in different orders), bf16 2 bf16 ulps of the output's scale;
+masks and zero halo rings bit-equal. tile_amax_plain is held to the JAX
+int8 conv body's own per-tile amax (conv3d_folded.py:421), read from its
+interpreted Pallas kernel: bit-equal without the affine; with it, to 4 f32
+ulps, because XLA:CPU fuses t * a + b into one FMA where the port rounds
+twice (tests/test_torch_int8.py).
 """
 
 import functools
@@ -34,6 +40,7 @@ from sgnn_tpu.ops import folded as JFO
 from sgnn_tpu_torch.ops import folded as FO
 from sgnn_tpu_torch.ops import quant as Q
 from sgnn_tpu_torch.ops.kernels import build
+from sgnn_tpu_torch.ops.kernels import conv3d_cl as K_cl
 from test_torch_int8 import _aff
 
 F32 = torch.float32
@@ -48,7 +55,7 @@ def interpret_pallas():
 
     orig = pl.pallas_call
     PC.pl.pallas_call = lambda *a, **k: orig(*a, **{**k, "interpret": True})
-    yield
+    yield orig
     PC.pl.pallas_call = orig
 
 
@@ -57,6 +64,11 @@ def _mask(rng, dims, cpad, kind):
          "empty": np.zeros((1, *dims), bool),
          "random": rng.rand(1, *dims) < 0.3}[kind]
     return m, FO.fold_mask(torch.from_numpy(m), cpad, F32)
+
+
+def _bf16_tol(want):
+    """2 bf16 ulps of the output's scale."""
+    return 2 * 2.0 ** (np.floor(np.log2(float(np.abs(want).max()))) - 7)
 
 
 def _grid(rng, dims, c, cpad, mask=None):
@@ -147,6 +159,117 @@ def test_downconv_edges(cpad, cpad_out, affine, kind):
         assert not out.data.numpy().any() and not mo.data.numpy().any()
     else:
         assert np.abs(out.data.numpy()).max() > 0.1
+
+
+@pytest.mark.parametrize("cpad,widths,affine,given,kind,dtype", [
+    (16, [16], True, False, "random", "float32"),
+    (16, [16, 5, 8, 2], True, True, "dense", "float32"),
+    (8, [5], False, True, "empty", "float32"),
+    (8, [8], False, False, "random", "bfloat16"),
+])
+def test_upconv_edges(monkeypatch, interpret_pallas, cpad, widths, affine,
+                      given, kind, dtype):
+    """K3's plain version against JAX's upconv_fused: fine dims 4 x 8 x 18
+    (Z + 2 = 6 and Y + 2 = 10 rows, no multiple of the brick's 4 rows in
+    y), coarse X 9, so the fine grid has fewer x blocks than twice the
+    coarse one (a fine x tail: 8 of 16); 1-4 groups with widths below
+    cpad, cpad 8 and 16, the fine mask given (training) and expanded from
+    the coarse one (serving)."""
+    import jax.experimental.pallas.tpu as pltpu
+
+    import sgnn_tpu.ops.pallas.conv3d_folded as PC
+
+    # the TPU interpreter: the same results as interpret=True, ~2x faster
+    monkeypatch.setattr(PC.pl, "pallas_call", lambda *a, **k: (
+        interpret_pallas(*a, **{**k, "interpret": pltpu.InterpretParams()})))
+    rng = np.random.RandomState(sum(widths) + 3 * cpad + given)
+    cdims = (2, 4, 9)
+    fdims = tuple(2 * d for d in cdims)
+    m, cfm = _mask(rng, cdims, cpad, kind)
+    ffm = _mask(rng, fdims, cpad, kind)[1] if given else None
+    groups = [_grid(rng, cdims, c, cpad, m if affine else None)
+              for c in widths]
+    w27 = (0.2 * rng.randn(27, sum(widths), cpad)).astype(np.float32)
+    bn = _bn(rng, sum(widths)) if affine else (None, None)
+    tdt, jdt = getattr(torch, dtype), jnp.dtype(dtype)
+
+    def jgrid(fg):
+        return JFO.FGrid(jnp.asarray(fg.data.numpy()).astype(jdt), fg.dims,
+                         fg.real_c, fg.cpad)
+    want = JFO.upconv_fused([jgrid(g) for g in groups], jgrid(cfm),
+                            jgrid(ffm) if given else None,
+                            jnp.asarray(w27), cpad, bn_params=bn[0],
+                            bn_stats=bn[1])
+    aff = FO.prep_affines(*bn, widths) if affine else None
+
+    def tgrid(fg):
+        return fg.with_data(fg.data.to(tdt))
+    got = FO.upconv_fused([tgrid(g) for g in groups], tgrid(cfm),
+                          tgrid(ffm) if given else None,
+                          FO.prep_upconv_weights(w27, widths, tdt), cpad,
+                          aff=aff)
+    xqf = got.data.shape[3]
+    assert xqf < 2 * cfm.data.shape[3] and got.dims == want.dims
+    out, ref = got.data.float().numpy(), np.asarray(want.data, np.float32)
+    assert out.shape == ref.shape
+    for a in (out, ref):  # zero halo rings, bit for bit
+        assert not a[:, [0, -1]].any() and not a[:, :, [0, -1]].any()
+    # masked fine voxels are exactly zero in both
+    fm = (ffm.data if given else None)
+    if fm is not None:
+        off = fm.float().numpy().reshape(*ref.shape[:3], -1, cpad)[..., 0]
+        masked = off == 0
+        for a in (out, ref):
+            assert not a.reshape(*ref.shape[:3], -1, cpad)[masked].any()
+    if kind == "empty":
+        assert not out.any() and not ref.any()
+        return
+    assert np.abs(ref).max() > 0.1
+    if dtype == "float32":
+        np.testing.assert_allclose(out, ref, **TOL)
+    else:
+        np.testing.assert_allclose(out, ref, rtol=0, atol=_bf16_tol(ref))
+
+
+@pytest.mark.parametrize("C,cout,dims,corner,dtype", [
+    (8, 8, (3, 5, 16), False, "float32"),
+    (16, 1, (5, 3, 8), True, "float32"),
+    (32, 32, (5, 3, 4), False, "bfloat16"),
+])
+def test_conv3d_folded_edges(C, cout, dims, corner, dtype):
+    """K8's plain version against the JAX conv3d_3x3x3_folded (Pallas in
+    interpret mode) at Z, Y in {3, 5} (no multiple of the 2 x 4 brick), X =
+    128 / C (the smallest width supported() admits), Cout 1 and C, and a
+    single non-zero voxel at the volume's far corner (its brick and every
+    other one skip), batch 2."""
+    import sgnn_tpu.ops.pallas.conv3d_folded as PC
+
+    rng = np.random.RandomState(C + cout + corner)
+    x = rng.randn(2, *dims, C).astype(np.float32)
+    if corner:
+        keep = np.zeros((2, *dims, 1), np.float32)
+        keep[1, -1, -1, -1] = 1.0
+    else:
+        keep = (rng.rand(2, *dims, 1) < 0.5).astype(np.float32)
+    x = x * keep
+    w = (0.2 * rng.randn(27, C, cout)).astype(np.float32)
+    assert K_cl.supported(x.shape, w.shape)
+    jdt = jnp.dtype(dtype)
+    ref = np.asarray(PC.conv3d_3x3x3_folded(
+        jnp.asarray(x).astype(jdt), jnp.asarray(w).astype(jdt)), np.float32)
+    got = K_cl.conv3d_3x3x3_folded(
+        torch.from_numpy(x).to(getattr(torch, dtype)), torch.from_numpy(w))
+    out = got.float().numpy()
+    assert got.dtype == getattr(torch, dtype) and out.shape == ref.shape
+    if corner:  # only the corner's 2 x 2 x 2 neighbourhood is reached
+        reach = np.zeros(out.shape[:-1], bool)
+        reach[1, -2:, -2:, -2:] = True
+        assert not out[~reach].any() and not ref[~reach].any()
+    assert np.abs(ref).max() > 0.1
+    if dtype == "float32":
+        np.testing.assert_allclose(out, ref, **TOL)
+    else:
+        np.testing.assert_allclose(out, ref, rtol=0, atol=_bf16_tol(ref))
 
 
 class _AmaxSpy:
