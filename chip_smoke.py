@@ -16,16 +16,17 @@ where every phase passed prints the two JSON lines at the end):
    grids masked by the scene's sphere shell (C 8/16/32, Cout < C down to
    1, Y != X, K8's input gradient), K10 over the shell's rows (27 and 8
    taps, 16 to 48 inputs, rows with every neighbour missing), the int8
-   modes K1q (bit-equal), K2q, K3q (to their tolerance plus one activation
-   step) and tile_amax (bit-equal) with their TPU tiles; K1, K2, K3, K7,
-   K8 and K1q also at the edges of their Hopper designs (output bricks of
-   2 x 4 x 32 voxels: dims off the brick, x-tail slots, empty and dense
-   inputs, cpad 8 with narrow groups, K1q's TPU tiles straddling bricks;
-   K3 with 1-4 groups, the fine mask given and expanded, empty, full and
-   single-voxel masks; K8 at X = 128 / C, Cout 1 to C, an all-zero input
-   and single voxels at brick and volume corners; K8's f32 time logged
-   beside its bf16 one), K10 at
-   the seams of its row tiles (a row count off the tile, taps and tiles
+   modes K1q, K2q, K3q and tile_amax with their TPU tiles, all bit-equal
+   (each int8 site's kernel and tile_amax also timed apart); K1, K2, K3,
+   K7, K8, K1q, K2q and K3q also at the edges of their Hopper designs
+   (output bricks of 2 x 4 x 32 voxels: dims off the brick, x-tail slots,
+   empty and dense inputs, cpad 8 with narrow groups, K1q's and K3q's TPU
+   tiles straddling bricks; K3 and K3q with 1-4 groups, the fine mask
+   given and expanded, empty, full and single-voxel masks; K2q with coarse
+   rows of 48 and 16 slots and one-row TPU tiles; K8 at X = 128 / C, Cout
+   1 to C, an all-zero input and single voxels at brick and volume
+   corners; K8's f32 time logged beside its bf16 one), K10 at the seams
+   of its row tiles (a row count off the tile, taps and tiles
    with no neighbour, indices outside the table, rows of 2 to 400 bytes,
    channels staged in several units and weights in windows, two column
    groups) and tile_amax at its (empty, full and one-voxel masks in rows
@@ -81,8 +82,8 @@ where every phase passed prints the two JSON lines at the end):
    upsample site, each after one tile_amax scale pre-pass) via
    SceneInferencer; launches per forward required as derived
    (INT8_EXPECTED, no exact K1-K3 launch), every kernel call of one
-   forward held against its plain version (K1q bit-equal), the f32
-   surfaces of kernels and plain versions compared (IoU >= 0.999), the
+   forward held against its plain version (K1q, K2q, K3q bit-equal), the
+   f32 surfaces of kernels and plain versions compared (IoU >= 0.999), the
    bf16 surface against the plain int8 run and the exact forward; ms per
    forward, a profile of each forward and peak device memory (this phase
    runs after phase 4);
@@ -341,6 +342,37 @@ def _log_ms(name, label, make, dtypes) -> None:
             f"plain {tp:.3f} ms")
 
 
+def _site_split_ms(name, call, reps: int = 5, tries: int = 3):
+    """An int8 site wrapper's two launches timed apart: torch.profiler's
+    device time per call of the site kernel (``name``_kernel) and of its
+    tile_amax pre-pass, over ``reps`` calls of call(None). The profiler
+    now and then records no device events in a session; a timing, not a
+    check, so it tries again, and returns None after ``tries`` empty
+    sessions."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    call(None)
+    torch.cuda.synchronize()
+    for _ in range(tries):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                call(None)
+            torch.cuda.synchronize()
+        site = pre = 0.0
+        for e in prof.key_averages():
+            if e.device_type != DeviceType.CUDA:
+                continue
+            if f"::{name}_kernel<" in e.key:
+                site += e.self_device_time_total
+            elif "::tile_amax_kernel<" in e.key:
+                pre += e.self_device_time_total
+        if site > 0 and pre > 0:
+            return site / 1e3 / reps, pre / 1e3 / reps
+    return None
+
+
 def _ulp_bf16(x: torch.Tensor) -> torch.Tensor:
     """bfloat16's unit in the last place at |x| (8 significant bits)."""
     return torch.exp2(torch.floor(torch.log2(x.abs().clamp_min(1e-30))) - 7)
@@ -550,7 +582,7 @@ class KernelChecks:
     def run(self, name, label, make, values, masks=(), gate_cpad=0,
             resid=None, dense=False, work=None, library=None,
             dtypes=(torch.float32, torch.bfloat16), step=None,
-            peak=PEAK_BF16_FLOPS, exact=False):
+            peak=PEAK_BF16_FLOPS, exact=False, split=False):
         """make(dt) -> call(impl) -> output grids, inputs converted once;
         compared as _compare does (``resid``: the residual grid; ``step``:
         dt -> an int8 site's activation step). The kernel's first bf16
@@ -559,7 +591,9 @@ class KernelChecks:
         ``work(dt)`` gives that case's (bytes each input read once and
         each output written once, operations its data needs, of the type
         whose rate is ``peak``), from which the card's bound follows.
-        ``exact``: the kernel must give the plain version's bits."""
+        ``exact``: the kernel must give the plain version's bits.
+        ``split``: an int8 site; its bf16 case also logs the wrapper's two
+        launches timed apart (_site_split_ms)."""
         for dt in dtypes:
             call = make(dt)
             outs_k, outs_p = call(None), call("plain")
@@ -605,6 +639,16 @@ class KernelChecks:
                         f"{flops / 1e9:.2f} G operations at "
                         f"{peak / 1e12:g} T/s)")
             log(f"[kernels] {name} {label} {str(dt)[6:]}: {msg}")
+            if split and dt == torch.bfloat16:
+                wrapper = _time_ms(lambda: call(None))
+                apart = _site_split_ms(name, call)
+                log(f"[kernels] {name} {label} bfloat16 split: wrapper "
+                    f"{wrapper:.4f} ms (CUDA events, with its tile_amax); "
+                    + ("device times not measured (no device events in "
+                       "three profiles)" if apart is None else
+                       f"device time per call (torch.profiler, 5 calls): "
+                       f"{name}_kernel alone {apart[0]:.4f} ms, tile_amax "
+                       f"{apart[1]:.4f} ms"))
 
     def all(self):
         FO, fine, coarse = self.FO, self.fine, self.coarse
@@ -902,8 +946,9 @@ class KernelChecks:
         """K1q, K2q, K3q (the int8 modes of the conv, down and upsample
         sites, quantize=True) and their scale pre-pass tile_amax at the
         serving shapes, on grids masked by the sphere shell; each site's
-        TPU tiles (logged) give it many activation scales. tile_amax is
-        held bit-equal to its plain version."""
+        TPU tiles (logged) give it many activation scales. Every one is
+        held bit-equal to its plain version; each site's bf16 case also
+        logs its kernel's and its tile_amax's device time apart."""
         from sgnn_tpu_torch.ops import quant as Q
         from sgnn_tpu_torch.ops.kernels import tile_amax as K_amax
         from sgnn_tpu_torch.ops.kernels.downconv import coarse_xq
@@ -959,7 +1004,7 @@ class KernelChecks:
                                     cw[dt][1])
         self.run("conv_site_q", "cpad16 G3 affine+residual", conv16, [0],
                  resid=res16, work=conv16_work, step=conv16_step,
-                 peak=PEAK_INT8_OPS, exact=True)
+                 peak=PEAK_INT8_OPS, exact=True, split=True)
 
         fm8 = self.mask(fine, 8)
         x8 = self.grid(SCENE, 8, 8, fine)
@@ -984,7 +1029,7 @@ class KernelChecks:
                                         cast(fm8, dt).data, aff, 8,
                                         qw[dt][1])
             self.run("conv_site_q", label, conv8, [0], resid=resid,
-                     step=conv8_step, exact=True)
+                     step=conv8_step, exact=True, split=True)
         self.k1q_edge_cases()
 
         # K2q: the encoder's level-0 exit (cpad 8 -> 16, no affine) and a
@@ -1024,7 +1069,9 @@ class KernelChecks:
                     [cast(x, dt).data], cast(fm, dt).data,
                     aff[None] if aff is not None else None, cpad, dw[dt][1])
             self.run("downconv_q", label, down, [0], masks=[1],
-                     work=down_work, step=down_step, peak=PEAK_INT8_OPS)
+                     work=down_work, step=down_step, peak=PEAK_INT8_OPS,
+                     exact=True, split=True)
+        self.k2q_edge_cases()
 
         # K3q from the 48x96x96 coarse level, 3 groups, fine mask expanded
         cfm = self.mask(coarse, 16)
@@ -1052,7 +1099,8 @@ class KernelChecks:
             return _activation_step([cast(g, dt).data for g in cg],
                                     cast(cfm, dt).data, affu, 16, uw[dt][1])
         self.run("upconv_q", "G3 fmask=None", up, [0], work=up_work,
-                 step=up_step, peak=PEAK_INT8_OPS)
+                 step=up_step, peak=PEAK_INT8_OPS, exact=True, split=True)
+        self.k3q_edge_cases()
 
         # tile_amax over each site's windows, bit-equal to its plain version
         for label, xs, fm, aff, cpad, tiles in (
@@ -1234,6 +1282,157 @@ class KernelChecks:
                      f"{t.nz}x{t.ny} tiles of {t.tz}x{t.ty}")
             self.run("conv_site_q", label, conv, [0], resid=res, step=step,
                      exact=True)
+
+    def k2q_edge_cases(self):
+        """K2q where its Hopper design (K2's: one thread per coarse voxel,
+        flat over [B, Z, Y, x slots]) has edges: cross mode with the fine
+        x blocks cut to 6 or 2, so a coarse row has 48 or 16 slots and a
+        warp holds the end of one row and the start of the next; TPU tiles
+        of one coarse row (the picker's choice at coarse Y 5), so those
+        warps hold voxels of two tiles; same-cpad modes at cpad 8 and 16;
+        random, dense and empty masks; with and without the affine, cin
+        below cpad. Bit-equal to the plain version."""
+        from sgnn_tpu_torch.ops import quant as Q
+        from sgnn_tpu_torch.ops.kernels.downconv import coarse_xq
+
+        FO = self.FO
+        # cpad, cpad_out, cin, affine, mask, fine dims, fine x blocks kept
+        cases = [(8, 16, 8, False, "random", (10, 10, 90), 6),
+                 (8, 16, 8, False, "dense", (10, 6, 40), 6),
+                 (8, 16, 3, True, "random", (4, 10, 20), 2),
+                 (16, 16, 16, True, "empty", (10, 10, 40), None),
+                 (16, 16, 12, True, "random", (6, 10, 40), None),
+                 (8, 8, 5, True, "dense", (10, 10, 40), None),
+                 (16, 16, 16, False, "dense", (4, 10, 40), None)]
+        for i, (cpad, co, cin, has_aff, kind, fdims, xq) in enumerate(cases):
+            g = torch.Generator().manual_seed(60 + i)
+            m = {"random": torch.rand(1, *fdims, generator=g) < 0.3,
+                 "dense": torch.ones(1, *fdims, dtype=torch.bool),
+                 "empty": torch.zeros(1, *fdims, dtype=torch.bool)}[kind]
+
+            def cut(fg, xq=xq):
+                if xq is None:
+                    return fg
+                return FO.FGrid(fg.data[:, :, :, :xq].contiguous(), fg.dims,
+                                fg.real_c, fg.cpad)
+            fm = cut(self.mask(m, cpad))
+            x = cut(self.grid(fdims, cin, cpad,
+                              m if has_aff else torch.ones_like(m)))
+            aff = self.affines([cin])[0] if has_aff else None
+            w8 = self.weights(8, cin, co)
+            qw = {dt: tuple(t.to(self.dev) for t in
+                            Q.quantize_downconv_weights(
+                                FO.prep_downconv_weights(w8, cin, dt)))
+                  for dt in (torch.float32, torch.bfloat16)}
+            xqc = coarse_xq(x.data.shape[3], cpad, co)
+            t = Q.downconv_tiles(x.data, xqc)
+
+            def down(dt, fm=fm, x=x, aff=aff, qw=qw, cin=cin, co=co):
+                xd, md = x.with_data(x.data.to(dt)), fm.with_data(
+                    fm.data.to(dt))
+
+                def call(impl):
+                    o, om = FO.downconv_fused(
+                        xd, md, qw[dt][0], cin, aff=aff, cpad_out=co,
+                        quantize=True, ws=qw[dt][1], impl=impl)
+                    return o.data, om.data
+                return call
+
+            def step(dt, fm=fm, x=x, aff=aff, qw=qw, cpad=cpad):
+                return _activation_step(
+                    [x.data.to(dt)], fm.data.to(dt),
+                    aff[None] if aff is not None else None, cpad,
+                    qw[dt][1])
+            label = (f"edge cpad{cpad}->{co} cin {cin} "
+                     f"{'affine' if has_aff else 'raw'} {kind} mask, {fdims} "
+                     f"xq {x.data.shape[3]} -> {xqc} ({xqc * 128 // co} "
+                     f"coarse slots), {t.nz}x{t.ny} tiles of {t.tz}x{t.ty}")
+            self.run("downconv_q", label, down, [0], masks=[1], step=step,
+                     exact=True)
+
+    def k3q_edge_cases(self):
+        """K3q where its Hopper design (K3's fine bricks of 2 x 4 x 32
+        voxels from padded row -1, rows grouped by parity into MMA tiles of
+        16, one int8 window per group and distinct TPU tile) has edges: TPU
+        tiles of 2 or 6 fine y rows, which straddle a brick's 4 y rows (its
+        rows take two scales), required here; 1-4 groups with widths below
+        cpad, cpad 8 and 16, with and without the affine, the fine mask
+        given (training) and expanded from the coarse one (serving), on
+        random, full, empty and single-voxel masks; fine x tails (fewer
+        fine x blocks than twice the coarse ones; the last real fine slot
+        odd, of x parity 1). Bit-equal to the plain version."""
+        from sgnn_tpu_torch.ops import quant as Q
+
+        FO = self.FO
+
+        def straddles(t, Yf):
+            # a tile boundary inside brick rows 4 ky - 2 .. 4 ky + 1
+            return any(4 * ky - 2 < k * t.ty <= 4 * ky + 1
+                       for ky in range(Yf // 4 + 2)
+                       for k in range(1, t.ny))
+        # cpad, widths, affine, fine mask given, mask kind, coarse dims
+        cases = [(16, [16], True, False, "random", (5, 5, 70)),
+                 (16, [16, 5, 16, 2], True, True, "random", (3, 9, 40)),
+                 (8, [8], False, False, "full", (5, 5, 9)),
+                 (8, [3, 8], True, True, "single", (3, 9, 24)),
+                 (16, [16, 16], False, True, "empty", (2, 3, 40)),
+                 (16, [6], False, False, "single", (5, 5, 70)),
+                 (8, [8, 8, 1, 4], True, False, "full", (5, 5, 40)),
+                 (16, [16, 8, 16], True, False, "full", (3, 9, 70))]
+        for i, (cpad, widths, has_aff, given, kind, cdims) in enumerate(
+                cases):
+            fdims = tuple(2 * d for d in cdims)
+            g = torch.Generator().manual_seed(70 + i)
+
+            def mask_of(dims, g=g, kind=kind):
+                if kind == "single":
+                    m = torch.zeros(1, *dims, dtype=torch.bool)
+                    m[0, dims[0] // 2, dims[1] - 1, dims[2] - 1] = True
+                    return m
+                return {"random": torch.rand(1, *dims, generator=g) < 0.3,
+                        "full": torch.ones(1, *dims, dtype=torch.bool),
+                        "empty": torch.zeros(1, *dims, dtype=torch.bool)
+                        }[kind]
+            cm = mask_of(cdims)
+            cfm = self.mask(cm, cpad)
+            ffm = self.mask(mask_of(fdims), cpad) if given else None
+            data = cm if has_aff else torch.ones_like(cm)
+            gs = [self.grid(cdims, c, cpad, data) for c in widths]
+            aff = self.affines(widths) if has_aff else None
+            w27 = self.weights(27, sum(widths), cpad)
+            qw = {dt: tuple(t.to(self.dev) for t in
+                            Q.quantize_upconv_weights(
+                                FO.prep_upconv_weights(w27, widths, dt)))
+                  for dt in (torch.float32, torch.bfloat16)}
+            xqf = (ffm.data.shape[3] if given
+                   else FO._xq_for(2 * cdims[2], cpad))
+            tiles = {dt: Q.upconv_tiles(cfm.data.to(dt), xqf, len(widths))
+                     for dt in qw}
+            if cdims[1] in (5, 9):
+                require(all(straddles(t, fdims[1]) for t in tiles.values()),
+                        f"K3q edge case {i}: tiles {tiles} do not straddle "
+                        f"a brick's y rows")
+
+            def up(dt, gs=gs, cfm=cfm, ffm=ffm, aff=aff, qw=qw, cpad=cpad):
+                grp = [x.with_data(x.data.to(dt)) for x in gs]
+                m = cfm.with_data(cfm.data.to(dt))
+                f = ffm.with_data(ffm.data.to(dt)) if ffm is not None \
+                    else None
+                return lambda impl: (FO.upconv_fused(
+                    grp, m, f, qw[dt][0], cpad, aff=aff, quantize=True,
+                    ws=qw[dt][1], impl=impl).data,)
+
+            def step(dt, gs=gs, cfm=cfm, aff=aff, qw=qw, cpad=cpad):
+                return _activation_step([x.data.to(dt) for x in gs],
+                                        cfm.data.to(dt), aff, cpad,
+                                        qw[dt][1])
+            label = (f"edge cpad{cpad} G{len(widths)} {widths} "
+                     f"{'affine' if has_aff else 'raw'} "
+                     f"fmask={'given' if given else 'None'} {kind} mask, "
+                     f"coarse {cdims} xq {cfm.data.shape[3]} -> {xqf}, "
+                     + ", ".join(f"{str(dt)[6:]} {t.nz}x{t.ny} tiles of "
+                                 f"{t.tz}x{t.ty}" for dt, t in tiles.items()))
+            self.run("upconv_q", label, up, [0], step=step, exact=True)
 
     def secondary_cases(self):
         """K8 and K9 (channels-last 3^3 conv) and K10 (gather-GEMM) at the
@@ -1695,9 +1894,9 @@ class MainPathCheck:
              "downconv_q": ([0], [1], False, False),
              "upconv_q": ([0], [], False, False),
              "tile_amax": ([], [0], False, True)}
-    # kernels that must give their plain versions' bits: K1q sums integers
-    # exactly and dequantizes in the plain version's order
-    EXACT = {"conv_site_q"}
+    # kernels that must give their plain versions' bits: the int8 sites sum
+    # integers exactly and dequantize in the plain version's order
+    EXACT = {"conv_site_q", "downconv_q", "upconv_q"}
     # wrapper attributes whose counter has another name
     COUNTER = {"conv3d_3x3x3_folded": "conv3d_folded",
                "conv3d_3x3x3": "conv3d"}

@@ -120,7 +120,7 @@ __device__ __forceinline__ void store_zero(T* o) {
 
 // ------------------------------------------- output bricks (K1, K3, K7, K8)
 //
-// K1, K1q (conv_site.cu), K3 (upconv.cu), K7 (conv_raw.cu) and K8
+// K1, K1q (conv_site.cu), K3, K3q (upconv.cu), K7 (conv_raw.cu) and K8
 // (conv3d_cl.cu) give a block of THREADS threads one output brick of BZ x
 // BY x BX voxels, x fastest, so warp w holds brick row w (one (z, y), 32
 // consecutive x slots). K1, K7 and K8 stage
@@ -261,8 +261,8 @@ __device__ __forceinline__ void store_row(T* __restrict__ o,
 // ------------------------------------------------------- int8 modes
 //
 // The int8 sites (K1q-K3q, sgnn_tpu/ops/pallas/conv3d_folded.py with
-// quantize=True) quantize each input voxel on the fly with the scale of
-// the TPU tile that holds the output voxel, s = max(amax, 1e-8) / 127
+// quantize=True) quantize each input value with the scale of the TPU
+// tile that holds the output voxel, s = max(amax, 1e-8) / 127
 // from the tile_amax pre-pass (quant.cu), and sum int8 x int8 products
 // in int32 (exact: at most 27 taps x 16 channels x 127^2 < 2^24, so the
 // f32 conversion is exact too). Weights arrive as int8 [..., co, ci]:
@@ -309,25 +309,15 @@ __device__ __forceinline__ bool quantize_values(const float* v, int cin,
   return any != 0;
 }
 
-// quantize_values of the voxel at p (global memory)
-template <typename T, int CI>
-__device__ __forceinline__ bool quantize_voxel(const T* __restrict__ p,
-                                               int cin, const float* sc,
-                                               float mi, float inv,
-                                               int* words) {
-  float v[CI];
-  load_voxel<T, CI>(p, v);
-  return quantize_values<CI>(v, cin, sc, mi, inv, words);
-}
-
 // iacc[co] += sum_ci q[ci] * w[co][ci] for co < CO, over the CI/4 packed
-// words; w: CO 16-byte words (uniform loads, one address per warp).
+// words; w: CO 16-byte words in shared memory (one address per warp, a
+// broadcast).
 template <int CI, int CO>
 __device__ __forceinline__ void dp4a_voxel(int* iacc, const int* words,
-                                           const int4* __restrict__ w) {
+                                           const int4* w) {
 #pragma unroll
   for (int co = 0; co < CO; ++co) {
-    const int4 wv = __ldg(w + co);
+    const int4 wv = w[co];
     int a = iacc[co];
     a = __dp4a(words[0], wv.x, a);
     a = __dp4a(words[1], wv.y, a);
@@ -336,19 +326,6 @@ __device__ __forceinline__ void dp4a_voxel(int* iacc, const int* words,
       a = __dp4a(words[3], wv.w, a);
     }
     iacc[co] = a;
-  }
-}
-
-// acc[co] += f32(iacc[co]) * (s * ws[co]): one group's dequantization in
-// the TPU kernels' order, every product and sum rounded on its own.
-template <int CO>
-__device__ __forceinline__ void dequant_add(float* acc, const int* iacc,
-                                            float s,
-                                            const float* __restrict__ ws) {
-#pragma unroll
-  for (int co = 0; co < CO; ++co) {
-    acc[co] = __fadd_rn(acc[co], __fmul_rn(static_cast<float>(iacc[co]),
-                                           __fmul_rn(s, __ldg(ws + co))));
   }
 }
 
@@ -378,7 +355,7 @@ __device__ __forceinline__ long long voxel_index(int b, int z, int y, int x,
   return ((static_cast<long long>(b) * Zp + z) * Yp + y) * Xs + x;
 }
 
-// ------------------------------------------------ staged windows (K1, K3)
+// ---------------------------------------- staged windows (K1, K3, K1q, K3q)
 //
 // A window of WZ x WY x WX voxels of a grid [B, Zp, Yp, Xs, CPAD] staged in
 // shared memory: slot i is window voxel (i / (WY WX), i / WX % WY, i % WX),
@@ -432,6 +409,41 @@ __device__ __forceinline__ void affine_window(unsigned char* buf, int cin,
                              : 0.f);
       }
       *q = u;
+    }
+  }
+}
+
+// Quantizes the N slots of a staged window (int8 modes K1q, K3q) into q,
+// int8 [N][CPAD]: each staged voxel's f32 input (with the affine sa,
+// relu(x s + b) hm[i]; 0 where the voxel's mask is 0) with 1 / s = inv,
+// channels >= cin 0; a zero-filled slot quantizes to 0.
+template <typename T, int CPAD, int N>
+__device__ __forceinline__ void quantize_window(const unsigned char* buf,
+                                                unsigned char* q, int cin,
+                                                const float* sa,
+                                                const float* hm, float inv) {
+  constexpr int SLOT = CPAD * static_cast<int>(sizeof(T));
+  constexpr int E = 16 / static_cast<int>(sizeof(T));
+  for (int i = threadIdx.x; i < N; i += THREADS) {
+    const float mi = sa != nullptr ? hm[i] : 1.f;
+    int words[CPAD / 4] = {};
+    if (mi != 0.f) {
+      float v[CPAD];
+#pragma unroll
+      for (int c = 0; c < SLOT / 16; ++c) {
+        const uint4 u = *reinterpret_cast<const uint4*>(buf + i * SLOT +
+                                                        c * 16);
+        const T* t = reinterpret_cast<const T*>(&u);
+#pragma unroll
+        for (int e = 0; e < E; ++e) v[c * E + e] = to_f(t[e]);
+      }
+      quantize_values<CPAD>(v, cin, sa, mi, inv, words);
+    }
+    if constexpr (CPAD == 16) {
+      *reinterpret_cast<int4*>(q + i * CPAD) =
+          make_int4(words[0], words[1], words[2], words[3]);
+    } else {
+      *reinterpret_cast<int2*>(q + i * CPAD) = make_int2(words[0], words[1]);
     }
   }
 }

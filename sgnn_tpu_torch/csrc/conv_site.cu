@@ -304,39 +304,6 @@ struct SiteQSmem {
   static_assert(NV * SLOT <= BUF, "the outputs fit buffer 0");
 };
 
-// Quantizes a staged group (K1's layout) into q, int8 [NH][CPAD]: each
-// staged voxel's f32 input (with the affine sa, relu(x s + b) hm[i]; 0 where
-// the neighbour's mask is 0) with 1 / s = inv, channels >= cin 0.
-template <typename T, int CPAD>
-__device__ __forceinline__ void quantize_group(const unsigned char* buf,
-                                               unsigned char* q, int cin,
-                                               const float* sa,
-                                               const float* hm, float inv) {
-  using S = SiteSmem<T, CPAD>;
-  constexpr int E = 16 / static_cast<int>(sizeof(T));
-  for (int i = threadIdx.x; i < NH; i += THREADS) {
-    const float mi = sa != nullptr ? hm[i] : 1.f;
-    int words[CPAD / 4] = {};
-    if (mi != 0.f) {
-      float v[CPAD];
-#pragma unroll
-      for (int c = 0; c < S::SLOT / 16; ++c) {
-        const uint4 u = *reinterpret_cast<const uint4*>(buf + S::word(i, c));
-        const T* t = reinterpret_cast<const T*>(&u);
-#pragma unroll
-        for (int e = 0; e < E; ++e) v[c * E + e] = to_f(t[e]);
-      }
-      quantize_values<CPAD>(v, cin, sa, mi, inv, words);
-    }
-    if constexpr (CPAD == 16) {
-      *reinterpret_cast<int4*>(q + i * CPAD) =
-          make_int4(words[0], words[1], words[2], words[3]);
-    } else {
-      *reinterpret_cast<int2*>(q + i * CPAD) = make_int2(words[0], words[1]);
-    }
-  }
-}
-
 // int8 products of 16 rows (this lane's rows gid and gid + 8 at staged
 // slots s0, s1) with group wg's int8 weights [27, co, ci] over the
 // quantized brick q: ia[nt] = the C fragment of N tile nt.
@@ -476,9 +443,9 @@ __global__ void __launch_bounds__(THREADS, sizeof(T) == 2 ? 3 : 1)
       const float s =
           tile_scale(amax[(static_cast<long long>(b) * nz * ny + k) * xs.n +
                           g]);
-      quantize_group<T, CPAD>(buf, qb, cin,
-                              aff != nullptr ? sa + g * 2 * MAXC : nullptr,
-                              hm, 1.0f / s);
+      quantize_window<T, CPAD, NH>(
+          buf, qb, cin, aff != nullptr ? sa + g * 2 * MAXC : nullptr, hm,
+          1.0f / s);
       __syncthreads();
 #pragma unroll
       for (int j = 0; j < 2; ++j) {

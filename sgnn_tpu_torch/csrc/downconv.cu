@@ -31,29 +31,54 @@
 // block), the 4 children of one fine z-row pair with their loads in flight
 // together, and writes both coarse outputs as 16-byte vector stores.
 //
-// K2q, the int8 mode (quantize=True, _kernel_downconv :1228-1264), keeps
-// a body of its own, one thread per coarse voxel: it reads its TPU
-// tile's amax (tile (iz, iy) holds coarse interior rows [iz tz, (iz + 1)
-// tz) x [iy ty, (iy + 1) ty); its window is their fine children, no halo),
-// quantizes each fine child's f32 input on the fly, sums int8 products in
-// int32 with __dp4a against int8 weights [8, co, ci], and writes f32(iacc)
-// * (s * ws[co]) times the coarse mask; the coarse mask is the exact
-// mode's.
+// K2q, the int8 mode. Replaces: the same fused_downconv_folded with
+// quantize=True, int8 body of _kernel_downconv (:1228-1264). Each fine
+// child's f32 site input (the affine's value before any rounding, relu(x
+// s + b) m_child, else x) is quantized with the scale s of the TPU tile
+// that holds the coarse output voxel (tile (iz, iy) holds coarse interior
+// rows [iz tz, (iz + 1) tz) x [iy ty, (iy + 1) ty); its window is their
+// fine children, no halo); the int8 products of the 8 taps sum exactly in
+// int32 against int8 weights [8, co, ci], and the output is f32(iacc) *
+// (s * ws[co]) times the coarse mask, each product rounded on its own;
+// the coarse mask is the exact mode's.
+// What bounds it: the same bytes as K2. Its 8 * cin * cout s8 MACs per
+// active coarse voxel are a few per byte moved, far below the ~590 a byte
+// at which the s8 tensor cores (1,979 TOP/s) would be the limit, so the
+// products stay __dp4a on the CUDA cores (4 MACs an instruction).
+// Design: K2's kernel body with the mode as a template parameter, one
+// skeleton for both: the mask loads, the skip, the 16-byte loads of the
+// children (with the affine only those whose mask is set) and the 16-byte
+// stores are K2's; the int8 weights (2 KB at 16 x 16) are staged once a
+// block in shared memory, where each output channel's __dp4a reads one
+// broadcast 16-byte word, and the scale is one lookup a thread, its
+// coarse row's tile.
 #include "common.cuh"
 
 namespace sgnn {
 
-template <typename T, int CI, int CO>
-__global__ void __launch_bounds__(THREADS)
-    downconv_kernel(const T* __restrict__ x, const T* __restrict__ fmask,
-                    const float* __restrict__ w,    // [8, MAXC, MAXC]
-                    const float* __restrict__ aff,  // [2, MAXC] or null
-                    int cin, T* __restrict__ out,
-                    T* __restrict__ mout, int B, int Zcp, int Ycp, int Xsc,
-                    int Zfp, int Yfp, int Xsf) {
+// The int8 mode's arguments (K2q); null pointers in the exact mode.
+struct DownQ {
+  const int4* wq;     // int8 [8, MAXC co, MAXC ci]: a word a (tap, co)
+  const float* ws;    // [MAXC]
+  const float* amax;  // [B, nz, ny] from sgnn_tile_amax
+  int tz, ty, nz, ny;  // the TPU tile in coarse rows, tiles per z and y
+};
+
+// The body of both modes; downconv_kernel (exact) and downconv_q_kernel
+// (int8) below, two names for the profiles.
+template <typename T, int CI, int CO, bool QUANT>
+__device__ __forceinline__ void downconv_site(
+    const T* __restrict__ x, const T* __restrict__ fmask,
+    const float* __restrict__ w,  // exact: [8, MAXC, MAXC]
+    const DownQ& qa, const float* __restrict__ aff,  // [2, MAXC] or null
+    int cin, T* __restrict__ out, T* __restrict__ mout, int B, int Zcp,
+    int Ycp, int Xsc, int Zfp, int Yfp, int Xsf) {
   constexpr int VEC = CI * static_cast<int>(sizeof(T)) / 16;  // per child
-  __shared__ __align__(16) float sw[8 * CI * CO];  // [tap][ci][co]
-  __shared__ float sa[2 * CI];
+  // the weights: exact f32 [tap][ci][co]; int8 a 16-byte word a [tap][co]
+  constexpr int WBYTES = QUANT ? 8 * CO * 16 : 8 * CI * CO * 4;
+  __shared__ __align__(16) unsigned char swb[WBYTES];
+  __shared__ float sa[2 * MAXC];
+  __shared__ float sws[CO];
   const long long idx =
       static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
   const bool inside = idx < static_cast<long long>(B) * Zcp * Ycp * Xsc;
@@ -82,15 +107,33 @@ __global__ void __launch_bounds__(THREADS)
     store_zero<T, CO>(mo);
   }
   if (!__syncthreads_or(mc != 0.f)) return;
-  for (int i = threadIdx.x; i < 8 * CI * CO; i += THREADS)
-    sw[i] = w[(i / (CI * CO) * MAXC + i / CO % CI) * MAXC + i % CO];
-  if (aff != nullptr && threadIdx.x < 2 * CI)
-    sa[threadIdx.x] = aff[threadIdx.x / CI * MAXC + threadIdx.x % CI];
+  if constexpr (QUANT) {
+    int4* sq = reinterpret_cast<int4*>(swb);
+    for (int i = threadIdx.x; i < 8 * CO; i += THREADS)
+      sq[i] = qa.wq[i / CO * MAXC + i % CO];
+    if (threadIdx.x < CO) sws[threadIdx.x] = qa.ws[threadIdx.x];
+  } else {
+    float* sw = reinterpret_cast<float*>(swb);
+    for (int i = threadIdx.x; i < 8 * CI * CO; i += THREADS)
+      sw[i] = w[(i / (CI * CO) * MAXC + i / CO % CI) * MAXC + i % CO];
+  }
+  if (aff != nullptr && threadIdx.x < 2 * MAXC)
+    sa[threadIdx.x] = aff[threadIdx.x];
   __syncthreads();
   if (mc == 0.f) return;
   float acc[CO];
+  [[maybe_unused]] int iacc[CO];
+  [[maybe_unused]] float s = 0.f, inv = 0.f;  // the int8 mode's scale, 1 / s
+  if constexpr (QUANT) {
+    s = tile_scale(qa.amax[(static_cast<long long>(v.b) * qa.nz +
+                            (v.z - 1) / qa.tz) * qa.ny + (v.y - 1) / qa.ty]);
+    inv = 1.0f / s;
+  }
 #pragma unroll
-  for (int c = 0; c < CO; ++c) acc[c] = 0.f;
+  for (int c = 0; c < CO; ++c) {
+    acc[c] = 0.f;
+    iacc[c] = 0;
+  }
 #pragma unroll
   for (int dz = 0; dz < 2; ++dz) {
     uint4 raw[4][VEC];
@@ -109,24 +152,45 @@ __global__ void __launch_bounds__(THREADS)
       const int t = dz * 4 + q;
       if (aff != nullptr && mk[t] == 0.f) continue;  // relu(.) * 0 adds 0
       const T* in = reinterpret_cast<const T*>(raw[q]);
+      if constexpr (QUANT) {
+        float vals[CI];
 #pragma unroll
-      for (int ci = 0; ci < CI; ++ci) {  // constant indices: raw stays in
-        if (ci >= cin) break;            // registers
-        float a = to_f(in[ci]);
-        if (aff != nullptr)
-          a = round_to<T>(affine_relu_mask(a, sa[ci], sa[CI + ci], mk[t]));
-        const float4* wr =
-            reinterpret_cast<const float4*>(sw + (t * CI + ci) * CO);
+        for (int ci = 0; ci < CI; ++ci) vals[ci] = to_f(in[ci]);
+        int words[CI / 4];
+        if (quantize_values<CI>(vals, cin, aff != nullptr ? sa : nullptr,
+                                mk[t], inv, words))
+          dp4a_voxel<CI, CO>(iacc, words,
+                             reinterpret_cast<const int4*>(swb) + t * CO);
+      } else {
+        const float* sw = reinterpret_cast<const float*>(swb);
 #pragma unroll
-        for (int c4 = 0; c4 < CO / 4; ++c4) {
-          const float4 wv = wr[c4];
-          acc[4 * c4 + 0] = fmaf(a, wv.x, acc[4 * c4 + 0]);
-          acc[4 * c4 + 1] = fmaf(a, wv.y, acc[4 * c4 + 1]);
-          acc[4 * c4 + 2] = fmaf(a, wv.z, acc[4 * c4 + 2]);
-          acc[4 * c4 + 3] = fmaf(a, wv.w, acc[4 * c4 + 3]);
+        for (int ci = 0; ci < CI; ++ci) {  // constant indices: raw stays in
+          if (ci >= cin) break;            // registers
+          float a = to_f(in[ci]);
+          if (aff != nullptr)
+            a = round_to<T>(
+                affine_relu_mask(a, sa[ci], sa[MAXC + ci], mk[t]));
+          const float4* wr =
+              reinterpret_cast<const float4*>(sw + (t * CI + ci) * CO);
+#pragma unroll
+          for (int c4 = 0; c4 < CO / 4; ++c4) {
+            const float4 wv = wr[c4];
+            acc[4 * c4 + 0] = fmaf(a, wv.x, acc[4 * c4 + 0]);
+            acc[4 * c4 + 1] = fmaf(a, wv.y, acc[4 * c4 + 1]);
+            acc[4 * c4 + 2] = fmaf(a, wv.z, acc[4 * c4 + 2]);
+            acc[4 * c4 + 3] = fmaf(a, wv.w, acc[4 * c4 + 3]);
+          }
         }
       }
     }
+  }
+  if constexpr (QUANT) {
+    // f32(iacc) * (s * ws[co]) * mc, each product rounded on its own
+#pragma unroll
+    for (int c = 0; c < CO; ++c)
+      acc[c] = __fmul_rn(__fmul_rn(static_cast<float>(iacc[c]),
+                                   __fmul_rn(s, sws[c])),
+                         mc);
   }
   store_voxel<T, CO>(o, acc);
   float ones[CO];
@@ -137,145 +201,61 @@ __global__ void __launch_bounds__(THREADS)
 
 template <typename T, int CI, int CO>
 __global__ void __launch_bounds__(THREADS)
+    downconv_kernel(const T* __restrict__ x, const T* __restrict__ fmask,
+                    const float* __restrict__ w, DownQ qa,
+                    const float* __restrict__ aff, int cin,
+                    T* __restrict__ out, T* __restrict__ mout, int B, int Zcp,
+                    int Ycp, int Xsc, int Zfp, int Yfp, int Xsf) {
+  downconv_site<T, CI, CO, false>(x, fmask, w, qa, aff, cin, out, mout, B,
+                                  Zcp, Ycp, Xsc, Zfp, Yfp, Xsf);
+}
+
+template <typename T, int CI, int CO>
+__global__ void __launch_bounds__(THREADS)
     downconv_q_kernel(const T* __restrict__ x, const T* __restrict__ fmask,
-                      const int4* __restrict__ wq,    // [8, MAXC] x 16
-                      const float* __restrict__ ws,   // [MAXC]
-                      const float* __restrict__ aff,  // [2, MAXC] or null
-                      const float* __restrict__ amax,  // [B, nz, ny]
-                      int cin, T* __restrict__ out, T* __restrict__ mout,
-                      int B, int Zcp, int Ycp, int Xsc, int Zfp, int Yfp,
-                      int Xsf, int tz, int ty, int nz, int ny) {
-  const long long idx =
-      static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
-  if (idx >= static_cast<long long>(B) * Zcp * Ycp * Xsc) return;
-  const Voxel v = decode(idx, Zcp, Ycp, Xsc);
-  T* o = out + idx * CO;
-  T* mo = mout + idx * CO;
-  if (v.z == 0 || v.z == Zcp - 1 || v.y == 0 || v.y == Ycp - 1) {
-    store_zero<T, CO>(o);
-    store_zero<T, CO>(mo);
-    return;
-  }
-  float mc = 0.f;
-  for (int t = 0; t < 8; ++t) {
-    const int xf = 2 * v.x + (t & 1);
-    if (xf >= Xsf) continue;
-    const long long nv = voxel_index(v.b, 2 * v.z - 1 + (t >> 2),
-                                     2 * v.y - 1 + ((t >> 1) & 1), xf, Zfp,
-                                     Yfp, Xsf);
-    mc = fmaxf(mc, to_f(fmask[nv * CI]));
-  }
-  if (mc == 0.f) {
-    store_zero<T, CO>(o);
-    store_zero<T, CO>(mo);
-    return;
-  }
-  const float s = tile_scale(
-      amax[(static_cast<long long>(v.b) * nz + (v.z - 1) / tz) * ny +
-           (v.y - 1) / ty]);
-  const float inv = 1.0f / s;
-  int iacc[CO];
-#pragma unroll
-  for (int c = 0; c < CO; ++c) iacc[c] = 0;
-  for (int t = 0; t < 8; ++t) {  // tap = dz * 4 + dy * 2 + dx
-    const int xf = 2 * v.x + (t & 1);
-    if (xf >= Xsf) continue;
-    const long long nv = voxel_index(v.b, 2 * v.z - 1 + (t >> 2),
-                                     2 * v.y - 1 + ((t >> 1) & 1), xf, Zfp,
-                                     Yfp, Xsf) * CI;
-    float mi = 1.f;
-    if (aff != nullptr) {
-      mi = to_f(fmask[nv]);
-      if (mi == 0.f) continue;
-    }
-    int words[CI / 4];
-    if (!quantize_voxel<T, CI>(x + nv, cin, aff, mi, inv, words)) continue;
-    dp4a_voxel<CI, CO>(iacc, words, wq + t * MAXC);
-  }
-#pragma unroll
-  for (int c = 0; c < CO; ++c) {
-    const float a = __fmul_rn(static_cast<float>(iacc[c]),
-                              __fmul_rn(s, __ldg(ws + c)));
-    o[c] = from_f<T>(a * mc);
-    mo[c] = from_f<T>(1.f);
-  }
+                      const float* __restrict__ w, DownQ qa,
+                      const float* __restrict__ aff, int cin,
+                      T* __restrict__ out, T* __restrict__ mout, int B,
+                      int Zcp, int Ycp, int Xsc, int Zfp, int Yfp, int Xsf) {
+  downconv_site<T, CI, CO, true>(x, fmask, w, qa, aff, cin, out, mout, B,
+                                 Zcp, Ycp, Xsc, Zfp, Yfp, Xsf);
 }
 
-template <typename T, int CI, int CO>
-static int launch_downconv_q(const void* x, const void* fmask,
-                             const void* wq, const float* ws,
-                             const float* aff, const float* amax, int cin,
-                             void* out, void* mout, int B, int Zfp, int Yfp,
-                             int xqf, int xqc, int tz, int ty, int nz, int ny,
-                             cudaStream_t stream) {
-  const int Zcp = (Zfp - 2) / 2 + 2;
-  const int Ycp = (Yfp - 2) / 2 + 2;
-  const int Xsf = xqf * (LANES / CI);
-  const int Xsc = xqc * (LANES / CO);
-  const long long n = static_cast<long long>(B) * Zcp * Ycp * Xsc;
-  downconv_q_kernel<T, CI, CO><<<blocks_for(n), THREADS, 0, stream>>>(
-      static_cast<const T*>(x), static_cast<const T*>(fmask),
-      static_cast<const int4*>(wq), ws, aff, amax, cin, static_cast<T*>(out),
-      static_cast<T*>(mout), B, Zcp, Ycp, Xsc, Zfp, Yfp, Xsf, tz, ty, nz,
-      ny);
-  return static_cast<int>(cudaGetLastError());
-}
-
-template <typename T>
-static int dispatch_downconv_q(int cpad, int cpad_out, const void* x,
-                               const void* fmask, const void* wq,
-                               const float* ws, const float* aff,
-                               const float* amax, int cin, void* out,
-                               void* mout, int B, int Zfp, int Yfp, int xqf,
-                               int xqc, int tz, int ty, int nz, int ny,
-                               cudaStream_t s) {
-  if (cpad == 8 && cpad_out == 8)
-    return launch_downconv_q<T, 8, 8>(x, fmask, wq, ws, aff, amax, cin, out,
-                                      mout, B, Zfp, Yfp, xqf, xqc, tz, ty,
-                                      nz, ny, s);
-  if (cpad == 8 && cpad_out == 16)
-    return launch_downconv_q<T, 8, 16>(x, fmask, wq, ws, aff, amax, cin, out,
-                                       mout, B, Zfp, Yfp, xqf, xqc, tz, ty,
-                                       nz, ny, s);
-  if (cpad == 16 && cpad_out == 16)
-    return launch_downconv_q<T, 16, 16>(x, fmask, wq, ws, aff, amax, cin,
-                                        out, mout, B, Zfp, Yfp, xqf, xqc, tz,
-                                        ty, nz, ny, s);
-  return static_cast<int>(cudaErrorInvalidValue);
-}
-
-template <typename T, int CI, int CO>
+template <typename T, int CI, int CO, bool QUANT>
 static int launch_downconv(const void* x, const void* fmask, const float* w,
-                           const float* aff, int cin, void* out,
-                           void* mout, int B, int Zfp, int Yfp, int xqf,
-                           int xqc, cudaStream_t stream) {
+                           const DownQ& qa, const float* aff, int cin,
+                           void* out, void* mout, int B, int Zfp, int Yfp,
+                           int xqf, int xqc, cudaStream_t stream) {
   const int Zcp = (Zfp - 2) / 2 + 2;
   const int Ycp = (Yfp - 2) / 2 + 2;
   const int Xsf = xqf * (LANES / CI);
   const int Xsc = xqc * (LANES / CO);
   const long long n = static_cast<long long>(B) * Zcp * Ycp * Xsc;
-  downconv_kernel<T, CI, CO><<<blocks_for(n), THREADS, 0, stream>>>(
-      static_cast<const T*>(x), static_cast<const T*>(fmask), w, aff,
+  auto kernel = QUANT ? downconv_q_kernel<T, CI, CO>
+                      : downconv_kernel<T, CI, CO>;
+  kernel<<<blocks_for(n), THREADS, 0, stream>>>(
+      static_cast<const T*>(x), static_cast<const T*>(fmask), w, qa, aff,
       cin, static_cast<T*>(out), static_cast<T*>(mout), B, Zcp, Ycp, Xsc,
       Zfp, Yfp, Xsf);
   return static_cast<int>(cudaGetLastError());
 }
 
-template <typename T>
+template <typename T, bool QUANT>
 static int dispatch_downconv(int cpad, int cpad_out, const void* x,
                              const void* fmask, const float* w,
-                             const float* aff, int cin, void* out,
-                             void* mout, int B, int Zfp, int Yfp, int xqf,
-                             int xqc, cudaStream_t s) {
+                             const DownQ& qa, const float* aff, int cin,
+                             void* out, void* mout, int B, int Zfp, int Yfp,
+                             int xqf, int xqc, cudaStream_t s) {
   if (cpad == 8 && cpad_out == 8)
-    return launch_downconv<T, 8, 8>(x, fmask, w, aff, cin, out, mout,
-                                    B, Zfp, Yfp, xqf, xqc, s);
+    return launch_downconv<T, 8, 8, QUANT>(x, fmask, w, qa, aff, cin, out,
+                                           mout, B, Zfp, Yfp, xqf, xqc, s);
   if (cpad == 8 && cpad_out == 16)
-    return launch_downconv<T, 8, 16>(x, fmask, w, aff, cin, out, mout,
-                                     B, Zfp, Yfp, xqf, xqc, s);
+    return launch_downconv<T, 8, 16, QUANT>(x, fmask, w, qa, aff, cin, out,
+                                            mout, B, Zfp, Yfp, xqf, xqc, s);
   if (cpad == 16 && cpad_out == 16)
-    return launch_downconv<T, 16, 16>(x, fmask, w, aff, cin, out, mout,
-                                      B, Zfp, Yfp, xqf, xqc, s);
+    return launch_downconv<T, 16, 16, QUANT>(x, fmask, w, qa, aff, cin,
+                                             out, mout, B, Zfp, Yfp, xqf,
+                                             xqc, s);
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
@@ -290,12 +270,13 @@ extern "C" int sgnn_downconv(const void* x, const void* fmask, const float* w,
                              int xqc, int cpad, int cpad_out, int bf16,
                              void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return bf16 ? dispatch_downconv<__nv_bfloat16>(cpad, cpad_out, x, fmask, w,
-                                                 aff, cin, out, mout, B,
-                                                 Zfp, Yfp, xqf, xqc, s)
-              : dispatch_downconv<float>(cpad, cpad_out, x, fmask, w, aff,
-                                         cin, out, mout, B, Zfp, Yfp,
-                                         xqf, xqc, s);
+  const DownQ none{};
+  return bf16 ? dispatch_downconv<__nv_bfloat16, false>(
+                    cpad, cpad_out, x, fmask, w, none, aff, cin, out, mout,
+                    B, Zfp, Yfp, xqf, xqc, s)
+              : dispatch_downconv<float, false>(cpad, cpad_out, x, fmask, w,
+                                                none, aff, cin, out, mout, B,
+                                                Zfp, Yfp, xqf, xqc, s);
 }
 
 // The int8 mode: wq int8 [8, 16, 16] (co, ci), ws [16], amax [B, nz, ny]
@@ -308,10 +289,12 @@ extern "C" int sgnn_downconv_q(const void* x, const void* fmask,
                                int cpad_out, int tz, int ty, int nz, int ny,
                                int bf16, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return bf16 ? dispatch_downconv_q<__nv_bfloat16>(
-                    cpad, cpad_out, x, fmask, wq, ws, aff, amax, cin, out,
-                    mout, B, Zfp, Yfp, xqf, xqc, tz, ty, nz, ny, s)
-              : dispatch_downconv_q<float>(cpad, cpad_out, x, fmask, wq, ws,
-                                           aff, amax, cin, out, mout, B, Zfp,
-                                           Yfp, xqf, xqc, tz, ty, nz, ny, s);
+  const DownQ qa{static_cast<const int4*>(wq), ws, amax, tz, ty, nz, ny};
+  return bf16 ? dispatch_downconv<__nv_bfloat16, true>(
+                    cpad, cpad_out, x, fmask, nullptr, qa, aff, cin, out,
+                    mout, B, Zfp, Yfp, xqf, xqc, s)
+              : dispatch_downconv<float, true>(cpad, cpad_out, x, fmask,
+                                               nullptr, qa, aff, cin, out,
+                                               mout, B, Zfp, Yfp, xqf, xqc,
+                                               s);
 }

@@ -52,16 +52,45 @@
 //   its occupancy gates from exactly these sums (PERF.md, Findings; K1
 //   keeps its order for the same reason). No tensor cores.
 //
-// K3q, the int8 mode (quantize=True, _kernel_upconv :868-923), keeps the
-// first port's design: one thread per fine voxel with all output channels
-// in registers (inactive voxels write zeros and stop). The fine voxel
-// reads its TPU tile's amax per group (tile (iz, iy) holds fine interior
-// rows [iz tz, (iz + 1) tz) x [iy ty, (iy + 1) ty); its window is the
-// coarse halo'd rows under them), quantizes each coarse tap's f32 input
-// on the fly, sums int8 products in int32 with __dp4a against int8
-// weights [G, 8 parity, 8 tap, co, ci], and dequantizes per group with
-// the scale of its fine x parity px, acc += f32(iacc) * (s * ws[g, px,
-// co]), before the fine mask.
+// K3q, the int8 mode. Replaces: the same fused_upconv_folded with
+// quantize=True, int8 body of _kernel_upconv (:868-923). Each coarse value
+// of group g is quantized, q = clip(rint(tf / s), -127, 127) with tf the f32
+// site input (the affine's value before any rounding to the compute type,
+// relu(x s + b) m_coarse, else x) and s the scale of the TPU tile that
+// holds the FINE output row (tile (iz, iy) holds fine interior rows
+// [iz tz, (iz + 1) tz) x [iy ty, (iy + 1) ty)); the int8 products sum
+// exactly in int32 and each group dequantizes as acc += f32(iacc) * (s *
+// ws[g, px, co]), px the fine x parity, before the fine mask. What bounds
+// it: the bytes, as K3; its 8 * G * cin * cout MACs per active fine voxel
+// are s8 products (1,979 TOP/s on the tensor cores).
+// Design: K3's bricks, skip, staging and parity-grouped rows, with the
+// int8 products on the tensor cores, as K1q (conv_site.cu) does in K1's.
+// - Skip and stage as K3: masked voxels and the ring written +0 at once, a
+//   brick with no active voxel ends at its one barrier, each group's coarse
+//   window staged by cp.async two buffers deep, but kept raw (no in-place
+//   affine: the int8 value comes from the f32 affine value, and rounding
+//   it to T first would move some values one step).
+// - Quantize once per staged value and distinct tile: tz is even, so a
+//   brick's 2 z rows lie in one z tile, but its 4 y rows can straddle two y
+//   tiles (always at ty = 2). For each group and each distinct tile among
+//   the brick's active rows, the staged window is quantized once into an
+//   int8 window (quantize_window, common.cuh); zero-filled x taps and
+//   masked coarse taps quantize to 0 and add exactly nothing.
+// - Sums on mma.sync m16n8k32 s8 x s8 -> s32. The rows are cut into MMA
+//   tiles of 16 rows of ONE parity (a parity's up to 32 rows make one or
+//   two tiles, a partial tile padded with rows that read slot 0 and are
+//   dropped; at most 16 tiles, two a warp), so a tile's B fragments are
+//   the int8 weights wq[g, parity] (k-contiguous per output channel, read
+//   through L1) and its ws row is one x parity's. A is 16 rows x 32 int8
+//   values, read from the int8 window as one 32-bit word a lane and row:
+//   at cpad 16 two taps of 16 bytes (4 k-steps over the 8 taps), at cpad 8
+//   four 8-byte taps (2 k-steps), each lane's word half of one tap (lanes
+//   tig 0-1 the first tap of the pair, 2-3 the second). Integer sums are
+//   exact in any order; each row keeps its own tile's sums.
+// - Epilogue: per row, in group order, acc += f32(iacc) * (s * ws) with
+//   every product and sum rounded on its own (from +0), times the fine
+//   mask, rounded once to T into shared memory, then out as 16-byte
+//   vectors: the plain version's values bit for bit.
 #include "common.cuh"
 
 namespace sgnn {
@@ -91,6 +120,78 @@ struct UpSmem {
   static constexpr int CNT = LIST + NV * 2;   // int [WARPS][2]
   static constexpr int BYTES = CNT + WARPS * 2 * 4;
 };
+
+// Fine voxel (b, z, y, x)'s mask: fmask's, or the coarse parent's when
+// fmask is null; 0 on the halo ring and outside the grid. A masked voxel
+// inside the grid is written +0 at once as 16-byte vectors, whatever its
+// brick does.
+template <typename T, int CPAD>
+__device__ __forceinline__ float fine_mask(const T* __restrict__ cmask,
+                                           const T* __restrict__ fmask,
+                                           T* __restrict__ out, int b, int z,
+                                           int y, int x, int Zfp, int Yfp,
+                                           int Xsf, int Zcp, int Ycp,
+                                           int Xsc) {
+  const bool inside = z >= 0 && z < Zfp && y >= 0 && y < Yfp && x < Xsf;
+  const bool ring = z == 0 || z == Zfp - 1 || y == 0 || y == Yfp - 1;
+  const long long idx = inside ? voxel_index(b, z, y, x, Zfp, Yfp, Xsf) : 0;
+  float m = 0.f;
+  if (inside && !ring) {
+    if (fmask != nullptr) {
+      m = to_f(fmask[idx * CPAD]);
+    } else {
+      const int cx = x >> 1;
+      m = cx < Xsc ? to_f(cmask[voxel_index(b, ((z - 1) >> 1) + 1,
+                                            ((y - 1) >> 1) + 1, cx, Zcp,
+                                            Ycp, Xsc) * CPAD])
+                   : 0.f;
+    }
+  }
+  if (inside && m == 0.f) store_zero<T, CPAD>(out + idx * CPAD);
+  return m;
+}
+
+// An active brick's masks, before a barrier: sm[v] each fine voxel's,
+// cnt[w][px] the active voxels of brick row w with x parity px; with an
+// affine aff ([G, 2, MAXC]) also sa = aff and hm[i] the coarse window's
+// mask (0 outside the grid), window origin (cz0, cy0, cx0).
+template <typename T, int CPAD>
+__device__ __forceinline__ void stage_up_masks(
+    float m, const T* __restrict__ cmask, const float* __restrict__ aff,
+    int G, int b, int cz0, int cy0, int cx0, int Zcp, int Ycp, int Xsc,
+    float* sm, int* cnt, float* sa, float* hm) {
+  const int tid = threadIdx.x;
+  sm[tid] = m;
+  const unsigned ball = __ballot_sync(0xffffffffu, m != 0.f);
+  if (tid % 32 < 2) {
+    cnt[tid / 32 * 2 + tid % 32] =
+        __popc(ball & (tid % 2 ? 0xaaaaaaaau : 0x55555555u));
+  }
+  if (aff != nullptr) {
+    for (int i = tid; i < G * 2 * MAXC; i += THREADS) sa[i] = aff[i];
+    for (int i = tid; i < NU; i += THREADS) {
+      const int cz = cz0 + i / (UY * UX), cy = cy0 + i / UX % UY,
+                cx = cx0 + i % UX;
+      hm[i] = cz >= 0 && cz < Zcp && cy >= 0 && cy < Ycp && cx >= 0 &&
+                      cx < Xsc
+                  ? to_f(cmask[voxel_index(b, cz, cy, cx, Zcp, Ycp, Xsc) *
+                               CPAD])
+                  : 0.f;
+    }
+  }
+}
+
+// staged window slot of the brick's fine voxel v (its coarse tap e = 0)
+__device__ __forceinline__ int window_slot(int v) {
+  const int vz = v / (BY * BX), vy = v / BX % BY, vx = v % BX;
+  return (vz * UY + (vy + 1) / 2) * UX + (vx + 1) / 2;
+}
+
+// offset between window slots of coarse taps e and 0, e = (ez * 2 + ey) *
+// 2 + ex
+__device__ __forceinline__ int window_tap(int e) {
+  return ((e >> 2) * UY + (e >> 1 & 1)) * UX + (e & 1);
+}
 
 // parity (pz, py, px) of the brick's fine voxel v, as (pz * 2 + py) * 2 + px
 __device__ __forceinline__ int parity_of(int v) {
@@ -135,26 +236,9 @@ __global__ void __launch_bounds__(THREADS, sizeof(T) == 2 ? 3 : 2)
   const int tid = threadIdx.x;
   const int b = blockIdx.z / nbz, kz = blockIdx.z % nbz, ky = blockIdx.y;
   const int zb = 2 * kz - 1, yb = 4 * ky - 1, x0 = blockIdx.x * BX;
-  // this thread's fine voxel: its mask (the coarse parent's when fmask is
-  // null; 0 on the halo ring); a masked voxel and the ring write +0 at once
-  const int z = zb + tid / (BY * BX), y = yb + tid / BX % BY,
-            x = x0 + tid % BX;
-  const bool inside = z >= 0 && z < Zfp && y >= 0 && y < Yfp && x < Xsf;
-  const bool ring = z == 0 || z == Zfp - 1 || y == 0 || y == Yfp - 1;
-  const long long idx = inside ? voxel_index(b, z, y, x, Zfp, Yfp, Xsf) : 0;
-  float m = 0.f;
-  if (inside && !ring) {
-    if (fmask != nullptr) {
-      m = to_f(fmask[idx * CPAD]);
-    } else {
-      const int cx = x >> 1;
-      m = cx < Xsc ? to_f(cmask[voxel_index(b, ((z - 1) >> 1) + 1,
-                                            ((y - 1) >> 1) + 1, cx, Zcp,
-                                            Ycp, Xsc) * CPAD])
-                   : 0.f;
-    }
-  }
-  if (inside && m == 0.f) store_zero<T, CPAD>(out + idx * CPAD);
+  const float m = fine_mask<T, CPAD>(
+      cmask, fmask, out, b, zb + tid / (BY * BX), yb + tid / BX % BY,
+      x0 + tid % BX, Zfp, Yfp, Xsf, Zcp, Ycp, Xsc);
   if (!__syncthreads_or(m != 0.f)) return;
 
   // an active brick: group 0's copies first, then the masks, affines and
@@ -169,24 +253,8 @@ __global__ void __launch_bounds__(THREADS, sizeof(T) == 2 ? 3 : 2)
   float* sa = reinterpret_cast<float*>(smem + S::AFF);
   unsigned short* list = reinterpret_cast<unsigned short*>(smem + S::LIST);
   int* cnt = reinterpret_cast<int*>(smem + S::CNT);
-  sm[tid] = m;
-  const unsigned ball = __ballot_sync(0xffffffffu, m != 0.f);
-  if (tid % 32 < 2) {
-    cnt[tid / 32 * 2 + tid % 32] =
-        __popc(ball & (tid % 2 ? 0xaaaaaaaau : 0x55555555u));
-  }
-  if (aff != nullptr) {
-    for (int i = tid; i < xs.n * 2 * MAXC; i += THREADS) sa[i] = aff[i];
-    for (int i = tid; i < NU; i += THREADS) {
-      const int cz = cz0 + i / (UY * UX), cy = cy0 + i / UX % UY,
-                cx = cx0 + i % UX;
-      hm[i] = cz >= 0 && cz < Zcp && cy >= 0 && cy < Ycp && cx >= 0 &&
-                      cx < Xsc
-                  ? to_f(cmask[voxel_index(b, cz, cy, cx, Zcp, Ycp, Xsc) *
-                               CPAD])
-                  : 0.f;
-    }
-  }
+  stage_up_masks<T, CPAD>(m, cmask, aff, xs.n, b, cz0, cy0, cx0, Zcp, Ycp,
+                          Xsc, sm, cnt, sa, hm);
   __syncthreads();
   const int rows = list_by_parity(m != 0.f, cnt, list);
 
@@ -226,11 +294,9 @@ __global__ void __launch_bounds__(THREADS, sizeof(T) == 2 ? 3 : 2)
       for (int j = 0; j < NP; ++j) {
         const int r = j * RPP + tid / TPV;
         if (r < rows) {
-          const int v = list[r];
-          const int vz = v / (BY * BX), vy = v / BX % BY, vx = v % BX;
-          vr[j] = v;
-          par[j] = parity_of(v);
-          s0[j] = (vz * UY + (vy + 1) / 2) * UX + (vx + 1) / 2;
+          vr[j] = list[r];
+          par[j] = parity_of(vr[j]);
+          s0[j] = window_slot(vr[j]);
         }
       }
     }
@@ -244,8 +310,7 @@ __global__ void __launch_bounds__(THREADS, sizeof(T) == 2 ? 3 : 2)
       const float* wg = w + ((g * 8 + par[j]) * 8) * MAXC * MAXC + co0;
 #pragma unroll 1
       for (int e = 0; e < 8; ++e) {  // e = (ez * 2 + ey) * 2 + ex
-        const int slot =
-            s0[j] + ((e >> 2) * UY + (e >> 1 & 1)) * UX + (e & 1);
+        const int slot = s0[j] + window_tap(e);
         if (aff != nullptr && hm[slot] == 0.f) continue;
         // the tap's weights of this thread's CPT channels, all loads in
         // flight before the first FMA
@@ -298,78 +363,251 @@ __global__ void __launch_bounds__(THREADS, sizeof(T) == 2 ? 3 : 2)
   }
 }
 
+// Shared memory of a K3q block, byte offsets.
 template <typename T, int CPAD>
-__global__ void __launch_bounds__(THREADS)
+struct UpQSmem {
+  static constexpr int SLOT = CPAD * static_cast<int>(sizeof(T));
+  static constexpr int BUF = NU * SLOT;       // a staged group's window
+  static constexpr int NT = CPAD / 8;         // 8-wide N tiles
+  static constexpr int IN = 0;   // group g in buffer g % 2; then the outputs
+  static constexpr int Q = IN + 2 * BUF;      // int8 [NU][CPAD]
+  static constexpr int HM = Q + NU * CPAD;    // float [NU] coarse mask
+  static constexpr int M = HM + NU * 4;       // float [NV] fine mask
+  static constexpr int AFF = M + NV * 4;      // float [G][2][MAXC]
+  static constexpr int LIST = AFF + MAXG * 2 * MAXC * 4;  // ushort [NV]
+  static constexpr int CNT = LIST + NV * 2;   // int [WARPS][2]
+  static constexpr int KEY = CNT + WARPS * 2 * 4;  // int [WARPS]
+  static constexpr int BYTES = KEY + WARPS * 4;
+  static_assert(NV * SLOT <= 2 * BUF, "the outputs fit the two buffers");
+  static_assert(BYTES <= 48 * 1024, "no opt-in shared memory needed");
+};
+
+// MMA tile t of a brick's parity-grouped rows (list_by_parity's order,
+// cnt as it counts): parity p's rows make tiles of 16, the last one
+// partial. Sets (parity, first row, rows) of tile t; parity -1 when the
+// brick has fewer tiles.
+__device__ __forceinline__ void parity_tile(int t, const int* cnt, int& par,
+                                            int& r0, int& n) {
+  par = -1;
+  r0 = n = 0;
+  int first = 0, off = 0;
+#pragma unroll
+  for (int p = 0; p < 8; ++p) {
+    const int w0 = (p >> 2) * BY + (p >> 1 & 1), px = p & 1;
+    const int np = cnt[w0 * 2 + px] + cnt[(w0 + 2) * 2 + px];
+    const int nt = (np + 15) / 16;
+    if (par < 0 && t < first + nt) {
+      par = p;
+      r0 = off + 16 * (t - first);
+      n = min(16, np - 16 * (t - first));
+    }
+    first += nt;
+    off += np;
+  }
+}
+
+// int8 products of one MMA tile (this lane's rows gid and gid + 8 at
+// window slots s0, s1) with one (group, parity)'s int8 weights wp [8 tap,
+// co, ci] over the int8 window q: ia[nt] = the C fragment of N tile nt.
+// k = 32 j + 16 h + 4 tig .. + 3 is tap TPK j + k / CPAD, channels
+// k % CPAD ..: a lane's A word of a row is one 32-bit load (at cpad 8 half
+// of an 8-byte tap).
+template <int CPAD>
+__device__ __forceinline__ void mma_tile_s8(const unsigned char* q, int s0,
+                                            int s1,
+                                            const int* __restrict__ wp,
+                                            int (*ia)[4]) {
+  constexpr int TPK = 32 / CPAD, KSTEPS = 8 / TPK, NT = CPAD / 8;
+  const int lane = threadIdx.x % 32, gid = lane / 4, tig = lane % 4;
+#pragma unroll
+  for (int nt = 0; nt < NT; ++nt)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) ia[nt][e] = 0;
+#pragma unroll
+  for (int j = 0; j < KSTEPS; ++j) {
+    unsigned a[4], b[NT][2];
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int k = 16 * h + 4 * tig;
+      const int tap = TPK * j + k / CPAD, ci = k % CPAD;
+      const int off = window_tap(tap) * CPAD + ci;
+      a[2 * h] = *reinterpret_cast<const unsigned*>(q + s0 * CPAD + off);
+      a[2 * h + 1] = *reinterpret_cast<const unsigned*>(q + s1 * CPAD + off);
+#pragma unroll
+      for (int nt = 0; nt < NT; ++nt)
+        b[nt][h] = static_cast<unsigned>(
+            __ldg(wp + ((tap * MAXC + nt * 8 + gid) * MAXC + ci) / 4));
+    }
+#pragma unroll
+    for (int nt = 0; nt < NT; ++nt) mma_s8(ia[nt], a, b[nt]);
+  }
+}
+
+// bf16: 3 blocks of 256 threads an SM, f32 2, as K3 (shared memory at
+// cpad 16: ~20 KB bf16, ~34 KB f32)
+template <typename T, int CPAD>
+__global__ void __launch_bounds__(THREADS, sizeof(T) == 2 ? 3 : 2)
     upconv_q_kernel(Groups xs, const T* __restrict__ cmask,
                     const T* __restrict__ fmask,  // null: expand cmask
-                    const int4* __restrict__ wq,  // [G, 8, 8, MAXC] x 16
+                    const int* __restrict__ wq,   // int8 [G, 8, 8, co, ci]
                     const float* __restrict__ ws,   // [G, 2, MAXC]
                     const float* __restrict__ aff,  // [G, 2, MAXC] or null
                     const float* __restrict__ amax,  // [B, nz, ny, G]
-                    T* __restrict__ out, int B, int Zfp, int Yfp, int Xsf,
-                    int Zcp, int Ycp, int Xsc, int tz, int ty, int nz,
+                    T* __restrict__ out, int Zfp, int Yfp, int Xsf, int Zcp,
+                    int Ycp, int Xsc, int nbz, int tz, int ty, int nz,
                     int ny) {
-  const long long idx =
-      static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
-  if (idx >= static_cast<long long>(B) * Zfp * Yfp * Xsf) return;
-  const Voxel v = decode(idx, Zfp, Yfp, Xsf);
-  T* o = out + idx * CPAD;
-  if (v.z == 0 || v.z == Zfp - 1 || v.y == 0 || v.y == Yfp - 1) {
-    store_zero<T, CPAD>(o);
-    return;
+  using S = UpQSmem<T, CPAD>;
+  constexpr int NT = S::NT;
+  extern __shared__ __align__(16) unsigned char smem[];
+  const int tid = threadIdx.x, lane = tid % 32, warp = tid / 32;
+  const int gid = lane / 4, tig = lane % 4;
+  const int b = blockIdx.z / nbz, kz = blockIdx.z % nbz, ky = blockIdx.y;
+  const int zb = 2 * kz - 1, yb = 4 * ky - 1, x0 = blockIdx.x * BX;
+  const float m = fine_mask<T, CPAD>(
+      cmask, fmask, out, b, zb + tid / (BY * BX), yb + tid / BX % BY,
+      x0 + tid % BX, Zfp, Yfp, Xsf, Zcp, Ycp, Xsc);
+  if (!__syncthreads_or(m != 0.f)) return;
+
+  // an active brick: group 0's copies first, then the masks, affines, each
+  // brick row's TPU tile (key iz * ny + iy; -1 for a row with no active
+  // voxel, as every ring row) and the row list
+  const int cz0 = kz - 1, cy0 = 2 * ky - 1, cx0 = x0 / 2 - 1;
+  unsigned char* bufs[2] = {smem + S::IN, smem + S::IN + S::BUF};
+  unsigned char* qw = smem + S::Q;
+  copy_window<T, CPAD, UZ, UY, UX>(smem_addr(bufs[0]),
+                                   static_cast<const T*>(xs.p[0]), b, cz0,
+                                   cy0, cx0, Zcp, Ycp, Xsc);
+  float* hm = reinterpret_cast<float*>(smem + S::HM);
+  float* sm = reinterpret_cast<float*>(smem + S::M);
+  float* sa = reinterpret_cast<float*>(smem + S::AFF);
+  unsigned short* list = reinterpret_cast<unsigned short*>(smem + S::LIST);
+  int* cnt = reinterpret_cast<int*>(smem + S::CNT);
+  int* key = reinterpret_cast<int*>(smem + S::KEY);
+  stage_up_masks<T, CPAD>(m, cmask, aff, xs.n, b, cz0, cy0, cx0, Zcp, Ycp,
+                          Xsc, sm, cnt, sa, hm);
+  {
+    const bool row_active = __any_sync(0xffffffffu, m != 0.f);
+    const int z = zb + warp / BY, y = yb + warp % BY;
+    if (lane == 0)
+      key[warp] = row_active ? (z - 1) / tz * ny + (y - 1) / ty : -1;
   }
-  const int qz = v.z - 1, qy = v.y - 1;  // fine interior coordinates
-  float m;
-  if (fmask != nullptr) {
-    m = to_f(fmask[idx * CPAD]);
-  } else {
-    const int cx = v.x >> 1;
-    m = cx < Xsc ? to_f(cmask[voxel_index(v.b, (qz >> 1) + 1, (qy >> 1) + 1,
-                                          cx, Zcp, Ycp, Xsc) * CPAD])
-                 : 0.f;
-  }
-  if (m == 0.f) {
-    store_zero<T, CPAD>(o);
-    return;
-  }
-  const int pz = qz & 1, py = qy & 1, px = v.x & 1;
-  const int par = (pz * 2 + py) * 2 + px;
-  const float* am = amax + ((static_cast<long long>(v.b) * nz + qz / tz) *
-                                ny + qy / ty) * xs.n;
-  float acc[CPAD];
+  __syncthreads();
+  const int rows = list_by_parity(m != 0.f, cnt, list);
+
+  // warp w takes MMA tiles w and w + WARPS; this lane holds rows gid and
+  // gid + 8 of each (its A rows and C rows): list row lr (-1: padding),
+  // window slot, tile key
+  int par[2], lr[2][2], slot[2][2], rkey[2][2];
+  float acc[2][NT][4];
 #pragma unroll
-  for (int c = 0; c < CPAD; ++c) acc[c] = 0.f;
+  for (int j = 0; j < 2; ++j) {
+#pragma unroll
+    for (int nt = 0; nt < NT; ++nt)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[j][nt][e] = 0.f;
+  }
   for (int g = 0; g < xs.n; ++g) {
-    const T* __restrict__ xg = static_cast<const T*>(xs.p[g]);
     const int cin = xs.cin[g];
-    const float* sc = aff != nullptr ? aff + g * 2 * MAXC : nullptr;
-    const float s = tile_scale(am[g]);
-    const float inv = 1.0f / s;
-    int iacc[CPAD];
-#pragma unroll
-    for (int c = 0; c < CPAD; ++c) iacc[c] = 0;
-    for (int e = 0; e < 8; ++e) {  // e = (ez * 2 + ey) * 2 + ex
-      const int ez = e >> 2, ey = (e >> 1) & 1, ex = e & 1;
-      const int cx = (v.x >> 1) + px - 1 + ex;
-      if (cx < 0 || cx >= Xsc) continue;
-      const long long nv = voxel_index(v.b, (qz >> 1) + pz + ez,
-                                       (qy >> 1) + py + ey, cx, Zcp, Ycp,
-                                       Xsc) * CPAD;
-      float mi = 1.f;
-      if (sc != nullptr) {
-        mi = to_f(cmask[nv]);
-        if (mi == 0.f) continue;
-      }
-      int words[CPAD / 4];
-      if (!quantize_voxel<T, CPAD>(xg + nv, cin, sc, mi, inv, words))
-        continue;
-      dp4a_voxel<CPAD, CPAD>(iacc, words,
-                             wq + ((g * 8 + par) * 8 + e) * MAXC);
+    const unsigned char* buf = bufs[g % 2];
+    if (g + 1 < xs.n) {
+      copy_window<T, CPAD, UZ, UY, UX>(
+          smem_addr(bufs[(g + 1) % 2]), static_cast<const T*>(xs.p[g + 1]),
+          b, cz0, cy0, cx0, Zcp, Ycp, Xsc);
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
     }
-    dequant_add<CPAD>(acc, iacc, s, ws + (g * 2 + px) * MAXC);
-  }
+    __syncthreads();
+    if (g == 0) {  // the list is visible from here on
 #pragma unroll
-  for (int c = 0; c < CPAD; ++c) o[c] = from_f<T>(acc[c] * m);
+      for (int j = 0; j < 2; ++j) {
+        int r0, n;
+        parity_tile(warp + j * WARPS, cnt, par[j], r0, n);
+#pragma unroll
+        for (int hi = 0; hi < 2; ++hi) {
+          const int i = gid + 8 * hi;
+          const bool ok = i < n;
+          const int v = ok ? list[r0 + i] : 0;
+          lr[j][hi] = ok ? r0 + i : -1;
+          slot[j][hi] = ok ? window_slot(v) : 0;
+          rkey[j][hi] = ok ? key[v / BX] : -1;
+        }
+      }
+    }
+    const float* sag = aff != nullptr ? sa + g * 2 * MAXC : nullptr;
+    // one pass per distinct tile among the brick rows, in row order
+    for (int wr = 0; wr < WARPS; ++wr) {
+      const int k = key[wr];
+      bool seen = k < 0;
+      for (int p = 0; p < wr; ++p) seen = seen || key[p] == k;
+      if (seen) continue;
+      const float s = tile_scale(
+          amax[(static_cast<long long>(b) * nz * ny + k) * xs.n + g]);
+      quantize_window<T, CPAD, NU>(buf, qw, cin, sag, hm, 1.0f / s);
+      __syncthreads();
+#pragma unroll
+      for (int j = 0; j < 2; ++j) {
+        const bool mine = rkey[j][0] == k || rkey[j][1] == k;
+        if (!__any_sync(0xffffffffu, mine)) continue;
+        const int* wp = wq + (g * 8 + par[j]) * 8 * MAXC * MAXC / 4;
+        const float* wsg = ws + (g * 2 + (par[j] & 1)) * MAXC;
+        int ia[NT][4];
+        mma_tile_s8<CPAD>(qw, slot[j][0], slot[j][1], wp, ia);
+#pragma unroll
+        for (int nt = 0; nt < NT; ++nt) {
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            if (rkey[j][e / 2] != k) continue;
+            const int co = nt * 8 + 2 * tig + e % 2;
+            acc[j][nt][e] = __fadd_rn(
+                acc[j][nt][e],
+                __fmul_rn(static_cast<float>(ia[nt][e]),
+                          __fmul_rn(s, __ldg(wsg + co))));
+          }
+        }
+      }
+      __syncthreads();  // before the int8 window or a buffer is rewritten
+    }
+  }
+
+  // the active voxels' outputs: round(acc m) into the buffers by list row,
+  // then each list row's voxel out as 16-byte vectors
+  T* ot = reinterpret_cast<T*>(smem + S::IN);
+#pragma unroll
+  for (int j = 0; j < 2; ++j) {
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int r = lr[j][e / 2];
+      if (r < 0) continue;
+      const float mv = sm[list[r]];
+#pragma unroll
+      for (int nt = 0; nt < NT; ++nt)
+        ot[r * CPAD + nt * 8 + 2 * tig + e % 2] =
+            from_f<T>(__fmul_rn(acc[j][nt][e], mv));
+    }
+  }
+  __syncthreads();
+  if (tid < rows) {
+    const int v = list[tid];
+    uint4* o = reinterpret_cast<uint4*>(
+        out + voxel_index(b, zb + v / (BY * BX), yb + v / BX % BY,
+                          x0 + v % BX, Zfp, Yfp, Xsf) * CPAD);
+    const uint4* src = reinterpret_cast<const uint4*>(ot + tid * CPAD);
+#pragma unroll
+    for (int c = 0; c < S::SLOT / 16; ++c) o[c] = src[c];
+  }
+}
+
+// bricks over padded fine rows -1 .. Zfp - 1 and -1 .. Yfp - 1 (the ring
+// too); false when the grid is too tall for the launch
+static bool fine_bricks(int B, int Zfp, int Yfp, int Xsf, dim3& grid,
+                        int& nbz) {
+  nbz = (Zfp + 1 + BZ - 1) / BZ;
+  const int nby = (Yfp + 1 + BY - 1) / BY;
+  const long long nz = static_cast<long long>(B) * nbz;
+  if (nz > 65535 || nby > 65535) return false;
+  grid = dim3((Xsf + BX - 1) / BX, nby, static_cast<unsigned>(nz));
+  return true;
 }
 
 template <typename T, int CPAD>
@@ -383,11 +621,15 @@ static int launch_upconv_q(const Groups& g, const void* cmask,
   const int Zfp = 2 * (Zcp - 2) + 2;
   const int Yfp = 2 * (Ycp - 2) + 2;
   const int Xsf = xqf * F;
-  const long long n = static_cast<long long>(B) * Zfp * Yfp * Xsf;
-  upconv_q_kernel<T, CPAD><<<blocks_for(n), THREADS, 0, stream>>>(
-      g, static_cast<const T*>(cmask), static_cast<const T*>(fmask),
-      static_cast<const int4*>(wq), ws, aff, amax, static_cast<T*>(out), B,
-      Zfp, Yfp, Xsf, Zcp, Ycp, xqc * F, tz, ty, nz, ny);
+  dim3 grid;
+  int nbz;
+  if (!fine_bricks(B, Zfp, Yfp, Xsf, grid, nbz))
+    return static_cast<int>(cudaErrorInvalidValue);
+  upconv_q_kernel<T, CPAD>
+      <<<grid, THREADS, UpQSmem<T, CPAD>::BYTES, stream>>>(
+          g, static_cast<const T*>(cmask), static_cast<const T*>(fmask),
+          static_cast<const int*>(wq), ws, aff, amax, static_cast<T*>(out),
+          Zfp, Yfp, Xsf, Zcp, Ycp, xqc * F, nbz, tz, ty, nz, ny);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -400,14 +642,10 @@ static int launch_upconv(const Groups& g, const void* cmask,
   const int Zfp = 2 * (Zcp - 2) + 2;
   const int Yfp = 2 * (Ycp - 2) + 2;
   const int Xsf = xqf * F;
-  // bricks over padded fine rows -1 .. Zfp - 1 and -1 .. Yfp - 1 (the
-  // ring too)
-  const int nbz = (Zfp + 1 + BZ - 1) / BZ, nby = (Yfp + 1 + BY - 1) / BY;
-  const long long nz = static_cast<long long>(B) * nbz;
-  if (nz > 65535 || nby > 65535) {
+  dim3 grid;
+  int nbz;
+  if (!fine_bricks(B, Zfp, Yfp, Xsf, grid, nbz))
     return static_cast<int>(cudaErrorInvalidValue);
-  }
-  const dim3 grid((Xsf + BX - 1) / BX, nby, static_cast<unsigned>(nz));
   upconv_kernel<T, CPAD><<<grid, THREADS, UpSmem<T, CPAD>::BYTES, stream>>>(
       g, static_cast<const T*>(cmask), static_cast<const T*>(fmask), w, aff,
       static_cast<T*>(out), Zfp, Yfp, Xsf, Zcp, Ycp, xqc * F, nbz);

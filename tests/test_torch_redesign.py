@@ -1,7 +1,7 @@
-"""The plain versions of K1, K2, K3, K8 and tile_amax against JAX at the
-edges of their Hopper designs (K1 runs in output bricks of 2 x 4 x 32
-voxels of the halo'd grid, skipping bricks whose mask is empty; K2 one
-thread per coarse voxel; K3 in fine output bricks of 2 x 4 x 32 voxels
+"""The plain versions of K1, K2, K3, K8, tile_amax, K2q and K3q against
+JAX at the edges of their Hopper designs (K1 runs in output bricks of 2 x
+4 x 32 voxels of the halo'd grid, skipping bricks whose mask is empty; K2
+one thread per coarse voxel; K3 in fine output bricks of 2 x 4 x 32 voxels
 over the padded fine grid, its halo ring included, reading a coarse window
 per group; K8 in persistent blocks over output bricks of the unpadded
 channels-last grid, zeros outside the volume; tile_amax reads a group only
@@ -23,7 +23,11 @@ masks and zero halo rings bit-equal. tile_amax_plain is held to the JAX
 int8 conv body's own per-tile amax (conv3d_folded.py:421), read from its
 interpreted Pallas kernel: bit-equal without the affine; with it, to 4 f32
 ulps, because XLA:CPU fuses t * a + b into one FMA where the port rounds
-twice (tests/test_torch_int8.py).
+twice (tests/test_torch_int8.py). K3q (K3's bricks, one scale per brick
+row) and K2q (K2's pass, one scale per coarse voxel) are held to the JAX
+int8 sites (quantize=True) where the TPU tiles change inside a brick or
+from one coarse row to the next, with the tolerance of
+tests/test_torch_int8.py.
 """
 
 import functools
@@ -354,6 +358,120 @@ def test_tile_amax_plain_matches_jax(monkeypatch, cpad, widths, affine,
         assert sorted(zip(wz, wy)) == [(0, 0), (0, 1), (1, 0), (1, 1)]
     else:
         assert held.all()
+
+
+def _interpret_tpu(monkeypatch, interpret_pallas):
+    """The JAX int8 sites' Pallas kernels in the TPU interpreter
+    (pltpu.InterpretParams: the same results as interpret=True, faster)."""
+    import jax.experimental.pallas.tpu as pltpu
+
+    import sgnn_tpu.ops.pallas.conv3d_folded as PC
+
+    monkeypatch.setattr(PC.pl, "pallas_call", lambda *a, **k: (
+        interpret_pallas(*a, **{**k, "interpret": pltpu.InterpretParams()})))
+
+
+def _straddles(t, Yf):
+    """Whether a TPU y-tile boundary falls inside the 4 y rows of a fine
+    brick (interior rows 4 ky - 2 .. 4 ky + 1), so that rows of one brick
+    take two scales."""
+    return any(4 * ky - 2 < k * t.ty <= 4 * ky + 1
+               for ky in range(Yf // 4 + 2) for k in range(1, t.ny))
+
+
+@pytest.mark.parametrize("cpad,widths,affine,given,kind,cdims,tiles", [
+    (16, [16], True, False, "random", (1, 5, 9), (2, 2)),
+    (16, [16, 5, 8, 2], True, True, "dense", (1, 3, 9), (2, 2)),
+    (8, [5], False, True, "empty", (2, 5, 9), (4, 2)),
+    (8, [8, 3], False, False, "random", (1, 9, 9), (2, 6)),
+])
+def test_upconv_q_edges(monkeypatch, interpret_pallas, cpad, widths, affine,
+                        given, kind, cdims, tiles):
+    """K3q's plain version against JAX's upconv_fused(quantize=True) where
+    the Hopper K3q's design has edges: fine TPU tiles of 2 or 6 y rows,
+    which straddle its bricks' 4 y rows (a brick's rows take two scales;
+    the picker's (tz, ty) asserted); 1-4 groups with widths below cpad,
+    cpad 8 and 16, with and without the affine, the fine mask given and
+    expanded, random, dense and empty masks; coarse X 9, so the fine grid
+    has an x tail (8 of 16 x blocks) whose last real slot is odd. f32;
+    tolerance as tests/test_torch_int8.py (one activation step at most,
+    1e-5 on >= 99.9% of the values)."""
+    from test_torch_int8 import _assert_close, _step
+
+    _interpret_tpu(monkeypatch, interpret_pallas)
+    rng = np.random.RandomState(sum(widths) + 5 * cpad + given)
+    fdims = tuple(2 * d for d in cdims)
+    m, cfm = _mask(rng, cdims, cpad, kind)
+    ffm = _mask(rng, fdims, cpad, kind)[1] if given else None
+    groups = [_grid(rng, cdims, c, cpad, m if affine else None)
+              for c in widths]
+    cout = cpad
+    w27 = (0.2 * rng.randn(27, sum(widths), cout)).astype(np.float32)
+    bn = _bn(rng, sum(widths)) if affine else (None, None)
+    want = JFO.upconv_fused([_j(g) for g in groups], _j(cfm),
+                            _j(ffm) if given else None, jnp.asarray(w27),
+                            cout, bn_params=bn[0], bn_stats=bn[1],
+                            quantize=True)
+    aff = _aff(bn, widths, cpad) if affine else None
+    wq, ws = Q.quantize_upconv_weights(
+        FO.prep_upconv_weights(w27, widths, F32))
+    got = FO.upconv_fused(groups, cfm, ffm, wq, cout, aff=aff, quantize=True,
+                          ws=ws)
+    xqf = got.data.shape[3]
+    assert xqf < 2 * cfm.data.shape[3] and got.dims == want.dims
+    t = Q.upconv_tiles(cfm.data, xqf, len(widths))
+    assert (t.tz, t.ty) == tiles
+    assert _straddles(t, fdims[1])
+    if kind == "empty":
+        assert not got.data.any() and not np.asarray(want.data).any()
+        return
+    s = Q.tile_scales_plain([g.data for g in groups], cfm.data, aff, cpad, t)
+    _assert_close(got.data, want.data, _step(s, ws))
+
+
+@pytest.mark.parametrize("cpad,cpad_out,cin,affine,kind,fdims,tiles", [
+    (8, 16, 8, False, "random", (2, 10, 20), (1, 1)),  # cross mode
+    (16, None, 12, True, "dense", (2, 6, 20), (1, 3)),
+    (8, None, 5, True, "empty", (4, 6, 40), (2, 3)),
+])
+def test_downconv_q_edges(monkeypatch, interpret_pallas, cpad, cpad_out, cin,
+                          affine, kind, fdims, tiles):
+    """K2q's plain version against JAX's downconv_fused(quantize=True) where
+    the Hopper K2q's design (K2's, one thread per coarse voxel) has edges:
+    coarse TPU tiles of one row (coarse Y 5), so the tile changes from one
+    coarse row to the next; cross mode (cpad 8 -> 16) and same-cpad modes,
+    cin below cpad, with and without the affine, random, dense and empty
+    masks. f32; tolerance as tests/test_torch_int8.py; the coarse mask bit
+    for bit."""
+    from test_torch_int8 import _assert_close, _step
+
+    from sgnn_tpu_torch.ops.kernels import downconv as K_down
+
+    _interpret_tpu(monkeypatch, interpret_pallas)
+    rng = np.random.RandomState(cin + cpad + 7)
+    m, fm = _mask(rng, fdims, cpad, kind)
+    fg = _grid(rng, fdims, cin, cpad, m if affine else None)
+    cout = cpad_out or cpad
+    w8 = (0.3 * rng.randn(8, cin, cout)).astype(np.float32)
+    bn = _bn(rng, cin) if affine else (None, None)
+    jout, jm = JFO.downconv_fused(_j(fg), _j(fm), jnp.asarray(w8), cout,
+                                  bn_params=bn[0], bn_stats=bn[1],
+                                  cpad_out=cpad_out, quantize=True)
+    aff = _aff(bn, [cin], cpad)[0] if affine else None
+    wq, ws = Q.quantize_downconv_weights(
+        FO.prep_downconv_weights(w8, cin, F32))
+    xqc = K_down.coarse_xq(fg.data.shape[3], cpad, cout)
+    t = Q.downconv_tiles(fg.data, xqc)
+    assert (t.tz, t.ty) == tiles
+    out, mo = FO.downconv_fused(fg, fm, wq, cout, aff=aff, cpad_out=cpad_out,
+                                quantize=True, ws=ws)
+    np.testing.assert_array_equal(mo.data.numpy(), np.asarray(jm.data))
+    if kind == "empty":
+        assert not out.data.any() and not np.asarray(jout.data).any()
+        return
+    s = Q.tile_scales_plain([fg.data], fm.data,
+                            aff[None] if affine else None, cpad, t)
+    _assert_close(out.data, jout.data, _step(s, ws))
 
 
 def test_conv_site_entry_point():
