@@ -31,7 +31,13 @@ where every phase passed prints the two JSON lines at the end):
    channels staged in several units and weights in windows, two column
    groups) and tile_amax at its (empty, full and one-voxel masks in rows
    that two or four windows hold, 1-4 groups, cpad 8 and 16, with and
-   without the affine);
+   without the affine); K4 at its (a thread per 16-byte output chunk,
+   warps over grid rows: gate with and without the raw grid, mask_scale 1
+   and 2 with 2 xqm == xq and an odd xq, summed over 1 and 4 groups of
+   widths 1 and 5 < cpad, cpad 8 and 16, batch 2, Y != X, x-tail slots,
+   all-zero, all-ones and -0 masks). Bounds count an input group only in
+   the 32-byte sectors of the voxels its function reads, a mask read at
+   every voxel and every output in full;
 4. forward: the full-width model (L=4, nf 16, bf16, seeded random
    weights) answers three synthetic sphere scenes through
    sgnn_tpu_torch.infer.SceneInferencer; every kernel of that path must
@@ -772,9 +778,16 @@ class KernelChecks:
                                           impl=impl)
                 return tuple(o.data for o in outs)
             return call
+        # the input only at the fine voxels of active coarse ones, the
+        # coarse mask in full (read at every fine voxel)
+        act_up = _voxels(cfm)
+        for ax in (1, 2, 3):
+            act_up = act_up.repeat_interleave(2, ax)
+
         def gate_work(dt):
-            return (_nbytes(cast(upg, dt).data, cast(cfm, dt).data, wh, bh,
-                            affh), 2 * 16 * 2 * 8 * _active(cfm.data, 16))
+            return (_grid_bytes([upg], dt, act_up) + _grid_bytes([cfm], dt)
+                    + _nbytes(wh, bh, affh),
+                    2 * 16 * 2 * 8 * _active(cfm.data, 16))
         self.run("head_gate", "mask_scale 2", gate, [0, 1], gate_cpad=16,
                  work=gate_work)
 
@@ -790,8 +803,10 @@ class KernelChecks:
             return lambda impl: (FO.surf_head_fused(
                 grp, m, ws, bs, affs, impl=impl).data,)
         def surf_work(dt):
-            ins = [cast(g, dt).data for g in (g16[0], res16, upg, fm16)]
-            return _nbytes(*ins, ws, bs, affs), 2 * 48 * n16
+            # the groups only at active voxels, the mask in full
+            return (_grid_bytes([g16[0], res16, upg], dt, act16)
+                    + _grid_bytes([fm16], dt) + _nbytes(ws, bs, affs),
+                    2 * 48 * n16)
         self.run("head_sum", "G3", surf, [0], work=surf_work)
 
         # K5 at the serving shapes: groups at scales 1/2/4 (the surface
@@ -823,9 +838,17 @@ class KernelChecks:
                     grp, [1, 2, 4], m.data, ws, bs, affs, [16] * 3, 16,
                     dims, impl=impl),)
             def surf_ms_work(dt, packed=packed, fm=fm):
-                ins = [cast(g, dt).data for g in (*packed, fm)]
-                return _nbytes(*ins, ws, bs, affs), 2 * 48 * _active(
-                    fm.data, 16)
+                # group s only at the coarse voxels that cover an active
+                # fine one, the fine mask in full
+                from torch.nn import functional as nnf
+
+                act = _voxels(fm)
+                need = [act] + [nnf.max_pool3d(act[:, None].float(), s, s)[
+                    :, 0] > 0 for s in (2, 4)]
+                return (sum(_grid_bytes([g], dt, n)
+                            for g, n in zip(packed, need))
+                        + _grid_bytes([fm], dt) + _nbytes(ws, bs, affs),
+                        2 * 48 * _active(fm.data, 16))
             self.run("surf_head", f"{label} G3 scales 1/2/4", surf_ms, [0],
                      dense=True, work=surf_ms_work)
 
@@ -1679,6 +1702,110 @@ class KernelChecks:
             self.run("upconv", label, up, [0],
                      exact=kind == "empty")
 
+    def k4_edge_cases(self):
+        """K4 where its Hopper design has edges (a thread per 16-byte output
+        chunk, 2-4 threads a voxel, warps over rows (b, z, y), ring rows
+        written zero, UNROLL chunks a thread at a time): gate with and
+        without the raw output, mask_scale 1 and 2 (2 x xqm == xq, and an
+        odd xq = 2 x xqm - 1), summed over 1 and 4 groups of widths 1 and 5
+        < cpad; cpad 8 and 16, batch 2, Y != X, x slots past the real X (x
+        blocks cut from the folded 8-block multiple), all-zero and all-ones
+        masks and a mask holding -0 (an inactive voxel: the kernel tests
+        values, not bits). Each in f32 and bf16."""
+        from sgnn_tpu_torch.ops.kernels import head as K_head
+
+        FO = self.FO
+        B = 2
+
+        def folded(t, cpad, xq):
+            return FO.fold(t, cpad).data[:, :, :, :xq].contiguous()
+
+        def mask_of(dims, kind, seed):
+            if kind == "zero":
+                return torch.zeros(B, *dims, dtype=torch.bool)
+            if kind == "ones":
+                return torch.ones(B, *dims, dtype=torch.bool)
+            return torch.rand(B, *dims, generator=torch.Generator()
+                              .manual_seed(seed)) < 0.3
+
+        def mask_grid(m, cpad, xq, neg_zero=False):
+            g = folded(m.to(self.dev, torch.float32)[..., None]
+                       .expand(*m.shape, cpad), cpad, xq)
+            if neg_zero:  # every other voxel's 0 as -0
+                s = _slots(g, cpad)[..., ::2, :]
+                s[s == 0] = -0.0
+            return g
+
+        # label, fine dims, cpad, width, mask_scale, emit_raw, mask kind,
+        # x blocks kept (fine; the coarse mask keeps ceil(xq / 2)), -0
+        gates = [("Y != X, 40 of 48 x slots, raw", (5, 7, 40), 16, 16, 1,
+                  True, "random", 6, False),
+                 ("width 5, 50 of 64 x slots", (4, 6, 50), 8, 5, 1,
+                  False, "ones", 4, False),
+                 ("mask_scale 2, xq == 2 xqm, raw", (6, 8, 48), 16, 16, 2,
+                  True, "random", 6, False),
+                 ("mask_scale 2, odd xq = 2 xqm - 1", (4, 6, 80), 8,
+                  8, 2, False, "random", 5, False),
+                 ("all-zero mask, raw", (3, 5, 32), 16, 16, 1, True, "zero",
+                  4, False),
+                 ("mask holding -0, raw", (4, 9, 24), 16, 16, 1, True,
+                  "random", 3, True),
+                 ("mask_scale 2, all-ones, raw", (6, 4, 64), 8, 8, 2,
+                  True, "ones", 4, False)]
+        bh = FO.prep_bias(np.array([0.1, -0.2], np.float32)).to(self.dev)
+        for i, (label, dims, cpad, c, scale, raw, kind, xq, nz) in \
+                enumerate(gates):
+            mdims = tuple(d // scale for d in dims)
+            mm = mask_of(mdims, kind, 40 + i)
+            d = torch.randn(B, *dims, c, device=self.dev, generator=self.gen)
+            # the input is dense: its values where the mask is 0 must not
+            # reach the outputs
+            x = folded(d, cpad, xq)
+            mg = mask_grid(mm, cpad, -(-xq // 2) if scale == 2 else xq, nz)
+            w = FO.prep_head_weights(self.weights(c, 2), [c],
+                                     torch.float32)[0].to(self.dev)
+            aff = self.affines([c])[0]
+            values = [0, 1, 3] if raw else [0, 1]
+
+            def gate(dt, x=x, mg=mg, w=w, aff=aff, cpad=cpad, scale=scale,
+                     raw=raw):
+                xd, md = x.to(dt), mg.to(dt)
+                return lambda impl: K_head.head_gate(
+                    xd, md, w, bh, aff, cpad, mask_scale=scale,
+                    emit_raw=raw, impl=impl)
+            self.run("head_gate_raw" if raw else "head_gate",
+                     f"edge cpad{cpad} B2 {label}", gate, values,
+                     gate_cpad=cpad, exact=kind == "zero")
+
+        # label, dims, cpad, widths, mask kind, x blocks kept, -0
+        sums = [("G1 width 1, Y != X", (5, 9, 30), 8, [1], "random", 2,
+                 False),
+                ("G4 widths 5 16 1 8, 40 of 48 x slots", (4, 6, 40), 16,
+                 [5, 16, 1, 8], "random", 6, False),
+                ("G4 all-ones mask", (3, 4, 64), 16, [16, 16, 16, 16],
+                 "ones", 8, False),
+                ("G1 width 5, all-zero mask", (4, 5, 70), 8, [5], "zero",
+                 5, False),
+                ("G4 widths 5 1 8 8, mask holding -0", (3, 7, 16), 8,
+                 [5, 1, 8, 8], "random", 1, True)]
+        bs = FO.prep_bias(np.array([0.05], np.float32)).to(self.dev)
+        for i, (label, dims, cpad, widths, kind, xq, nz) in enumerate(sums):
+            mg = mask_grid(mask_of(dims, kind, 50 + i), cpad, xq, nz)
+            xs = [folded(torch.randn(B, *dims, c, device=self.dev,
+                                     generator=self.gen), cpad, xq)
+                  for c in widths]
+            w = FO.prep_head_weights(self.weights(sum(widths), 1), widths,
+                                     torch.float32).to(self.dev)
+            aff = self.affines(widths)
+
+            def summed(dt, xs=xs, mg=mg, w=w, aff=aff, widths=widths,
+                       cpad=cpad):
+                xd, md = [x.to(dt) for x in xs], mg.to(dt)
+                return lambda impl: (K_head.head_sum(
+                    xd, md, w, bs, aff, widths, cpad, impl=impl),)
+            self.run("head_sum", f"edge cpad{cpad} B2 {label}", summed, [0],
+                     exact=kind == "zero")
+
     def k10_edge_cases(self):
         """K10 at the seams of its Hopper design (tiles of 128 rows and 16
         columns, a tap's channels staged by cp.async as one unit of at most
@@ -1795,10 +1922,13 @@ class KernelChecks:
                                                  emit_raw=True, impl=impl)
 
         def raw_work(dt):
-            return (_nbytes(up.to(dt), fm.to(dt), wh, bh, affh),
+            # the input only at active voxels, the mask in full
+            return (_grid_bytes([FO.FGrid(up, full, 16, 16)], dt, m)
+                    + _nbytes(fm.to(dt), wh, bh, affh),
                     2 * 16 * 2 * _active(fm, 16))
         self.run("head_gate_raw", "B8 128x64x64 mask_scale 1", raw,
                  [0, 1, 3], gate_cpad=16, work=raw_work)
+        self.k4_edge_cases()
 
     def k7_edge_cases(self):
         """K7 where its Hopper design has edges (output bricks of 2 x 4 x 32

@@ -474,6 +474,96 @@ def test_downconv_q_edges(monkeypatch, interpret_pallas, cpad, cpad_out, cin,
     _assert_close(out.data, jout.data, _step(s, ws))
 
 
+@pytest.mark.parametrize("mode,cpad,widths,scale,raw,kind,dtype", [
+    ("gate", 16, [16], 1, True, "random", "float32"),
+    ("gate", 8, [5], 2, False, "random", "float32"),
+    ("gate", 16, [8], 2, True, "dense", "float32"),
+    ("gate", 8, [8], 1, False, "empty", "float32"),
+    ("sum", 8, [1], 1, False, "random", "float32"),
+    ("sum", 16, [5, 16, 1, 8], 1, False, "random", "float32"),
+    ("sum", 8, [1, 5, 8, 2], 1, False, "dense", "float32"),
+    ("sum", 16, [5], 1, False, "random", "bfloat16"),
+])
+def test_head_edges(monkeypatch, interpret_pallas, mode, cpad, widths,
+                    scale, raw, kind, dtype):
+    """K4's plain versions against JAX's head sites at the edges of its
+    Hopper design (a thread per 16-byte output chunk, warps over the grid's
+    rows): head_gate_plain against head_site_fused with and without the raw
+    f32 grid, at fm_scale 1 and 2 (the coarse mask expanded in place),
+    widths below cpad; head_sum_plain against surf_head_fused over 1 and 4
+    groups of widths 1 and 5 < cpad, cpad 8 and 16; fine dims 4 x 6 x 40
+    (Y != X, 40 real of 48 or 64 x slots), random, dense and empty masks.
+    The raw grid's and the summed grid's halo rings are unspecified:
+    interiors only."""
+    import jax.experimental.pallas.tpu as pltpu
+
+    import sgnn_tpu.ops.pallas.conv3d_folded as PC
+    from sgnn_tpu_torch.ops.kernels import head as K_head
+
+    monkeypatch.setattr(PC.pl, "pallas_call", lambda *a, **k: (
+        interpret_pallas(*a, **{**k, "interpret": pltpu.InterpretParams()})))
+    rng = np.random.RandomState(sum(widths) + cpad + 2 * scale + raw)
+    dims = (4, 6, 40)
+    _, fm = _mask(rng, tuple(d // scale for d in dims), cpad, kind)
+    groups = [_grid(rng, dims, c, cpad) for c in widths]
+    bn = _bn(rng, sum(widths))
+    tdt, jdt = getattr(torch, dtype), jnp.dtype(dtype)
+
+    def jgrid(fg):
+        return JFO.FGrid(jnp.asarray(fg.data.numpy()).astype(jdt), fg.dims,
+                         fg.real_c, fg.cpad)
+
+    def tdata(fg):
+        return fg.data.to(tdt)
+
+    def close(got, want, ring=True):
+        got, want = got.float().numpy(), np.asarray(want, np.float32)
+        if ring:
+            for a in (got, want):
+                assert not a[:, [0, -1]].any() and not a[:, :, [0, -1]].any()
+        got, want = got[:, 1:-1, 1:-1], want[:, 1:-1, 1:-1]
+        if dtype == "float32":
+            np.testing.assert_allclose(got, want, **TOL)
+        else:
+            np.testing.assert_allclose(got, want, rtol=0,
+                                       atol=_bf16_tol(want))
+
+    if mode == "gate":
+        C = widths[0]
+        W2 = rng.randn(C, 2).astype(np.float32)
+        b2 = (0.2 * rng.randn(2)).astype(np.float32)
+        want = JFO.head_site_fused(jgrid(groups[0]), jgrid(fm), *bn,
+                                   jnp.asarray(W2), jnp.asarray(b2),
+                                   emit_raw=raw, fm_scale=scale)
+        got = K_head.head_gate_plain(
+            tdata(groups[0]), tdata(fm), FO.prep_head_weights(W2, [C], tdt)[0],
+            FO.prep_bias(b2), FO.prep_affines(*bn, [C])[0], cpad,
+            mask_scale=scale, emit_raw=raw)
+        assert len(got) == (4 if raw else 3) and (want[3] is None) != raw
+        close(got[0], want[0].data)
+        close(got[1], want[1].data)
+        np.testing.assert_array_equal(got[2].float().numpy(),
+                                      np.asarray(want[2].data, np.float32))
+        if raw:
+            assert got[3].dtype == F32
+            close(got[3], want[3].data, ring=False)
+        kept = int((got[2][..., ::cpad] > 0).sum())
+        active = int((fm.data[..., ::cpad] > 0).sum()) * scale ** 3
+        assert (0 < kept < active) if kind != "empty" else kept == 0
+    else:
+        W = rng.randn(sum(widths), 1).astype(np.float32)
+        b = (0.2 * rng.randn(1)).astype(np.float32)
+        want = JFO.surf_head_fused([jgrid(g) for g in groups], jgrid(fm),
+                                   *bn, jnp.asarray(W), jnp.asarray(b))
+        got = K_head.head_sum_plain(
+            [tdata(g) for g in groups], tdata(fm),
+            FO.prep_head_weights(W, widths, tdt), FO.prep_bias(b),
+            FO.prep_affines(*bn, widths), widths, cpad)
+        assert got.dtype == F32
+        close(got, want.data, ring=False)
+        assert np.abs(got.numpy()).max() > 0.1
+
+
 def test_conv_site_entry_point():
     """K1's C entry point ends in (cpad, bf16, stream), and build.SIGNATURES
     declares as many arguments as it takes."""
