@@ -25,7 +25,11 @@ where every phase passed prints the two JSON lines at the end):
    given and expanded, empty, full and single-voxel masks; K2q with coarse
    rows of 48 and 16 slots and one-row TPU tiles; K8 at X = 128 / C, Cout
    1 to C, an all-zero input and single voxels at brick and volume
-   corners; K8's f32 time logged beside its bf16 one), K10 at the seams
+   corners; K8's f32 time logged beside its bf16 one; K9 at odd Cin, Cin
+   26, 33 and 64, Cout > Cin, an input 2 bytes off a 16-byte boundary,
+   all-zero and dense inputs, its C8, C26 and C48 cases timed too; K5
+   with 1-4 groups, X = 2 mod 4, cpad 8, batch 2, all-on and all-off
+   masks and junk in the coarse x tail blocks), K10 at the seams
    of its row tiles (a row count off the tile, taps and tiles
    with no neighbour, indices outside the table, rows of 2 to 400 bytes,
    channels staged in several units and weights in windows, two column
@@ -348,13 +352,12 @@ def _log_ms(name, label, make, dtypes) -> None:
             f"plain {tp:.3f} ms")
 
 
-def _site_split_ms(name, call, reps: int = 5, tries: int = 3):
-    """An int8 site wrapper's two launches timed apart: torch.profiler's
-    device time per call of the site kernel (``name``_kernel) and of its
-    tile_amax pre-pass, over ``reps`` calls of call(None). The profiler
-    now and then records no device events in a session; a timing, not a
-    check, so it tries again, and returns None after ``tries`` empty
-    sessions."""
+def _device_ms(kernels, call, reps: int = 5, tries: int = 3):
+    """torch.profiler's device time per call of each of ``kernels`` (CUDA
+    names, csrc/*.cu) over ``reps`` calls of call(None), where a wrapper's
+    CUDA-event time is host-bound. The profiler now and then records no
+    device events in a session; a timing, not a check, so it tries again,
+    and returns None after ``tries`` sessions without every kernel."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -366,16 +369,15 @@ def _site_split_ms(name, call, reps: int = 5, tries: int = 3):
             for _ in range(reps):
                 call(None)
             torch.cuda.synchronize()
-        site = pre = 0.0
+        got = [0.0] * len(kernels)
         for e in prof.key_averages():
             if e.device_type != DeviceType.CUDA:
                 continue
-            if f"::{name}_kernel<" in e.key:
-                site += e.self_device_time_total
-            elif "::tile_amax_kernel<" in e.key:
-                pre += e.self_device_time_total
-        if site > 0 and pre > 0:
-            return site / 1e3 / reps, pre / 1e3 / reps
+            for i, k in enumerate(kernels):
+                if f"::{k}<" in e.key:
+                    got[i] += e.self_device_time_total
+        if all(t > 0 for t in got):
+            return [t / 1e3 / reps for t in got]
     return None
 
 
@@ -599,7 +601,7 @@ class KernelChecks:
         whose rate is ``peak``), from which the card's bound follows.
         ``exact``: the kernel must give the plain version's bits.
         ``split``: an int8 site; its bf16 case also logs the wrapper's two
-        launches timed apart (_site_split_ms)."""
+        launches timed apart (_device_ms)."""
         for dt in dtypes:
             call = make(dt)
             outs_k, outs_p = call(None), call("plain")
@@ -647,7 +649,8 @@ class KernelChecks:
             log(f"[kernels] {name} {label} {str(dt)[6:]}: {msg}")
             if split and dt == torch.bfloat16:
                 wrapper = _time_ms(lambda: call(None))
-                apart = _site_split_ms(name, call)
+                apart = _device_ms([f"{name}_kernel", "tile_amax_kernel"],
+                                   call)
                 log(f"[kernels] {name} {label} bfloat16 split: wrapper "
                     f"{wrapper:.4f} ms (CUDA events, with its tile_amax); "
                     + ("device times not measured (no device events in "
@@ -851,6 +854,15 @@ class KernelChecks:
                         2 * 48 * _active(fm.data, 16))
             self.run("surf_head", f"{label} G3 scales 1/2/4", surf_ms, [0],
                      dense=True, work=surf_ms_work)
+            # the wrapper's checks take about as long as the kernel, so
+            # its CUDA-event time is partly the host's
+            dev = _device_ms(["surf_head_kernel"], surf_ms(torch.bfloat16))
+            log(f"[kernels] surf_head {label} G3 scales 1/2/4 bfloat16: "
+                + ("device time not measured (no device events in three "
+                   "profiles)" if dev is None else
+                   f"device time per call (torch.profiler, 5 calls) "
+                   f"{dev[0]:.4f} ms"))
+        self.k5_edge_cases(bs)
 
         # K6: the sphere scene's input rows into the level-0 grids (cpad 8);
         # kernel and plain version must agree bit for bit
@@ -1479,7 +1491,11 @@ class KernelChecks:
                         2 * 27 * w.shape[1] * w.shape[2] * nz)
             return work
 
-        def conv_case(kernel, label, dims, cin, cout, dtypes, timed=False):
+        def conv_case(kernel, label, dims, cin, cout, dtypes, timed=False,
+                      logged=False):
+            """``timed``: the kernel's timed case (its bound and one
+            F.conv3d); ``logged``: also the bf16 kernel's and plain
+            version's times in a line of their own."""
             fn = {"conv3d_folded": K_cl.conv3d_3x3x3_folded,
                   "conv3d": K_cl.conv3d_3x3x3}[kernel]
             x = cl_grid(dims, cin, shell=True)
@@ -1494,6 +1510,8 @@ class KernelChecks:
                                            padding=1) if timed else None)
             if timed and kernel == "conv3d_folded":
                 _log_ms(kernel, label, make, (torch.float32,))
+            if logged:
+                _log_ms(kernel, label, make, (torch.bfloat16,))
 
         both = (torch.float32, torch.bfloat16)
         # K8 at the dense-flow execution's full-resolution sites (encoder
@@ -1543,11 +1561,13 @@ class KernelChecks:
         # C = 16 grid, and two widths K8 does not take
         conv_case("conv3d", "C16->16 96x192x192", SCENE, 16, 16, both,
                   timed=True)
-        conv_case("conv3d", "C8->8 4x8x16", (4, 8, 16), 8, 8, both)
+        conv_case("conv3d", "C8->8 4x8x16", (4, 8, 16), 8, 8, both,
+                  logged=True)
         conv_case("conv3d", "C26->16 48x96x80", tuple(
-            d // 2 for d in K5_DIMS), 26, 16, both)
+            d // 2 for d in K5_DIMS), 26, 16, both, logged=True)
         conv_case("conv3d", "C48->40 24x48x48", tuple(
-            d // 4 for d in SCENE), 48, 40, both)
+            d // 4 for d in SCENE), 48, 40, both, logged=True)
+        self.k9_edge_cases()
 
         # K10 over the rows of the shell's active voxels at 96x192x192:
         # submanifold taps (K = 27) at the widest sites of the
@@ -1638,6 +1658,101 @@ class KernelChecks:
                                                               impl=impl),)
             self.run("conv3d_folded", f"edge C{C}->{cout} B2 {label}", make,
                      [0], dense=True, exact=inp == 0.0)
+
+    def k5_edge_cases(self, bs):
+        """K5 where its Hopper design has edges (a thread per run of 4 x
+        voxels of a dense output row, written as one float4, the runs' mask
+        reads issued together, each coarse voxel's head value computed once
+        a run): 1 to 4 groups (scales 1; 1 and 2; 1, 2 and 4; 1, 2, 4 and
+        4), X = 2 mod 4 (rows not 16-byte aligned, a partial last run), cpad
+        8 and 16, batch 2, Y != X, random, all-on and all-off masks, junk
+        (7.0) in every coarse grid's x tail-pad blocks. ``bs``: the phase's
+        head bias; each case draws its own head weights."""
+        from sgnn_tpu_torch.ops.kernels import surf_head as K_surf
+
+        FO, B = self.FO, 2
+        # a generator of their own: the phase's later inputs stay as they
+        # were before these cases existed
+        gen = torch.Generator(device=self.dev).manual_seed(5)
+        # label, dims, cpad, scales, widths, mask kind
+        cases = [("G1, X 38", (6, 10, 38), 16, (1,), (16,), "random"),
+                 ("G2 scales 1/2, X 38", (6, 10, 38), 8, (1, 2), (8, 5),
+                  "random"),
+                 ("G2 scales 1/2, X 42, all-on", (4, 6, 42), 16, (1, 2),
+                  (16, 3), "ones"),
+                 ("G3, all-off", (8, 8, 40), 8, (1, 2, 4), (8, 8, 1),
+                  "zeros"),
+                 ("G3, all-on, X 72", (4, 8, 72), 8, (1, 2, 4), (8, 8, 8),
+                  "ones"),
+                 ("G4 scales 1/2/4/4, Y != X", (8, 12, 48), 16,
+                  (1, 2, 4, 4), (16, 5, 16, 1), "random")]
+        for i, (label, dims, cpad, scales, widths, kind) in enumerate(cases):
+            m = {"random": torch.rand(B, *dims, generator=torch.Generator()
+                                      .manual_seed(60 + i)) < 0.3,
+                 "ones": torch.ones(B, *dims, dtype=torch.bool),
+                 "zeros": torch.zeros(B, *dims, dtype=torch.bool)}[kind]
+            fm = self.mask(m, cpad)
+            grids = []
+            for s, c in zip(scales, widths):
+                g = FO.fold(torch.randn(B, *(d // s for d in dims), c,
+                                        device=self.dev, generator=gen),
+                            cpad).data
+                g[:, :, :, -(-fm.data.shape[3] // s):] = 7.0
+                grids.append(g)
+            w = FO.prep_head_weights(self.weights(sum(widths), 1),
+                                     list(widths),
+                                     torch.float32).to(self.dev)
+            aff = self.affines(list(widths))
+
+            def make(dt, grids=grids, fm=fm, w=w, aff=aff, dims=dims,
+                     cpad=cpad, scales=scales, widths=widths):
+                xs, md = [g.to(dt) for g in grids], fm.data.to(dt)
+                return lambda impl: (K_surf.surf_head(
+                    xs, list(scales), md, w, bs, aff, list(widths), cpad,
+                    dims, impl=impl),)
+            self.run("surf_head", f"edge cpad{cpad} B2 {label}", make, [0],
+                     dense=True, exact=kind == "zeros")
+
+    def k9_edge_cases(self):
+        """K9 where its Hopper design has edges beyond K8's (the staged
+        voxel padded to 8, 16, 32, 48 or 64 channels; rows of cin values
+        copied in 16-, 8-, 4- or 2-byte words; Cout over 8-wide N tiles in
+        column groups of 8 to 32 on blockIdx.y; one staging buffer where two
+        do not fit): odd Cin (rows of 2, 10 and 66 bytes in bf16), Cin 26
+        (52-byte rows), Cout > Cin, Cout 1, C64, an input 2 bytes off a
+        16-byte boundary, Z and Y off the brick, X not a multiple of 32,
+        batch 2, an all-zero input (exact zeros) and dense ones."""
+        from sgnn_tpu_torch.ops.kernels import conv3d_cl as K_cl
+
+        gen = torch.Generator(device=self.dev).manual_seed(9)  # as K5's
+        # label, dims, Cin, Cout, density
+        cases = [("odd Cin 5 -> 7, Z 3, Y 5, X 40", (3, 5, 40), 5, 7, 0.5),
+                 ("Cin 26 -> 16, Y 7, X 36", (5, 7, 36), 26, 16, 0.4),
+                 ("Cin 3 -> 40 (Cout > Cin), dense, X 33", (3, 6, 33), 3,
+                  40, 1.0),
+                 ("C48 -> 40, all-zero input", (4, 8, 40), 48, 40, 0.0),
+                 ("Cin 33 -> 1, dense, X 70", (3, 5, 70), 33, 1, 1.0),
+                 ("C64 -> 64, dense", (3, 4, 40), 64, 64, 1.0),
+                 ("Cin 1 -> 1, dense, X 5", (2, 3, 5), 1, 1, 1.0),
+                 ("C16 -> 16, input 2 bytes off 16", (3, 6, 45), 16, 16,
+                  0.5)]
+        for i, (label, dims, cin, cout, dens) in enumerate(cases):
+            keep = torch.rand(2, *dims, generator=torch.Generator()
+                              .manual_seed(70 + i)) < dens
+            x = torch.randn(2, *dims, cin, device=self.dev,
+                            generator=gen) * keep.to(self.dev)[..., None]
+            w = torch.from_numpy(self.weights(27, cin, cout)).to(self.dev)
+            shifted = "off 16" in label
+
+            def make(dt, x=x, w=w, shifted=shifted):
+                xd = x.to(dt)
+                if shifted:  # a view one element into its storage
+                    buf = torch.empty(xd.numel() + 1, dtype=dt,
+                                      device=self.dev)
+                    xd = buf[1:].view(xd.shape).copy_(xd)
+                return lambda impl: (K_cl.conv3d_3x3x3(xd, w, impl=impl),)
+            self.run("conv3d", f"edge C{cin}->{cout} B2 {label}", make, [0],
+                     dense=True, exact=dens == 0.0)
 
     def k3_edge_cases(self):
         """K3 where its Hopper design has edges (fine output bricks of 2 x
@@ -2998,7 +3113,7 @@ KERNEL_NAMES = {"conv_site_kernel": "K1", "conv_site_q_kernel": "K1q",
                 "head_gate_kernel": "K4 gate and raw",
                 "head_sum_kernel": "K4 summed", "surf_head_kernel": "K5",
                 "scatter_kernel": "K6", "conv_raw_kernel": "K7",
-                "conv3d_brick_kernel": "K8", "conv3d_any_kernel": "K9",
+                "conv3d_brick_kernel": "K8", "conv3d_any_brick_kernel": "K9",
                 "gather_gemm_kernel": "K10", "tile_amax_kernel": "tile_amax"}
 
 

@@ -118,12 +118,12 @@ __device__ __forceinline__ void store_zero(T* o) {
     q[i] = make_uint4(0u, 0u, 0u, 0u);
 }
 
-// ------------------------------------------- output bricks (K1, K3, K7, K8)
+// --------------------------------------- output bricks (K1, K3, K7, K8, K9)
 //
-// K1, K1q (conv_site.cu), K3, K3q (upconv.cu), K7 (conv_raw.cu) and K8
+// K1, K1q (conv_site.cu), K3, K3q (upconv.cu), K7 (conv_raw.cu), K8 and K9
 // (conv3d_cl.cu) give a block of THREADS threads one output brick of BZ x
 // BY x BX voxels, x fastest, so warp w holds brick row w (one (z, y), 32
-// consecutive x slots). K1, K7 and K8 stage
+// consecutive x slots). K1, K7, K8 and K9 stage
 // the brick's halo'd input, HZ x HY x HX voxels, in shared memory with
 // cp.async; staged slot i is halo'd-brick voxel (i / (HY HX), i / HX % HY,
 // i % HX).
@@ -204,59 +204,10 @@ __device__ __forceinline__ void mma_s8(int* d, const unsigned* a,
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
 }
 
-// Row kernels (K9 conv3d_cl.cu, K10 gather_gemm.cu; K8 reads the same
-// weights in its bricks) keep weights of their own layout: f32 [taps, cin,
-// coutp] with coutp a multiple of the output chunk CO (4, 8 or 16), values
-// rounded to the compute type; a block row of threads computes CO outputs
-// (blockIdx.y = chunk). accumulate_row and store_row serve K9 only, whose
-// one-thread-per-voxel kernel runs on no path (conv3d_cl.cu).
-//
-// acc[0..CO) += sum_ci p[ci] * w[ci * ws + (0..CO)] over one row of cin
-// values at p; zero values skip their FMAs. vec: read the row as 16-byte
-// vectors (cin * sizeof(T) % 16 == 0 and p 16-byte aligned).
-template <typename T, int CO>
-__device__ __forceinline__ void accumulate_row(float* acc,
-                                               const T* __restrict__ p,
-                                               int cin,
-                                               const float* __restrict__ w,
-                                               int ws, bool vec) {
-  if (vec) {
-    constexpr int E = 16 / sizeof(T);
-    const uint4* q = reinterpret_cast<const uint4*>(p);
-    for (int i = 0; i < cin / E; ++i) {
-      const uint4 u = __ldg(q + i);
-      const T* t = reinterpret_cast<const T*>(&u);
-#pragma unroll
-      for (int e = 0; e < E; ++e) {
-        const float a = to_f(t[e]);
-        if (a != 0.f) axpy<CO>(acc, a, w + (i * E + e) * ws);
-      }
-    }
-  } else {
-    for (int ci = 0; ci < cin; ++ci) {
-      const float a = to_f(p[ci]);
-      if (a != 0.f) axpy<CO>(acc, a, w + ci * ws);
-    }
-  }
-}
-
-// o[0..n) = acc[0..n) rounded to T (n <= CO); vec: the CO values are one
-// 16-byte-aligned run (n == CO, CO * sizeof(T) % 16 == 0).
-template <typename T, int CO>
-__device__ __forceinline__ void store_row(T* __restrict__ o,
-                                          const float* acc, int n,
-                                          bool vec) {
-  if constexpr ((CO * sizeof(T)) % 16 == 0) {
-    if (vec) {
-      store_voxel<T, CO>(o, acc);
-      return;
-    }
-  }
-#pragma unroll
-  for (int c = 0; c < CO; ++c) {
-    if (c < n) o[c] = from_f<T>(acc[c]);
-  }
-}
+// Row kernels (K10 gather_gemm.cu; K8 and K9 read the same weights in
+// their bricks) keep weights of their own layout: f32 [taps, cin, coutp]
+// with coutp a multiple of the output chunk CO (4, 8 or 16) and >= cout,
+// values rounded to the compute type, zero columns past cout.
 
 // ------------------------------------------------------- int8 modes
 //
@@ -448,17 +399,28 @@ __device__ __forceinline__ void quantize_window(const unsigned char* buf,
   }
 }
 
-// ------------------------------------------- persistent bricks (K7, K8)
+// --------------------------------------- persistent bricks (K7, K8, K9)
 //
 // Persistent blocks walk output bricks (BZ x BY x BX, x fastest) and stage
 // each brick's halo'd input, NH slots of NC 16-byte chunks, by cp.async;
 // thread t copies chunks t, t + THREADS, ... Chunk c of slot i lies at
-// chunk_off: XOR-swizzled so that 8 consecutive slots' chunk c fall in
-// distinct banks.
+// chunk_off: XOR-swizzled within the slot so that 8 consecutive slots'
+// chunk c fall in distinct 16-byte bank groups (i NC mod 8 takes 8 values
+// over them for an odd NC, 4 for NC = 2 mod 4, 2 for NC = 4 mod 8 and 1
+// for a multiple of 8; the XOR supplies the missing bits of i mod 8 and
+// keeps c below NC).
 
 template <int NC>
 __device__ __forceinline__ int chunk_off(int i, int c) {
-  return (i * NC + (c ^ (i / (8 / NC) % NC))) * 16;
+  int sw = 0;
+  if constexpr (NC % 8 == 0) {
+    sw = i % 8;
+  } else if constexpr (NC % 4 == 0) {
+    sw = i / 2 % 4;
+  } else if constexpr (NC % 2 == 0) {
+    sw = i / 4 % 2;
+  }
+  return (i * NC + (c ^ sw)) * 16;
 }
 
 struct Brick {

@@ -1,7 +1,6 @@
 """K8 and K9: the zero-padded 3^3 convolution over a channels-last grid
 (csrc/conv3d_cl.cu; two entry points, each with its own CUDA kernel and
-counter: K8's in output bricks on the tensor cores in bf16, K9's one
-thread per voxel).
+counter, both one body: output bricks on the tensor cores in bf16).
 
     out = round(conv3x3x3(x, W))      x [B, Z, Y, X, Cin], f32 sums
 
@@ -13,7 +12,9 @@ thread per voxel).
   outside them, so the dense-flow execution routes exactly as the JAX
   package does.
 - K9, ``conv3d_3x3x3``: port of sgnn_tpu/ops/pallas/conv3d.py
-  ``conv3d_3x3x3_pallas`` (:77), any Cin and Cout, forward only.
+  ``conv3d_3x3x3_pallas`` (:77), any Cin and Cout, forward only; on the
+  card Cin up to 64 (the kernel stages a brick's input in shared memory
+  and refuses wider rows: a launch error).
 
 ``weight27 [27, Cin, Cout]`` (taps in C order over (dz, dy, dx)) is
 rounded to x's type; the output is in x's type, rounded once. The plain
@@ -134,7 +135,7 @@ def conv3d_3x3x3_folded(x: torch.Tensor, weight27: torch.Tensor, *,
 
 def conv3d_3x3x3(x: torch.Tensor, weight27: torch.Tensor, *,
                  impl: str | None = None) -> torch.Tensor:
-    """K9: any Cin and Cout."""
+    """K9: any Cin and Cout (on the card Cin <= 64)."""
     global launches
     _check("conv3d_3x3x3", x, weight27)
     if not build.use_kernel(x, impl):

@@ -130,10 +130,13 @@ def test_conv3d_folded_grads_match_jax(rng, cout):
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-@pytest.mark.parametrize("cin,cout", [(8, 8), (26, 16), (16, 3)])
+@pytest.mark.parametrize("cin,cout", [(8, 8), (26, 16), (16, 3), (48, 40),
+                                      (5, 7)])
 def test_conv3d_plain_matches_jax(rng, dtype, cin, cout):
     """K9's plain version against conv3d_3x3x3_pallas (interpret mode), at
-    the widths of tests/test_pallas_gather.py:46 and two more."""
+    the widths of tests/test_pallas_gather.py:46 and more: Cout < Cin,
+    C48 -> 40 (K9's column groups on the card) and an odd Cin below Cout
+    (rows of 10 or 20 bytes, staged in words smaller than 16 bytes)."""
     import sgnn_tpu.ops.pallas.conv3d as PK9
 
     x = rng.randn(1, 4, 8, 16, cin).astype(np.float32)

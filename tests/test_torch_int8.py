@@ -655,7 +655,7 @@ def test_kernel_entry_points_match_their_bindings():
         assert len(m.group(1).split(",")) == len(argtypes), name
     for kernel in ("conv_site_q_kernel", "downconv_q_kernel",
                    "upconv_q_kernel", "tile_amax_kernel", "upconv_kernel",
-                   "conv3d_brick_kernel", "conv3d_any_kernel"):
+                   "conv3d_brick_kernel", "conv3d_any_brick_kernel"):
         assert f"{kernel}(" in src, kernel
 
 
@@ -680,5 +680,5 @@ def test_profile_names_are_kernels():
     assert set(names) == kernels
     assert len(set(names.values())) == len(names)
     assert names["conv3d_brick_kernel"] == "K8"
-    assert names["conv3d_any_kernel"] == "K9"
+    assert names["conv3d_any_brick_kernel"] == "K9"
     assert names["upconv_kernel"] == "K3"

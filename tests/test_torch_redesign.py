@@ -1,12 +1,13 @@
-"""The plain versions of K1, K2, K3, K8, tile_amax, K2q and K3q against
-JAX at the edges of their Hopper designs (K1 runs in output bricks of 2 x
-4 x 32 voxels of the halo'd grid, skipping bricks whose mask is empty; K2
-one thread per coarse voxel; K3 in fine output bricks of 2 x 4 x 32 voxels
-over the padded fine grid, its halo ring included, reading a coarse window
-per group; K8 in persistent blocks over output bricks of the unpadded
-channels-last grid, zeros outside the volume; tile_amax reads a group only
-where the mask is set and combines rows per TPU tile, whose windows
-overlap).
+"""The plain versions of K1, K2, K3, K8, tile_amax, K2q, K3q, K4 and K5
+against JAX at the edges of their Hopper designs (K1 runs in output bricks
+of 2 x 4 x 32 voxels of the halo'd grid, skipping bricks whose mask is
+empty; K2 one thread per coarse voxel; K3 in fine output bricks of 2 x 4 x
+32 voxels over the padded fine grid, its halo ring included, reading a
+coarse window per group; K8 in persistent blocks over output bricks of the
+unpadded channels-last grid, zeros outside the volume; tile_amax reads a
+group only where the mask is set and combines rows per TPU tile, whose
+windows overlap; K4 a thread per 16-byte output chunk; K5 a thread per run
+of 4 x voxels of a dense output row).
 
 The plain versions are what ``chip_smoke.py`` holds the kernels to on the
 card, so these cases pin that reference to the JAX package: the same numpy
@@ -562,6 +563,76 @@ def test_head_edges(monkeypatch, interpret_pallas, mode, cpad, widths,
         assert got.dtype == F32
         close(got, want.data, ring=False)
         assert np.abs(got.numpy()).max() > 0.1
+
+
+@pytest.mark.parametrize("cpad,scales,widths,dims,kind,dtype", [
+    (16, (1,), (16,), (4, 8, 38), "ones", "float32"),
+    (8, (1, 2), (8, 5), (4, 8, 38), "random", "float32"),
+    (8, (1, 2, 4), (8, 8, 1), (4, 8, 96), "zeros", "float32"),
+    (16, (1, 2, 4), (16, 5, 16), (4, 8, 96), "random", "bfloat16"),
+])
+def test_surf_head_edges(monkeypatch, interpret_pallas, cpad, scales, widths,
+                         dims, kind, dtype):
+    """K5's plain version against JAX's surf_head_packed at the edges of its
+    Hopper design (a thread per run of 4 x voxels of an output row, a float4
+    store, each coarse voxel's head value computed once a run): one group
+    (scale 1) and two (scales 1 and 2) with X = 38 (X = 2 mod 4: rows of
+    the dense output not 16-byte aligned, a partial last run), three groups
+    at scales 1, 2 and 4 with Y != X; cpad 8 and 16; batch 2; random,
+    all-on and all-off masks; junk (7.0) in every coarse grid's x tail-pad
+    blocks, which neither side may read. JAX accepts each of these cases
+    (its tile picker falls back to tiles of the largest scale, and its
+    expansion only needs ceil(xq / s) <= xq_g). Tolerance: the mask
+    bit-equal, the sdf atol = rtol = 1e-5 in both dtypes: both round each
+    group's activations to the compute type at the same point and sum exact
+    products in f32, in other orders."""
+    import jax.experimental.pallas.tpu as pltpu
+
+    import sgnn_tpu.ops.pallas.conv3d_folded as PC
+    from sgnn_tpu_torch.ops.kernels import surf_head as K_surf
+
+    monkeypatch.setattr(PC.pl, "pallas_call", lambda *a, **k: (
+        interpret_pallas(*a, **{**k, "interpret": pltpu.InterpretParams()})))
+    rng = np.random.RandomState(sum(dims) + cpad + len(scales))
+    B = 2
+    tdt, jdt = getattr(torch, dtype), jnp.dtype(dtype)
+    m = {"random": rng.rand(B, *dims) < 0.3,
+         "ones": np.ones((B, *dims), bool),
+         "zeros": np.zeros((B, *dims), bool)}[kind]
+    fm = FO.fold_mask(torch.from_numpy(m), cpad, tdt)
+    groups = []
+    for s, c in zip(scales, widths):
+        d = rng.randn(B, *(n // s for n in dims), c).astype(np.float32)
+        data = FO.fold(torch.from_numpy(d), cpad).data
+        live = -(-fm.data.shape[3] // s)  # the x blocks the fine grid covers
+        data[:, :, :, live:] = 7.0
+        groups.append((FO.FGrid(data.to(tdt), tuple(n // s for n in dims), c,
+                                cpad), s))
+    assert any(g.data.shape[3] > -(-fm.data.shape[3] // s)
+               for g, s in groups) == (len(scales) > 1)
+    bn = _bn(rng, sum(widths))
+    W = (0.3 * rng.randn(sum(widths), 1)).astype(np.float32)
+    b = (0.2 * rng.randn(1)).astype(np.float32)
+
+    def jgrid(fg):
+        return JFO.FGrid(jnp.asarray(fg.data.float().numpy()).astype(jdt),
+                         fg.dims, fg.real_c, fg.cpad)
+
+    want_sdf, want_mask = JFO.surf_head_packed(
+        [(jgrid(g), s) for g, s in groups], jgrid(fm), *bn, jnp.asarray(W),
+        jnp.asarray(b))
+    sdf = K_surf.surf_head_plain(
+        [g.data for g, _ in groups], list(scales), fm.data,
+        FO.prep_head_weights(W, list(widths), tdt), FO.prep_bias(b),
+        FO.prep_affines(*bn, list(widths)), list(widths), cpad, dims)
+    assert sdf.dtype == F32 and sdf.shape == (B, *dims)
+    np.testing.assert_array_equal((FO.unfold(fm)[..., 0] > 0.5).numpy(),
+                                  np.asarray(want_mask))
+    np.testing.assert_allclose(sdf.numpy(), np.asarray(want_sdf), **TOL)
+    sdf = sdf.numpy()
+    assert (sdf[~m] == b[0]).all()  # a voxel outside the mask holds b
+    if kind != "zeros":
+        assert np.abs(sdf[m] - b[0]).max() > 0.1
 
 
 def test_conv_site_entry_point():
