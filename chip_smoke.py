@@ -97,7 +97,20 @@ where every phase passed prints the two JSON lines at the end):
    bf16 surface against the plain int8 run and the exact forward; ms per
    forward, a profile of each forward and peak device memory (this phase
    runs after phase 4);
-9. the card's name and power limit again, a JSON line of per-kernel
+9. drive: the port's whole loop from data to score with its CLIs:
+   three rooms from sgnn_tpu_torch.tools.make_synthetic_scenes, fused at
+   2 cm by generate_scans and cut into 128x64x64 chunks by make_chunks
+   on the host (seconds and counts of each stage); 4 bf16 training steps
+   at full width and batch 8 on the card through the training CLI; its
+   .ckpt to a reference .pth and back through convert_checkpoint (the
+   trees bit-equal); the evaluate CLI on the rooms, folded and
+   --execution sparse, with the trained weights and with phase 5's
+   (which leave a surface): launches and ms per scene, each scene's
+   metrics (finite; -1 exactly where a scene has no surface), every
+   kernel call held against its plain version; and the f32 evaluation of
+   the smallest room (cut to 64 voxels in z) on the card and on the host
+   CPU (--cpu): the same surface, the metrics within 1e-5;
+10. the card's name and power limit again, a JSON line of per-kernel
    results (launches, error, ms against the plain version and against one
    PyTorch call where one computes the same function, and the card's bound
    for the same work), then the status line {"ok": true, "device": {...}}.
@@ -2627,9 +2640,10 @@ def _check_meshes(out: str, names: list) -> None:
                 f"{len(faces)} faces")
 
 
-def phase_serve(model, weights) -> dict:
+def phase_serve(model, weights) -> tuple:
     """Reference-format scenes and a .ckpt, both written by the port,
-    through the CLI on the card. Returns the launch counts of that run."""
+    through the CLI on the card. Returns the weights the CLI served, which
+    leave a surface on the rooms."""
     from sgnn_tpu_torch.checkpoint import save_checkpoint
     from sgnn_tpu_torch.data import formats as F
     from sgnn_tpu_torch.data.dataset import SceneDataset
@@ -2771,7 +2785,7 @@ def phase_serve(model, weights) -> dict:
                 f"{st['ratio']:.2f} of tol), gate flips {st['flips']}")
             if EXPECTED[name]:
                 require(st["calls"] > 0, f"{name} unchecked on the rooms")
-        return counts
+        return weights
 
 
 # ------------------------------------------------------------------ phase 6
@@ -3338,6 +3352,273 @@ def phase_train(results: dict) -> None:
             f"voxels")
 
 
+# ------------------------------------------------------------------ phase 9
+
+# the drive: rooms from the port's synthetic generator, fused at the
+# reference's 2 cm with its 320x240 frames (zParametersScanMP.txt) and cut
+# into its 128x64x64 training chunks (the CLIs' defaults); a few training
+# steps at full width on the card; the checkpoint through the convert CLI
+# both ways; the evaluate CLI on the rooms
+DRIVE_ROOMS = 3
+DRIVE_FRAMES = 16  # the generator's default is 40
+DRIVE_STEPS = 4
+# the f32 evaluation on the card and on the host CPU (--cpu): the smallest
+# room, cropped to this height (--max_input_height), so the host's plain
+# forward takes seconds; the same surface, and the metrics to this
+# relative difference (the surfaces' sdf values are the two devices' f32
+# sums; each metric is summed in f64)
+DRIVE_F32_HEIGHT = 64
+DRIVE_METRIC_REL = 1e-5
+METRICS = ("l1_pred", "l1_tgt", "iou_surface")
+
+
+@contextlib.contextmanager
+def _collected():
+    """Every result SceneInferencer.collect returns while active."""
+    from sgnn_tpu_torch.infer import SceneInferencer
+
+    got, orig = [], SceneInferencer.collect
+
+    def spy(self, handle):
+        res = orig(self, handle)
+        got.append(res)
+        return res
+    SceneInferencer.collect = spy
+    try:
+        yield got
+    finally:
+        SceneInferencer.collect = orig
+
+
+def _bits_equal(a, b) -> bool:
+    from sgnn_tpu_torch.params import tree_items
+
+    ia, ib = list(tree_items(a)), list(tree_items(b))
+    return [k for k, _ in ia] == [k for k, _ in ib] and all(
+        x.dtype == y.dtype and x.tobytes() == y.tobytes()
+        for (_, x), (_, y) in zip(ia, ib))
+
+
+def _evaluate(card: str, label: str, args: list) -> tuple:
+    """The evaluate CLI in-process on the card, counted: (its metrics
+    JSON, launches). Logs launches and ms per scene, and each scene's
+    metrics; every metric is finite, and -1 exactly where a scene has no
+    surface."""
+    from sgnn_tpu_torch.ops import kernels as K
+    from sgnn_tpu_torch.tools import evaluate
+
+    torch.cuda.synchronize()
+    K.reset_launch_counts()
+    t0 = time.perf_counter()
+    res = evaluate.main(args)
+    wall = time.perf_counter() - t0
+    counts = K.launch_counts()
+    m = res["metrics"]
+    n = len(m["scenes"])
+    require(res["skipped"] == 0 and n > 0,
+            f"evaluate {label}: {res['skipped']} scenes raised")
+    per = {k: v / n for k, v in counts.items() if v}
+    ms = " ".join(f"{rec['seconds'] * 1e3:.0f}" for rec in m["scenes"])
+    log(f"[drive] evaluate {label}: launches per scene {per}")
+    log(f"[drive] evaluate {label}: ms per scene (forward and the surface "
+        f"to the host, host clock) {ms}; the CLI {wall:.2f} s for {n} "
+        f"scenes; {card}")
+    for rec in m["scenes"]:
+        log(f"[drive] evaluate {label}: {rec['name']} surface "
+            f"{rec['surf_voxels']} voxels, "
+            + ", ".join(f"{k} {rec[k]:.6f}" for k in METRICS))
+        for k in METRICS:
+            require(np.isfinite(rec[k])
+                    and (rec[k] >= 0) == (rec["surf_voxels"] > 0),
+                    f"evaluate {label}: {rec['name']} {k} {rec[k]} with "
+                    f"{rec['surf_voxels']} surface voxels")
+    log(f"[drive] evaluate {label}: aggregate {m['aggregate']}; measured "
+        f"occupancy fractions {m['measured_occupancy_fractions']}")
+    return m, counts
+
+
+def phase_drive(card: str, serve_weights) -> None:
+    """Phase 9: the port's whole drive, from data to score."""
+    from sgnn_tpu_torch.checkpoint import load_checkpoint, save_checkpoint
+    from sgnn_tpu_torch.config import SGNNConfig
+    from sgnn_tpu_torch.data import formats as F
+    from sgnn_tpu_torch.ops import kernels as K
+    from sgnn_tpu_torch.tools import convert_checkpoint, evaluate, \
+        generate_scans, make_chunks, make_synthetic_scenes
+    from sgnn_tpu_torch.tools import train as train_cli
+    from sgnn_tpu_torch.utils.ckpt_convert import load_reference_checkpoint
+
+    t_phase = time.perf_counter()
+    with tempfile.TemporaryDirectory() as base:
+        def at(*a):
+            return os.path.join(base, *a)
+        scenes = at("scenes.txt")
+
+        # 1. the data, on the host
+        t0 = time.perf_counter()
+        names = make_synthetic_scenes.main([
+            "--out", base, "--num_scenes", str(DRIVE_ROOMS),
+            "--frames", str(DRIVE_FRAMES)])
+        t1 = time.perf_counter()
+        fused = generate_scans.main([
+            "--scan_path", at("scans"), "--scan_mesh_path", at("meshes"),
+            "--scene_file_list", scenes, "--output_complete",
+            at("complete"), "--output_incomplete", at("incomplete"),
+            "--incomplete_frame_path", at("frames")])
+        t2 = time.perf_counter()
+        chunks = make_chunks.main([
+            "--input_data_path", at("incomplete"), "--target_data_path",
+            at("complete"), "--scene_file_list", scenes, "--output",
+            at("chunks"), "--list_out", at("chunks.txt")])
+        t3 = time.perf_counter()
+        require(fused["fused"] == DRIVE_ROOMS and fused["skipped"] == 0,
+                f"generate_scans: {fused}")
+        require(chunks["skipped"] == 0
+                and len(chunks["written"]) >= TRAIN_BATCH,
+                f"make_chunks: {len(chunks['written'])} chunks, "
+                f"{chunks['skipped']} scenes raised")
+        rooms = {}
+        for name in names:
+            room = name + "_room0__0__.sdf"
+            tgt = F.load_scene(at("complete", room))
+            inp = F.load_scene(at("incomplete", room))
+            rooms[name + "_room0"] = tgt.dims
+            log(f"[drive] {name}: dims {tgt.dims}, {len(inp.locs)} input "
+                f"and {len(tgt.locs)} target voxels")
+        log(f"[drive] host data: {DRIVE_ROOMS} rooms of {DRIVE_FRAMES} "
+            f"320x240 frames in {t1 - t0:.2f} s; fused at 2 cm in "
+            f"{t2 - t1:.2f} s; {len(chunks['written'])} chunks 128x64x64 "
+            f"in {t3 - t2:.2f} s; {os.cpu_count()} host cores; {card}")
+
+        # 2. training on the card, full width, bf16, batch 8
+        torch.cuda.synchronize()
+        K.reset_launch_counts()
+        t0 = time.perf_counter()
+        trainer = train_cli.main([
+            "--data_path", at("chunks"), "--train_file_list",
+            at("chunks.txt"), "--save", at("logs"), "--execution", "folded",
+            "--compute_dtype", "bfloat16", "--batch_size", str(TRAIN_BATCH),
+            "--num_iters_per_level", "1", "--max_steps", str(DRIVE_STEPS),
+            "--max_epoch", "1"])
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        losses = [loss for _, loss in trainer.loss_history]
+        counts = K.launch_counts()
+        log(f"[drive] train: {len(losses)} steps at batch {TRAIN_BATCH} in "
+            f"{wall:.2f} s (the CLI, loading included); losses "
+            f"{' '.join(f'{v:.4f}' for v in losses)}; launches "
+            f"{ {k: v for k, v in counts.items() if v} }; {card}")
+        ckpt = at("logs", "model-epoch-0.ckpt")
+        require(len(losses) == DRIVE_STEPS and np.isfinite(losses).all()
+                and os.path.exists(ckpt), f"train: losses {losses}")
+        require(counts["conv_raw"] > 0 and counts["scatter"] > 0,
+                f"train: launches {counts}")
+
+        # 3. .ckpt -> .pth -> .ckpt, bit for bit
+        cfg = SGNNConfig(input_dim=TRAIN_DIMS, batch_size=1)
+        pth, back = at("model.pth"), at("back.ckpt")
+        t0 = time.perf_counter()
+        convert_checkpoint.main(["--input", ckpt, "--output", pth])
+        convert_checkpoint.main(["--input", pth, "--output", back])
+        wall = time.perf_counter() - t0
+        a, b = load_checkpoint(ckpt, cfg), load_checkpoint(back, cfg)
+        p_ref, s_ref, _ = load_reference_checkpoint(pth, cfg)
+        for what, x, y in (("params", a.params, b.params),
+                           ("stats", a.stats, b.stats),
+                           ("params via the .pth", a.params, p_ref),
+                           ("stats via the .pth", a.stats, s_ref)):
+            require(_bits_equal(x, y), f"checkpoint round trip: {what} "
+                                       f"differ")
+        log(f"[drive] checkpoint .ckpt -> .pth -> .ckpt in {wall:.2f} s: "
+            f"params and stats bit-equal; {card}")
+
+        # 4. evaluation on the card: the trained weights, then the
+        # serve phase's, which leave a surface on rooms
+        serve_ckpt = at("serve.ckpt")
+        save_checkpoint(serve_ckpt, *serve_weights, epoch=0, iteration=0)
+        common = ["--input_data_path", at("incomplete"),
+                  "--target_data_path", at("complete"),
+                  "--test_file_list", scenes]
+        runs = []
+        for weights, path in (("trained", pth), ("serve", serve_ckpt)):
+            for ex in ("folded", "sparse"):
+                args = [*common, "--model_path", path, "--output",
+                        at(f"{weights}_{ex}.json"), "--execution", ex]
+                runs.append(args)
+                m, counts = _evaluate(card, f"{weights} weights, {ex}",
+                                      args)
+                n = len(m["scenes"])
+                if ex == "sparse":
+                    want = {k: SECONDARY["gather_gemm"] * n
+                            if k == "gather_gemm" else 0 for k in counts}
+                    require(counts == want, f"evaluate {weights} sparse: "
+                                            f"launches {counts}, expected "
+                                            f"{want}")
+                else:
+                    require(counts["scatter"] == n
+                            and counts["conv_site"] > 0,
+                            f"evaluate {weights} folded: launches {counts}")
+                if weights == "serve" and ex == "folded":
+                    for name, c in counts.items():
+                        require((c > 0) == (EXPECTED[name] > 0),
+                                f"evaluate serve folded: {name} launched "
+                                f"{c} times")
+                if weights == "serve":
+                    require(any(s["surf_voxels"] for s in m["scenes"]),
+                            f"the serve weights left no surface "
+                            f"({ex})")
+        # every kernel call of those evaluations against its plain version
+        with MainPathCheck() as chk:
+            for args in runs:
+                evaluate.main(args)
+        for name, st in chk.stats.items():
+            log(f"[drive] evaluate inputs, {name}: {st['calls']} calls, max "
+                f"|kernel - plain| {st['err']:.3e} (at most "
+                f"{st['ratio']:.2f} of tol), gate flips {st['flips']}")
+            if EXPECTED[name] or name == "gather_gemm":
+                require(st["calls"] > 0, f"{name} unchecked in evaluate")
+
+        # 5. f32: the card against the host CPU, same surface and metrics
+        small = min(rooms, key=lambda r: np.prod(rooms[r]))
+        with open(at("small.txt"), "w") as fh:
+            fh.write(small + "\n")
+        f32 = ["--input_data_path", at("incomplete"), "--target_data_path",
+               at("complete"), "--test_file_list", at("small.txt"),
+               "--model_path", serve_ckpt, "--execution", "folded",
+               "--compute_dtype", "float32", "--max_input_height",
+               str(DRIVE_F32_HEIGHT)]
+        with _collected() as surfaces:
+            card_m = evaluate.main([*f32, "--output", at("f32_card.json")])
+            t0 = time.perf_counter()
+            host_m = evaluate.main([*f32, "--output", at("f32_host.json"),
+                                    "--cpu"])
+            t_host = time.perf_counter() - t0
+        (rc,), (rh,) = (r["metrics"]["scenes"] for r in (card_m, host_m))
+        sc, sh = surfaces
+        require(len(sh["surf_locs"]) > 0, f"{small}: no f32 surface")
+        require(np.array_equal(sc["surf_locs"], sh["surf_locs"]),
+                f"{small}: f32 surfaces differ, card {len(sc['surf_locs'])} "
+                f"host {len(sh['surf_locs'])} voxels")
+        sdf_diff = float(np.abs(sc["surf_sdf"] - sh["surf_sdf"]).max())
+        rel = {k: abs(rc[k] - rh[k]) / max(abs(rh[k]), 1e-12)
+               for k in METRICS}
+        log(f"[drive] f32 {small} cropped to z {DRIVE_F32_HEIGHT}: card and "
+            f"host CPU surfaces equal ({len(sh['surf_locs'])} voxels), max "
+            f"|sdf diff| {sdf_diff:.3e}; metrics card "
+            + ", ".join(f"{k} {rc[k]:.7f}" for k in METRICS) + "; host "
+            + ", ".join(f"{k} {rh[k]:.7f}" for k in METRICS)
+            + "; relative differences "
+            + ", ".join(f"{k} {v:.2e}" for k, v in rel.items())
+            + f"; ms per scene card {rc['seconds'] * 1e3:.0f}, host CPU "
+            f"{rh['seconds'] * 1e3:.0f} ({t_host:.1f} s the host CLI); "
+            f"{card}")
+        for k, v in rel.items():
+            require(v <= DRIVE_METRIC_REL,
+                    f"f32 {k}: card {rc[k]} host {rh[k]}")
+    log(f"[drive] the phase took {time.perf_counter() - t_phase:.1f} s; "
+        f"{card}")
+
+
 # --------------------------------------------------------------------- main
 
 
@@ -3357,9 +3638,10 @@ def main() -> int:
         results = KernelChecks().all()
         model, weights = phase_forward(results)
         phase_int8(results, weights)
-        phase_serve(model, weights)
+        serve_weights = phase_serve(model, weights)
         phase_secondary(results, weights)
         phase_train(results)
+        phase_drive(device["card"], serve_weights)
     except SmokeError as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1

@@ -17,6 +17,14 @@ names mirror the JAX package so each module's counterpart is easy to find:
   models/dense_flow.py   the dense trunk; GenModelDense (dense flow)
   models/sgnn.py         GenModelSparse (coordinate lists, the oracle)
   infer.py               SceneInferencer
+  losses.py              training losses and the evaluation metrics
+  checkpoint.py, utils/ckpt_convert.py
+                         .ckpt files; reference .pth both ways
+  datagen/               synthetic rooms, .sens, depth rendering and TSDF
+                         fusion (host numpy and g++-built C++), chunking
+  tools/                 the CLIs: test_scene, evaluate, train,
+                         convert_checkpoint, make_synthetic_scenes,
+                         generate_scans, make_chunks
 
 This package imports torch and numpy only: never jax, never sgnn_tpu.
 """

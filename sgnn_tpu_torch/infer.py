@@ -25,6 +25,15 @@ file order, sorted, as the JAX inferencer cuts them. Three forwards serve:
   cropped to ``orig_dims``, the dense levels not), and for the sparse
   execution each level's compaction ``overflows``.
 
+``measured_fractions`` is the JAX inferencer's calibration record
+(``sgnn_tpu/infer.py:327-337``): per padded scene shape, the most sites
+each refinement level ran on over the scenes served, over the level's
+voxels. A level's sites are the children of the previous level's kept
+voxels, 8 per voxel (the JAX forward's unpruned ``refine_masks_unfilt``),
+read from ``level_active``. The JAX inferencer's capacity refit
+(``_cap_override``) has no counterpart: the folded forward's shapes are
+dynamic.
+
 ``cfg.quantize_int8`` is read by ``GenModelFolded`` alone: its int8 sites
 take weights quantized once, at load, and serve here unchanged. The
 secondary executions serve exact under the same config, as the JAX
@@ -81,6 +90,8 @@ class SceneInferencer:
         self.model = model
         self.impl = impl
         self._side = None  # the card's stream for collect()
+        # padded dims -> {level: the most sites seen}
+        self.observed_counts = {}
 
     def dispatch(self, sample: dict) -> dict:
         """Launch one scene's forward (asynchronous on the card) and
@@ -121,15 +132,42 @@ class SceneInferencer:
         the card this runs on a stream of its own that waits only for
         this scene's forward, so a scene dispatched later keeps running."""
         if handle["done"] is None:
-            return self._extract(handle)
-        if self._side is None:
-            self._side = torch.cuda.Stream(handle["out"].coarse_out.device)
-        self._side.wait_event(handle["done"])
-        with torch.cuda.stream(self._side):
-            return self._extract(handle)
+            res = self._extract(handle)
+        else:
+            if self._side is None:
+                self._side = torch.cuda.Stream(
+                    handle["out"].coarse_out.device)
+            self._side.wait_event(handle["done"])
+            with torch.cuda.stream(self._side):
+                res = self._extract(handle)
+        self._record_counts(tuple(handle["sample"]["sdf"].shape), res)
+        return res
 
     def __call__(self, sample: dict) -> dict:
         return self.collect(self.dispatch(sample))
+
+    def _record_counts(self, dims: tuple, res: dict) -> None:
+        """Level i >= 1 runs on the 8 children of each voxel level i - 1
+        kept; the surface shares the finest level's slot, as in the JAX
+        inferencer's _compact_counts."""
+        act = res["level_active"]
+        counts = {i: 8 * act[i - 1] for i in range(1, len(act))}
+        last = len(act) - 1
+        counts[last] = max(counts[last], len(res["surf_locs"]))
+        rec = self.observed_counts.setdefault(dims, {})
+        for i, c in counts.items():
+            rec[i] = max(rec.get(i, 0), c)
+
+    def measured_fractions(self) -> dict:
+        """Per padded scene shape: {level: the most sites seen / the
+        level's voxels}, rounded to 4 places, the calibration record for
+        ``occupancy_fractions``."""
+        res = {}
+        for dims, rec in self.observed_counts.items():
+            cfg = self.model.cfg.for_scene(dims)
+            res[dims] = {i: round(c / cfg.level_voxels(i), 4)
+                         for i, c in sorted(rec.items())}
+        return res
 
     @staticmethod
     def _extract(handle: dict) -> dict:

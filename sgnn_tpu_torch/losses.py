@@ -3,8 +3,11 @@ executions (port of ``sgnn_tpu/losses.py``: ``preprocess_sdf:48``,
 ``apply_log_transform:54``, ``compute_targets:59``,
 ``compute_bce_dense:152``, ``compute_l1_dense:200``,
 ``compute_weights_missing_geo_dense:221``, ``compute_loss_dense_flow:235``;
-the reference's loss.py). Every reduction is a masked mean over dense
-grids.
+the reference's loss.py) and its evaluation metrics at a coordinate list
+of predicted voxels (``compute_l1_predsurf_sparse_dense:172``,
+``compute_l1_tgtsurf_sparse_dense:327``, ``compute_iou_sparse_dense:353``),
+computed on the device their tensors lie on (summed in f64). Every
+reduction is a masked mean over dense grids or rows.
 
 Conventions (loss.py:10-13): UNK_THRESH = 2, UNK_ID = -1. A voxel with
 known >= UNK_THRESH is unobserved; with use_loss_masking those voxels are
@@ -17,7 +20,9 @@ import dataclasses
 
 import torch
 
+from sgnn_tpu_torch.ops import coords as C
 from sgnn_tpu_torch.ops import dense as D
+from sgnn_tpu_torch.ops.sparse import gather_dense
 
 UNK_THRESH = 2
 UNK_ID = -1.0
@@ -72,6 +77,15 @@ def _masked_mean(vals: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
     cnt = mask.sum()
     return torch.where(mask, vals, torch.zeros_like(vals)).sum() / \
         cnt.clamp_min(1)
+
+
+def _metric_mean(vals: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
+    """_masked_mean summed in f64, rounded to f32: an evaluation metric
+    over a scene's millions of voxels then depends on the values alone,
+    not on the device's summation order."""
+    total = torch.where(mask, vals, torch.zeros_like(vals)).sum(
+        dtype=torch.float64)
+    return (total / mask.sum().clamp_min(1)).float()
 
 
 def bce_with_logits(logits: torch.Tensor, targets: torch.Tensor
@@ -194,3 +208,72 @@ def compute_loss_dense_flow(out, targets: TargetBundle, loss_weights,
     else:
         losses.append(minus1)
     return total, losses
+
+
+def compute_l1_predsurf_sparse_dense(locs, num_valid: int, preds,
+                                     dense_tgts, weights,
+                                     use_log_transform: bool,
+                                     use_loss_masking: bool,
+                                     known_mask_unk):
+    """L1 at the predicted voxels ``locs [cap, 4]`` (z, y, x, b), the first
+    ``num_valid`` rows, against the dense target SDF [B, Z, Y, X]; with
+    ``use_loss_masking`` the voxels ``known_mask_unk`` (bool, True =
+    unknown) marks are left out (the reference's loss.py:122-157)."""
+    tgt = gather_dense(dense_tgts[..., None], locs)[:, 0]
+    mask = C.valid_mask(num_valid, locs.shape[0], locs.device)
+    if use_loss_masking and known_mask_unk is not None:
+        unk = gather_dense(known_mask_unk[..., None].float(), locs)[:, 0]
+        mask = mask & (unk == 0)
+    p, t = preds, tgt
+    if use_log_transform:
+        p, t = apply_log_transform(p), apply_log_transform(t)
+    loss = (p - t).abs()
+    if weights is not None:
+        loss = loss * gather_dense(weights[..., None], locs)[:, 0]
+    return _metric_mean(loss, mask)
+
+
+def _scatter_rows(locs, rows, vals, fill, shape) -> torch.Tensor:
+    """A dense ``shape`` [B, Z, Y, X] grid holding ``fill``, and ``vals``
+    at the rows of ``locs`` that ``rows`` (bool [cap]) selects and that
+    lie inside the volume."""
+    keys = C.flat_key(locs, tuple(shape[1:]), shape[0]).long()
+    ok = rows & (keys >= 0)
+    n = shape[0] * shape[1] * shape[2] * shape[3]
+    out = torch.full((n,), fill, dtype=vals.dtype, device=vals.device)
+    out[keys[ok]] = vals[ok]
+    return out.reshape(shape)
+
+
+def compute_l1_tgtsurf_sparse_dense(locs, num_valid: int, preds,
+                                    dense_tgts, truncation: float,
+                                    use_loss_masking: bool, known):
+    """L1 at the target's near-surface voxels (|sdf| < truncation; with
+    ``use_loss_masking`` only the observed ones, known < UNK_THRESH); a
+    voxel with no prediction reads -truncation, so missed geometry counts
+    (the reference's loss.py:201-231)."""
+    valid = C.valid_mask(num_valid, locs.shape[0], locs.device)
+    pred_dense = _scatter_rows(locs, valid, preds.float(), -truncation,
+                               dense_tgts.shape)
+    tmask = dense_tgts.abs() < truncation
+    if use_loss_masking and known is not None:
+        tmask = tmask & (known < UNK_THRESH)
+    return _metric_mean((pred_dense - dense_tgts).abs(), tmask)
+
+
+def compute_iou_sparse_dense(locs, num_valid: int, occupied, dense_tgts,
+                             use_loss_masking: bool) -> torch.Tensor:
+    """Occupancy IoU of the predicted voxels (``occupied [cap]`` bool at
+    ``locs``) against the target occupancy [B, Z, Y, X] in {0, 1, UNK_ID};
+    with ``use_loss_masking`` predictions at UNK_ID voxels are left out.
+    -1 when the union is empty (the reference's loss.py:84-120)."""
+    keep = C.valid_mask(num_valid, locs.shape[0], locs.device) & occupied
+    pred = _scatter_rows(locs, keep, torch.ones_like(keep), False,
+                         dense_tgts.shape)
+    tgt1 = dense_tgts == 1.0
+    if use_loss_masking:
+        pred = pred & (dense_tgts != UNK_ID)
+    inter = (pred & tgt1).sum()
+    union = (pred | tgt1).sum()
+    iou = inter.float() / union.clamp_min(1).float()
+    return torch.where(union > 0, iou, torch.full_like(iou, -1.0))

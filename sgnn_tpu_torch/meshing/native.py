@@ -1,27 +1,22 @@
 """ctypes bindings for the native marching-cubes core (cpp/mc.cpp).
 
 Port of ``sgnn_tpu/meshing/native.py``. The library is built with g++ at
-first use into ``build/mc-<hash>/`` at the repository root (git-ignored),
-keyed on a hash of the source, the flags and what ``-march=native``
-resolves to on this host, so an edited source or another CPU rebuilds. A
-failed build raises: the numpy path is taken only when a caller asks for
-it (``marching_cubes.run_marching_cubes(impl="numpy")``).
+first use into ``build/mc-<hash>/`` (``utils/native_build.py``). A failed
+build raises: the numpy path is taken only when a caller asks for it
+(``marching_cubes.run_marching_cubes(impl="numpy")``).
 """
 
 from __future__ import annotations
 
 import ctypes
-import hashlib
-import os
-import subprocess
-import tempfile
 import threading
 from pathlib import Path
 
 import numpy as np
 
+from sgnn_tpu_torch.utils.native_build import BUILD_ROOT, build_library
+
 SOURCE = Path(__file__).resolve().parent / "cpp" / "mc.cpp"
-BUILD_ROOT = Path(__file__).resolve().parents[2] / "build"
 # the JAX package's flags (sgnn_tpu/meshing/cpp/Makefile), so both cores
 # round alike and write the same bytes
 CXX_FLAGS = ("-O3", "-march=native", "-fPIC", "-shared", "-fopenmp",
@@ -83,43 +78,11 @@ class _Native:
             max_tris = -n  # retry with the exact size
 
 
-def _gxx(cmd: list) -> subprocess.CompletedProcess:
-    """Runs a g++ command; raises RuntimeError if it cannot run or fails."""
-    try:
-        res = subprocess.run(cmd, capture_output=True, text=True,
-                             timeout=300)
-    except (OSError, subprocess.TimeoutExpired) as e:
-        raise RuntimeError(f"native marching cubes: {' '.join(cmd)}: {e}"
-                           ) from e
-    if res.returncode != 0:
-        raise RuntimeError(f"native marching cubes: g++ failed "
-                           f"({res.returncode}):\n{' '.join(cmd)}\n"
-                           f"{res.stdout}{res.stderr}")
-    return res
-
-
 def build() -> Path:
     """Compile cpp/mc.cpp into the keyed build directory (once per hash)
     and return the library path. Raises RuntimeError if g++ fails."""
-    # the target options -march=native enables here, so a library built
-    # on another CPU is never loaded on this one
-    host = _gxx(["g++", "-march=native", "-Q", "--help=target"]).stdout
-    h = hashlib.sha256(" ".join(CXX_FLAGS).encode() + host.encode()
-                       + SOURCE.read_bytes())
-    out_dir = BUILD_ROOT / f"mc-{h.hexdigest()[:16]}"
-    lib_path = out_dir / "libmc.so"
-    if lib_path.exists():
-        return lib_path
-    out_dir.mkdir(parents=True, exist_ok=True)
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=out_dir)
-    os.close(fd)
-    try:
-        _gxx(["g++", *CXX_FLAGS, "-o", tmp, str(SOURCE)])
-    except RuntimeError:
-        os.unlink(tmp)
-        raise
-    os.replace(tmp, lib_path)
-    return lib_path
+    return build_library("mc", SOURCE, CXX_FLAGS, "native marching cubes",
+                         BUILD_ROOT)
 
 
 def get_native() -> _Native:

@@ -108,6 +108,33 @@ def load_params(model_path, cfg, tap_order="c"):
     return ck.params, ck.stats
 
 
+def select_device(cpu: bool, gpu: int, prog: str) -> torch.device:
+    """The host CPU with ``cpu``, else CUDA device ``gpu``; exits with a
+    message when there is no CUDA device."""
+    if cpu:
+        return torch.device("cpu")
+    if not torch.cuda.is_available():
+        raise SystemExit(f"{prog}: no CUDA device; pass --cpu to run the "
+                         f"plain versions on the host")
+    return torch.device("cuda", gpu)
+
+
+def build_model(cfg, params, stats, device):
+    """The serving model of ``cfg.execution`` (module docstring), filled
+    with (params, stats) and moved to ``device``."""
+    from sgnn_tpu_torch.models.folded_flow import GenModelFolded
+    from sgnn_tpu_torch.models.sgnn import GenModelSparse
+    from sgnn_tpu_torch.params import load_jax_params
+
+    if cfg.execution == "sparse":
+        model = GenModelSparse(cfg)
+    else:
+        model = GenModelFolded(
+            cfg, surf_pack=not os.environ.get("SGNN_NO_SURFPACK"))
+    load_jax_params(model, params, stats)
+    return model.to(device)
+
+
 def main(argv=None) -> dict:
     """Runs the CLI; returns run_pipeline's statistics."""
     args = parse_args(argv)
@@ -115,17 +142,8 @@ def main(argv=None) -> dict:
     from sgnn_tpu_torch.data import formats as F
     from sgnn_tpu_torch.data.dataset import SceneDataset
     from sgnn_tpu_torch.infer import SceneInferencer
-    from sgnn_tpu_torch.models.folded_flow import GenModelFolded
-    from sgnn_tpu_torch.models.sgnn import GenModelSparse
-    from sgnn_tpu_torch.params import load_jax_params
 
-    if args.cpu:
-        device = torch.device("cpu")
-    elif not torch.cuda.is_available():
-        raise SystemExit("test_scene: no CUDA device; pass --cpu to run the "
-                         "plain versions on the host")
-    else:
-        device = torch.device("cuda", args.gpu)
+    device = select_device(args.cpu, args.gpu, "test_scene")
 
     f = 2 ** (args.num_hierarchy_levels - 1) * 4
     cfg = SGNNConfig(
@@ -144,13 +162,8 @@ def main(argv=None) -> dict:
         execution=args.execution,
         compute_dtype=args.compute_dtype,
     )
-    if args.execution == "sparse":
-        model = GenModelSparse(cfg)
-    else:
-        model = GenModelFolded(
-            cfg, surf_pack=not os.environ.get("SGNN_NO_SURFPACK"))
-    load_jax_params(model, *load_params(args.model_path, cfg, args.tap_order))
-    model.to(device)
+    model = build_model(cfg, *load_params(args.model_path, cfg,
+                                           args.tap_order), device)
     print(f"loaded model: {args.model_path} ({device})")
 
     test_files, _ = F.get_train_files(args.input_data_path,

@@ -1,6 +1,6 @@
-"""Reference ``sgnn.pth`` checkpoints -> the port's parameter trees.
+"""Reference ``sgnn.pth`` checkpoints <-> the port's parameter trees.
 
-Port of ``sgnn_tpu/utils/ckpt_convert.py`` (:49-180, :331-375). The
+Port of ``sgnn_tpu/utils/ckpt_convert.py`` (:49-375), both ways. The
 reference saves ``{'epoch', 'state_dict', 'optimizer'}``; the state_dict
 keys follow its GenModel module tree (reference ``model.py:276-314``).
 Every key maps to one leaf of the numpy ``(params, stats)`` trees of
@@ -24,7 +24,7 @@ Every key maps to one leaf of the numpy ``(params, stats)`` trees of
 Sparse conv weights are ``[filter_volume, Cin, Cout]`` with taps in C
 order over (z, y, x) (``tap_order="c"``) or reversed (``"flipped"``);
 ``nn.Linear`` ``[out, in]`` is transposed to ``[in, out]``; dense conv
-weights keep torch's layout.
+weights keep torch's layout. ``export_state_dict`` maps the trees back.
 """
 
 from __future__ import annotations
@@ -139,6 +139,84 @@ def convert_state_dict(state_dict: dict, cfg: SGNNConfig
         raise ConversionError(f"unconsumed reference keys: {left[:10]}"
                               f"{' ...' if len(left) > 10 else ''}")
     return params, stats
+
+
+def export_state_dict(params: dict, stats: dict, cfg: SGNNConfig) -> dict:
+    """The inverse of ``convert_state_dict``: numpy (params, stats) trees
+    -> the reference state_dict layout, as f32 numpy arrays. Converting
+    the result back gives the trees bit for bit, and the reference code
+    loads it from ``torch.save({'epoch', 'state_dict', 'optimizer'})``."""
+    def f32(t):
+        if isinstance(t, dict):
+            return {k: f32(v) for k, v in t.items()}
+        if isinstance(t, (list, tuple)):
+            return [f32(v) for v in t]
+        return np.asarray(t, np.float32)
+
+    params, stats = f32(params), f32(stats)
+    sd = {}
+
+    def bn(prefix, p, s):
+        sd[f"{prefix}.weight"] = p["scale"]
+        sd[f"{prefix}.bias"] = p["bias"]
+        sd[f"{prefix}.running_mean"] = s["mean"]
+        sd[f"{prefix}.running_var"] = s["var"]
+
+    def linear(prefix, p):
+        sd[f"{prefix}.weight"] = np.ascontiguousarray(p["weight"].T)
+        sd[f"{prefix}.bias"] = p["bias"]
+
+    def resblock(prefix, p, s):
+        bn(f"{prefix}.1.0", p["bn0"], s["bn0"])
+        sd[f"{prefix}.1.1.weight"] = p["conv0"]
+        bn(f"{prefix}.1.2", p["bn1"], s["bn1"])
+        sd[f"{prefix}.1.3.weight"] = p["conv1"]
+
+    def unet(prefix, p, s):
+        resblock(f"{prefix}.0", p["block"], s["block"])
+        if "deeper" in p:
+            bn(f"{prefix}.2.1.0", p["down_bn"], s["down_bn"])
+            sd[f"{prefix}.2.1.1.weight"] = p["down_conv"]
+            unet(f"{prefix}.2.1.2", p["deeper"], s["deeper"])
+
+    enc_p, enc_s = params["encoder"], stats["encoder"]
+    for k in range(len(cfg.nf_per_level)):
+        p, s = enc_p["process_sparse"][k], enc_s["process_sparse"][k]
+        pre = f"encoder.process_sparse.{k}"
+        sd[f"{pre}.p1.weight"] = p["p1"]
+        resblock(f"{pre}.p2.0", p["p2"], s["p2"])
+        bn(f"{pre}.p2.2", p["p2_bn"], s["p2_bn"])
+        sd[f"{pre}.p3.0.weight"] = p["p3"]
+        bn(f"{pre}.p3.1", p["p3_bn"], s["p3_bn"])
+    for name in DENSE_LAYERS:
+        sd[f"encoder.{name}.0.weight"] = enc_p[name]["conv"]
+        bn(f"encoder.{name}.1", enc_p[name]["bn"], enc_s[name]["bn"])
+    for name in ("occpred", "sdfpred"):
+        sd[f"encoder.{name}.0.weight"] = enc_p[name]
+    for h in range(cfg.num_refine_levels):
+        p, s = params["refinement"][h], stats["refinement"][h]
+        pre = f"refinement.{h}"
+        sd[f"{pre}.p1.weight"] = p["p1"]
+        unet(f"{pre}.p2", p["p2"], s["p2"])
+        bn(f"{pre}.p3", p["p3"], s["p3"])
+        sd[f"{pre}.n1.weight"] = p["n1"]
+        bn(f"{pre}.n2", p["n2"], s["n2"])
+        linear(f"{pre}.linear", p["linear"])
+        linear(f"{pre}.linearsdf", p["linearsdf"])
+    p, s = params["surfacepred"], stats["surfacepred"]
+    sd["surfacepred.p1.weight"] = p["p1"]
+    unet("surfacepred.p2", p["p2"], s["p2"])
+    bn("surfacepred.p3", p["p3"], s["p3"])
+    linear("surfacepred.linear", p["linear"])
+    return sd
+
+
+def expected_state_dict_spec(cfg: SGNNConfig) -> dict:
+    """{key: shape} of the reference state_dict for this configuration,
+    from the trees ``params.init_params`` gives: the layout a checkpoint
+    is checked against before conversion."""
+    return {k: v.shape for k, v in export_state_dict(*init_params(cfg, 0),
+                                                     cfg).items()}
 
 
 def flip_tap_order(params: dict) -> dict:

@@ -83,12 +83,14 @@ def test_rejects_locs_outside_scene(inferencer):
 
 
 def test_port_imports_without_jax():
-    """The port, its CLIs and chip_smoke.py import (and the CLIs parse
-    their flags) with jax and sgnn_tpu blocked."""
+    """The port, its CLIs, its datagen and chip_smoke.py import (and the
+    CLIs parse their flags) with jax, sgnn_tpu and the root tools/
+    blocked."""
     code = (
         "import sys\n"
         "sys.modules['jax'] = None\n"
         "sys.modules['sgnn_tpu'] = None\n"
+        "sys.modules['tools'] = None\n"
         "import sgnn_tpu_torch.infer, sgnn_tpu_torch.params\n"
         "import sgnn_tpu_torch.ops.kernels.build\n"
         "import sgnn_tpu_torch.checkpoint, sgnn_tpu_torch.utils.ckpt_convert\n"
@@ -104,11 +106,29 @@ def test_port_imports_without_jax():
         "import sgnn_tpu_torch.models.folded_train\n"
         "import sgnn_tpu_torch.train.state, sgnn_tpu_torch.train.step\n"
         "import sgnn_tpu_torch.train.loop\n"
-        "from sgnn_tpu_torch.tools import test_scene, train\n"
+        "import sgnn_tpu_torch.datagen.camera, sgnn_tpu_torch.datagen.params\n"
+        "import sgnn_tpu_torch.datagen.lighting, sgnn_tpu_torch.datagen.sens\n"
+        "import sgnn_tpu_torch.datagen.segmentation\n"
+        "import sgnn_tpu_torch.datagen.render, sgnn_tpu_torch.datagen.fusion\n"
+        "import sgnn_tpu_torch.datagen.scene, sgnn_tpu_torch.datagen.chunking\n"
+        "import sgnn_tpu_torch.utils.native_build\n"
+        "from sgnn_tpu_torch.tools import test_scene, train, evaluate\n"
+        "from sgnn_tpu_torch.tools import convert_checkpoint, make_chunks\n"
+        "from sgnn_tpu_torch.tools import generate_scans, make_synthetic_scenes\n"
         "test_scene.parse_args(['--input_data_path', 'i',\n"
         "    '--target_data_path', 't', '--test_file_list', 'l',\n"
         "    '--model_path', 'm.ckpt'])\n"
+        "evaluate.parse_args(['--input_data_path', 'i',\n"
+        "    '--target_data_path', 't', '--test_file_list', 'l',\n"
+        "    '--model_path', 'm.ckpt'])\n"
         "train.parse_args(['--data_path', 'd', '--train_file_list', 'l'])\n"
+        "convert_checkpoint.parse_args(['--input', 'a.pth', '--output',\n"
+        "    'b.ckpt'])\n"
+        "generate_scans.parse_args(['--scan_path', 's', '--scan_mesh_path',\n"
+        "    'm', '--scene_file_list', 'l', '--output_incomplete', 'o'])\n"
+        "make_chunks.parse_args(['--input_data_path', 'i',\n"
+        "    '--target_data_path', 't', '--scene_file_list', 'l',\n"
+        "    '--output', 'o'])\n"
         "import chip_smoke\n"
         "assert 'jax' not in [m.split('.')[0] for m in sys.modules\n"
         "                     if sys.modules[m] is not None]\n"
