@@ -15,7 +15,10 @@ where every phase passed prints the two JSON lines at the end):
    |kernel - plain| beside its tolerance and both times; K8 and K9 on
    grids masked by the scene's sphere shell (C 8/16/32, Cout < C down to
    1, Y != X, K8's input gradient), K10 over the shell's rows (27 and 8
-   taps, 16 to 48 inputs, rows with every neighbour missing), the int8
+   taps, 16 to 48 inputs, rows with every neighbour missing) and its
+   input-gradient mode over the inverse of the shell's lists (the
+   transposed widths of training, padding rows no entry reaches, the same
+   bits on two runs; timed against one index_add_), the int8
    modes K1q, K2q, K3q and tile_amax with their TPU tiles, all bit-equal
    (each int8 site's kernel and tile_amax also timed apart); K1, K2, K3,
    K7, K8, K1q, K2q and K3q also at the edges of their Hopper designs
@@ -110,7 +113,18 @@ where every phase passed prints the two JSON lines at the end):
    kernel call held against its plain version; and the f32 evaluation of
    the smallest room (cut to 64 voxels in z) on the card and on the host
    CPU (--cpu): the same surface, the metrics within 1e-5;
-10. the card's name and power limit again, a JSON line of per-kernel
+10. train2: the coordinate lists and the dense flow train on phase 7's
+   chunks (full width, batch 8, bf16, occupancy fractions (1.0, 0.5, 0.25,
+   0.125)): one f32 coordinate-list step with K10 (forward and input
+   gradient) against the plain step under phase 7's rule; per execution
+   one bf16 step with its launches required (SECONDARY_TRAIN: K10 51
+   forward and 50 input-gradient launches, the dense flow none), every
+   K10 call of a second step held against its plain version, ms per step,
+   peak memory and a profile; the training CLI with --execution sparse and
+   dense_flow for SECONDARY_TRAIN_STEPS steps (finite losses, the epoch's
+   prediction PLYs), its checkpoint served by the execution's eval
+   forward;
+11. the card's name and power limit again, a JSON line of per-kernel
    results (launches, error, ms against the plain version and against one
    PyTorch call where one computes the same function, and the card's bound
    for the same work), then the status line {"ok": true, "device": {...}}.
@@ -144,8 +158,8 @@ N_SCENES = 3
 EXPECTED = {"conv_site": 37, "downconv": 11, "upconv": 3, "head_gate": 3,
             "head_gate_raw": 0, "head_sum": 0, "surf_head": 1, "scatter": 1,
             "conv_raw": 0, "conv3d_folded": 0, "conv3d": 0,
-            "gather_gemm": 0, "conv_site_q": 0, "downconv_q": 0,
-            "upconv_q": 0, "tile_amax": 0}
+            "gather_gemm": 0, "gather_gemm_dx": 0, "conv_site_q": 0,
+            "downconv_q": 0, "upconv_q": 0, "tile_amax": 0}
 # the int8 forward (cfg.quantize_int8, phase 8), derived from the JAX
 # forward, which passes quantize=q8 to every conv, down and upsample site
 # (sgnn_tpu/models/folded_flow.py:61-121, 247-271, 320-324): the same 37 /
@@ -636,7 +650,7 @@ class KernelChecks:
                    f"tolerance" + (f" plus one activation step {st:.3e}; "
                                    f"{far} values beyond the tolerance"
                                    if step is not None else "") + ")")
-            if dt == torch.bfloat16 and "ms" not in rec:
+            if dt == torch.bfloat16 and "ms" not in rec and work:
                 # alternate plain, kernel, kernel, plain on the same inputs
                 tp1 = _time_ms(lambda: call("plain"))
                 tk1 = _time_ms(lambda: call(None))
@@ -1628,7 +1642,99 @@ class KernelChecks:
         gg_case(f"K8 16->16 {n_par} of {n} rows", down, 16, 16, both)
         gg_case(f"K27 48->16 {n} rows, every neighbour missing",
                 torch.zeros_like(sub), 48, 16, (torch.bfloat16,), masks=[0])
+        self.k10_dx_cases(locs)
         self.k10_edge_cases()
+
+    def k10_dx_cases(self, locs):
+        """K10's input-gradient mode (gather_gemm_dx, the backward of every
+        coordinate-list conv in training): a cotangent through the inverse
+        of the sphere shell's 27-tap list and of its 8-tap list to the
+        parents, held against the plain version's index_add scatter, at the
+        transposed calls of the full-width train step (the refinement n1's
+        16 -> 48, its p1's 16 -> 34, the U-Net's 16 -> 16 and its stride-2
+        16 -> 16, the encoder's 8 -> 8). The shell's rows are padded with
+        PAD rows that no list entry reaches (every inverse entry missing)
+        and whose cotangent is zero. The first bf16 case is timed against
+        the plain version and one index_add_ of the precomputed tap
+        products (the scatter alone), beside the card's bound for the work;
+        every case runs twice and must give the same bits."""
+        from sgnn_tpu_torch.ops import conv as CV
+        from sgnn_tpu_torch.ops import coords as C
+        from sgnn_tpu_torch.ops.kernels import gather_gemm as K_gg
+        from sgnn_tpu_torch.ops.sparse import make_sparse
+
+        pad = 4096
+        n, cap = len(locs), len(locs) + pad
+        padded = torch.cat([locs, torch.full((pad, 4), -1, dtype=locs.dtype,
+                                             device=locs.device)])
+        st = make_sparse(padded, torch.zeros(cap, 1, device=self.dev), n,
+                         SCENE, 1)
+        sub = CV.neighbours(st, "gather")
+        half = tuple(d // 2 for d in SCENE)
+        parents, n_par, _ = C.unique_locs(C.parent_locs(st.locs), n, half, 1,
+                                          cap)
+        down = K_gg.NeighbourList(CV.neighbor_rows(
+            parents, st.index_grid(), C.neighbor_offsets(2, self.dev), SCENE,
+            1, scale=2), n_par, cap)
+        for nl, K in ((sub, 27), (down, 8)):
+            inv = nl.inverse()
+            log(f"[kernels] gather_gemm input gradient K{K}: {nl.num_out} of "
+                f"{cap} output rows valid, {int((inv > 0).sum())} inverse "
+                f"entries, {int((inv == 0).all(1).sum())} input rows with "
+                f"every entry missing")
+        both = (torch.float32, torch.bfloat16)
+        for nl, K, cin, cout, timed in ((sub, 27, 48, 16, True),
+                                        (sub, 27, 34, 16, False),
+                                        (sub, 27, 16, 16, False),
+                                        (down, 8, 16, 16, False),
+                                        (sub, 27, 8, 8, False)):
+            g = torch.randn(cap, cout, device=self.dev, generator=self.gen)
+            g[nl.num_out:] = 0
+            w = torch.from_numpy(self.weights(K, cin, cout)).to(self.dev)
+            label = f"input gradient K{K} {cout}->{cin} {cap} rows"
+
+            def make(dt, nl=nl, g=g, w=w):
+                gd = g.to(dt)
+                return lambda impl: (K_gg.gather_gemm_dx(
+                    gd, nl.rows, nl.inverse(), w, nl.num_out, impl=impl),)
+            self.run("gather_gemm", label, make, [0], dense=True,
+                     dtypes=both)
+            for dt in both:
+                call = make(dt)
+                require(torch.equal(call(None)[0], call(None)[0]),
+                        f"gather_gemm {label} {dt}: two runs differ")
+            if timed:
+                self._time_dx(label, make, nl, g, w)
+        log("[kernels] gather_gemm input gradient: every case gave the same "
+            "bits on two runs")
+
+    def _time_dx(self, label, make, nl, g, w):
+        """The bf16 input-gradient case's times: kernel and plain version in
+        turns, one index_add_ of the precomputed tap products (the plain
+        version's scatter alone), and the card's bound (g, the inverse
+        list, the weights and the output once; 2 Cin Cout operations per
+        inverse entry at the bf16 rate)."""
+        dt = torch.bfloat16
+        call = make(dt)
+        tp1 = _time_ms(lambda: call("plain"))
+        tk1 = _time_ms(lambda: call(None))
+        tk2 = _time_ms(lambda: call(None))
+        tp2 = _time_ms(lambda: call("plain"))
+        K, cin, cout = w.shape
+        rows = nl.rows[:nl.num_out].long().reshape(-1)
+        gd = g[:nl.num_out].to(dt)
+        contrib = torch.einsum("nc,kic->nki", gd.float(), w.to(dt).float()
+                               ).to(dt).reshape(-1, cin)
+        out = torch.zeros(g.shape[0] + 1, cin, dtype=dt, device=self.dev)
+        lib = _time_ms(lambda: out.index_add_(0, rows, contrib))
+        inv = nl.inverse()
+        nbytes = _nbytes(g.to(dt), inv, w) + g.shape[0] * cin * 2
+        bound = _bound(nbytes, 2 * cin * cout * int((inv > 0).sum()))
+        log(f"[kernels] gather_gemm {label} bfloat16: kernel "
+            f"{(tk1 + tk2) / 2:.3f} ms, plain {(tp1 + tp2) / 2:.3f} ms, one "
+            f"index_add_ of the tap products {lib:.3f} ms; bound "
+            f"{bound['bound_ms']:.4f} ms by {bound['bound_by']} "
+            f"({nbytes / 1e6:.1f} MB)")
 
     def k8_edge_cases(self):
         """K8 where its Hopper design has edges (persistent blocks over
@@ -2148,6 +2254,7 @@ class MainPathCheck:
              "conv3d_folded": ([0], [], False, True),
              "conv3d": ([0], [], False, True),
              "gather_gemm": ([0], [], False, True),
+             "gather_gemm_dx": ([0], [], False, True),
              "conv_site_q": ([0], [], False, False),
              "downconv_q": ([0], [1], False, False),
              "upconv_q": ([0], [], False, False),
@@ -2171,8 +2278,9 @@ class MainPathCheck:
                      "surf_head": surf_head, "scatter": scatter,
                      "conv_raw": conv_raw, "conv3d_3x3x3_folded": conv3d_cl,
                      "conv3d_3x3x3": conv3d_cl, "gather_gemm": gather_gemm,
-                     "conv_site_q": conv_site, "downconv_q": downconv,
-                     "upconv_q": upconv, "tile_amax": tile_amax}
+                     "gather_gemm_dx": gather_gemm, "conv_site_q": conv_site,
+                     "downconv_q": downconv, "upconv_q": upconv,
+                     "tile_amax": tile_amax}
         self.stats = {n: {"calls": 0, "err": 0.0, "ratio": 0.0, "flips": 0,
                           "beyond": 0} for n in self.SPECS}
         self.saved = {}
@@ -2186,7 +2294,8 @@ class MainPathCheck:
             name = ("head_gate_raw" if kw.get("emit_raw")
                     else self.COUNTER.get(fn_name, fn_name))
             values, masks, gate, dense = self.SPECS[name]
-            ref = orig(*args, impl="plain", **kw)
+            with torch.no_grad():  # the comparison needs no graph
+                ref = orig(*args, impl="plain", **kw)
             outs = out if isinstance(out, tuple) else (out,)
             refs = ref if isinstance(ref, tuple) else (ref,)
             st = self.stats[name]
@@ -2276,7 +2385,7 @@ def phase_forward(results: dict) -> tuple:
             require(n > 0, f"{name} was not launched by the main path")
         else:
             require(n == 0, f"{name} was launched by the main path")
-        results[name]["launches"] = n
+        results.setdefault(name, {})["launches"] = n
     for o in outs:
         require(len(o["surf_locs"]) > 0, f"{o['name']}: empty surface")
         require(np.isfinite(o["surf_sdf"]).all(), "non-finite surface sdf")
@@ -2885,11 +2994,11 @@ def phase_secondary(results: dict, weights) -> None:
 
     orig_gg, shapes = K_gg.gather_gemm, {}
 
-    def logged(feats, nbr, weight, impl=None):
-        shapes.setdefault(tuple(nbr.shape[1:]) + (feats.shape[1],
-                                                  weight.shape[2]), []) \
-            .append((feats.shape[0], int((nbr > 0).sum())))
-        return orig_gg(feats, nbr, weight, impl=impl)
+    def logged(feats, nbr_rows, weight, **kw):
+        shapes.setdefault(tuple(nbr_rows.shape[1:]) + (feats.shape[1],
+                                                       weight.shape[2]), []) \
+            .append((feats.shape[0], int((nbr_rows > 0).sum())))
+        return orig_gg(feats, nbr_rows, weight, **kw)
     K_gg.gather_gemm = logged
     try:
         SceneInferencer(models["coordinate lists"][0])(s0)
@@ -3014,7 +3123,8 @@ class PlainKernels:
     NAMES = {"conv_site": "conv_site", "downconv": "downconv",
              "upconv": "upconv", "head_gate": "head", "head_sum": "head",
              "surf_head": "surf_head", "scatter": "scatter",
-             "conv_raw": "conv_raw"}
+             "conv_raw": "conv_raw", "gather_gemm": "gather_gemm",
+             "gather_gemm_dx": "gather_gemm"}
 
     def __enter__(self):
         import importlib
@@ -3061,8 +3171,8 @@ def train_launches(cfg) -> dict:
             "upconv": ref, "head_gate": 0, "head_gate_raw": ref,
             "head_sum": 1, "surf_head": 0, "scatter": 1,
             "conv_raw": k7_fwd + k7_bwd, "conv3d_folded": 0, "conv3d": 0,
-            "gather_gemm": 0, "conv_site_q": 0, "downconv_q": 0,
-            "upconv_q": 0, "tile_amax": 0}
+            "gather_gemm": 0, "gather_gemm_dx": 0, "conv_site_q": 0,
+            "downconv_q": 0, "upconv_q": 0, "tile_amax": 0}
 
 
 def _write_chunks(root, n, dims=TRAIN_DIMS, truncation=3.0):
@@ -3169,92 +3279,137 @@ def _profile(tag: str, what: str, fn, top: int = 14) -> None:
                 + ")")
 
 
+def _train_batch(tag: str, tmp: str, cfg) -> tuple:
+    """N_CHUNKS chunks of TRAIN_DIMS written into ``tmp`` and the first
+    batch of them collated with sparse targets: (files, batch)."""
+    from sgnn_tpu_torch.data.capacity import estimate_row_capacities
+    from sgnn_tpu_torch.data.dataset import SceneDataset, collate_sparse
+
+    L, B, trunc = cfg.num_hierarchy_levels, cfg.batch_size, cfg.truncation
+    t0 = time.perf_counter()
+    files = _write_chunks(tmp, N_CHUNKS)
+    caps = estimate_row_capacities(files, L, trunc, B)
+    ds = SceneDataset(files, trunc, L, sparse_targets=True)
+    batch = collate_sparse([ds[i] for i in range(B)], cfg.input_cap, *caps)
+    log(f"[{tag}] {len(files)} chunks {TRAIN_DIMS} written and batch "
+        f"{B} collated in {time.perf_counter() - t0:.1f} s: "
+        f"{int(batch['input_num_valid'])} input rows, "
+        f"{int(batch['target_num_valid'])} target rows (capacities "
+        f"{caps[0]}, {caps[1]})")
+    return files, batch
+
+
+def _f32_steps(tag: str, make, weights, dev: dict, lw) -> None:
+    """One full-level f32 step of ``make()``'s model with the kernels and
+    one with the plain versions, from the same weights and batch; and the
+    plain versions again with the input features moved by one f32 rounding
+    (relative 1e-6 noise), which shows how far the step's gradients move
+    with no hand-written kernel involved. The loss and the running stats
+    are held to TRAIN_LOSS_REL and TRAIN_STATS_REL, the gradients to
+    TRAIN_GRAD_REL or twice what the moved inputs move them, where that is
+    more."""
+    from sgnn_tpu_torch.params import load_jax_params, tree_items
+
+    noisy = dict(dev)
+    g = torch.Generator(device="cuda").manual_seed(1)
+    noisy["input_sdf"] = dev["input_sdf"] * (1 + 1e-6 * torch.randn(
+        dev["input_sdf"].shape, device="cuda", generator=g))
+    runs = {}
+    for label, plain, b in (("kernels", False, dev), ("plain", True, dev),
+                            ("plain, inputs moved", True, noisy)):
+        model = make().cuda()
+        load_jax_params(model, *weights)
+        m, grads = _step(model, b, lw, plain=plain)
+        runs[label] = (float(m["loss"]), m["per_level"].cpu().numpy(),
+                       grads, [t.cpu() for _, t in
+                               tree_items(model.stat_tree())])
+        keys = model.param_keys
+        del model
+    lp, pp, gp, sp = runs["plain"]
+    ratios = {}
+    for label in ("kernels", "plain, inputs moved"):
+        lk, pk, gk, sk = runs[label]
+        r = sorted((float((a - b).abs().max())
+                    / max(float(b.abs().max()), 1e-12), k)
+                   for a, b, k in zip(gk, gp, keys))
+        st_err = max(float((a - b).abs().max())
+                     / max(float(b.abs().max()), 1.0)
+                     for a, b in zip(sk, sp))
+        ratios[label] = (r[-1][0], r[len(r) // 2][0])
+        log(f"[{tag}] float32 step, {label} vs plain: loss {lk:.6f} vs "
+            f"{lp:.6f}; per level {np.round(pk, 5).tolist()} vs "
+            f"{np.round(pp, 5).tolist()}; gradients, |a - b| / max |b| "
+            f"per parameter: largest {r[-1][0]:.3e} ({r[-1][1]}), "
+            f"median {r[len(r) // 2][0]:.3e}; running stats "
+            f"{st_err:.3e} of scale")
+        if label == "kernels":
+            require(np.isfinite(lk)
+                    and abs(lk - lp) <= TRAIN_LOSS_REL * abs(lp),
+                    f"{tag}: f32 train loss {lk} vs plain {lp}")
+            require(st_err <= TRAIN_STATS_REL,
+                    f"{tag}: f32 running stats {st_err}")
+    (k_max, k_med), (n_max, n_med) = (ratios["kernels"],
+                                      ratios["plain, inputs moved"])
+    for what, k, n in (("largest", k_max, n_max), ("median", k_med, n_med)):
+        bound = max(TRAIN_GRAD_REL, 2 * n)
+        require(k <= bound, f"{tag}: f32 gradients, kernels vs plain: {what} "
+                            f"{k:.3e} > {bound:.3e}")
+
+
+def _step_ms(tag: str, what: str, model, dev: dict, lw, peak: int,
+             plain: bool = True) -> dict:
+    """ms per full-level step, kernels, plain, plain, kernels (CUDA events,
+    two steps each; without ``plain``, a step with no hand-written kernel,
+    four), and a profile of one step; returns the medians."""
+    times = {"kernels": [], "plain": []}
+    for label in (("kernels", "plain", "plain", "kernels") if plain
+                  else ("kernels",) * 2):
+        for _ in range(2):
+            a = torch.cuda.Event(enable_timing=True)
+            b = torch.cuda.Event(enable_timing=True)
+            a.record()
+            _step(model, dev, lw, plain=label == "plain")
+            b.record()
+            b.synchronize()
+            times[label].append(a.elapsed_time(b))
+    _profile(tag, what, lambda: _step(model, dev, lw))
+    ms = {k: float(np.median(v)) for k, v in times.items() if v}
+    each = {k: " ".join(f"{t:.1f}" for t in v) for k, v in times.items()}
+    B = model.cfg.batch_size
+    log(f"[{tag}] {what}, batch {B} at {model.cfg.input_dim}: kernels "
+        f"{ms['kernels']:.1f} ms (CUDA events, median of "
+        f"{each['kernels']}), {B / ms['kernels'] * 1e3:.1f} samples/s; "
+        + (f"plain versions {ms['plain']:.1f} ms (median of "
+           f"{each['plain']}); " if plain else "")
+        + f"peak device memory {peak / 2**20:.1f} MiB")
+    return ms
+
+
 def phase_train(results: dict) -> None:
     """Phase 7."""
     import dataclasses
 
     from sgnn_tpu_torch.config import SGNNConfig
-    from sgnn_tpu_torch.data.capacity import estimate_row_capacities
-    from sgnn_tpu_torch.data.dataset import SceneDataset, collate_sparse
     from sgnn_tpu_torch.infer import SceneInferencer
     from sgnn_tpu_torch.models.folded_flow import GenModelFolded
     from sgnn_tpu_torch.models.folded_train import GenModelFoldedTrain
     from sgnn_tpu_torch.ops import kernels as K
-    from sgnn_tpu_torch.params import init_params, load_jax_params, \
-        tree_items
+    from sgnn_tpu_torch.params import init_params, load_jax_params
     from sgnn_tpu_torch.tools import train as train_cli
     from sgnn_tpu_torch.train import step as TS
 
     cfg32 = SGNNConfig(input_dim=TRAIN_DIMS, batch_size=TRAIN_BATCH,
                        compute_dtype="float32")
     cfg16 = dataclasses.replace(cfg32, compute_dtype="bfloat16")
-    L, B, trunc = cfg32.num_hierarchy_levels, TRAIN_BATCH, cfg32.truncation
+    L, B = cfg32.num_hierarchy_levels, TRAIN_BATCH
     with tempfile.TemporaryDirectory() as tmp:
-        t0 = time.perf_counter()
-        files = _write_chunks(tmp, N_CHUNKS)
-        caps = estimate_row_capacities(files, L, trunc, B)
-        ds = SceneDataset(files, trunc, L, sparse_targets=True)
-        batch = collate_sparse([ds[i] for i in range(B)], cfg32.input_cap,
-                               *caps)
-        log(f"[train] {len(files)} chunks {TRAIN_DIMS} written and batch "
-            f"{B} collated in {time.perf_counter() - t0:.1f} s: "
-            f"{int(batch['input_num_valid'])} input rows, "
-            f"{int(batch['target_num_valid'])} target rows (capacities "
-            f"{caps[0]}, {caps[1]})")
+        files, batch = _train_batch("train", tmp, cfg32)
         dev = TS.to_device(batch, "cuda")
         weights = init_params(cfg32, seed=0)
         lw = np.ones(L + 1, np.float32)  # every level and the surface
 
-        # f32: kernels vs plain versions, same weights and batch; and the
-        # plain versions again with the input features moved by one f32
-        # rounding (relative 1e-6 noise), which shows how far the step's
-        # gradients move with no hand-written kernel involved
-        noisy = dict(dev)
-        g = torch.Generator(device="cuda").manual_seed(1)
-        noisy["input_sdf"] = dev["input_sdf"] * (1 + 1e-6 * torch.randn(
-            dev["input_sdf"].shape, device="cuda", generator=g))
-        runs = {}
-        for label, plain, b in (("kernels", False, dev), ("plain", True, dev),
-                                ("plain, inputs moved", True, noisy)):
-            model = GenModelFoldedTrain(cfg32).cuda()
-            load_jax_params(model, *weights)
-            m, grads = _step(model, b, lw, plain=plain)
-            runs[label] = (float(m["loss"]), m["per_level"].cpu().numpy(),
-                           grads, [t.cpu() for _, t in
-                                   tree_items(model.stat_tree())])
-            del model
-        keys = GenModelFoldedTrain(cfg32).param_keys
-        lp, pp, gp, sp = runs["plain"]
-        ratios = {}
-        for label in ("kernels", "plain, inputs moved"):
-            lk, pk, gk, sk = runs[label]
-            r = sorted((float((a - b).abs().max())
-                        / max(float(b.abs().max()), 1e-12), k)
-                       for a, b, k in zip(gk, gp, keys))
-            st_err = max(float((a - b).abs().max())
-                         / max(float(b.abs().max()), 1.0)
-                         for a, b in zip(sk, sp))
-            ratios[label] = (r[-1][0], r[len(r) // 2][0])
-            log(f"[train] float32 step, {label} vs plain: loss {lk:.6f} vs "
-                f"{lp:.6f}; per level {np.round(pk, 5).tolist()} vs "
-                f"{np.round(pp, 5).tolist()}; gradients, |a - b| / max |b| "
-                f"per parameter: largest {r[-1][0]:.3e} ({r[-1][1]}), "
-                f"median {r[len(r) // 2][0]:.3e}; running stats "
-                f"{st_err:.3e} of scale")
-            if label == "kernels":
-                require(np.isfinite(lk)
-                        and abs(lk - lp) <= TRAIN_LOSS_REL * abs(lp),
-                        f"f32 train loss {lk} vs plain {lp}")
-                require(st_err <= TRAIN_STATS_REL,
-                        f"f32 running stats {st_err}")
-        (k_max, k_med), (n_max, n_med) = (ratios["kernels"],
-                                          ratios["plain, inputs moved"])
-        for what, k, n in (("largest", k_max, n_max),
-                           ("median", k_med, n_med)):
-            bound = max(TRAIN_GRAD_REL, 2 * n)
-            require(k <= bound, f"f32 gradients, kernels vs plain: {what} "
-                                f"{k:.3e} > {bound:.3e}")
-        del runs, gp
+        _f32_steps("train", lambda: GenModelFoldedTrain(cfg32), weights, dev,
+                   lw)
 
         # bf16 at full width: the counted main-path step, then every
         # kernel call of a second step held against its plain version
@@ -3285,26 +3440,7 @@ def phase_train(results: dict) -> None:
                     f"{name}: {st['calls']} checked calls, expected "
                     f"{want[name]}")
 
-        # ms per step: kernels, plain, plain, kernels (full-level steps)
-        times = {"kernels": [], "plain": []}
-        for label in ("kernels", "plain", "plain", "kernels"):
-            for _ in range(2):
-                a = torch.cuda.Event(enable_timing=True)
-                b = torch.cuda.Event(enable_timing=True)
-                a.record()
-                _step(model, dev, lw, plain=label == "plain")
-                b.record()
-                b.synchronize()
-                times[label].append(a.elapsed_time(b))
-        _profile("train", "one bfloat16 step",
-                 lambda: _step(model, dev, lw))
-        ms = {k: float(np.median(v)) for k, v in times.items()}
-        each = {k: " ".join(f"{t:.1f}" for t in v) for k, v in times.items()}
-        log(f"[train] bfloat16 step, batch {B} at {TRAIN_DIMS}: kernels "
-            f"{ms['kernels']:.1f} ms (CUDA events, median of "
-            f"{each['kernels']}), {B / ms['kernels'] * 1e3:.1f} samples/s; "
-            f"plain versions {ms['plain']:.1f} ms (median of "
-            f"{each['plain']}); peak device memory {peak / 2**20:.1f} MiB")
+        _step_ms("train", "one bfloat16 step", model, dev, lw, peak)
         del model
 
         # the training CLI, in-process, on one chunk (overfit mode)
@@ -3350,6 +3486,142 @@ def phase_train(results: dict) -> None:
         log(f"[train] the CLI's checkpoint served a {dims} room: active per "
             f"level {r['level_active']}, surface {len(r['surf_locs'])} "
             f"voxels")
+
+
+# ----------------------------------------------------------------- phase 10
+
+# training through the secondary executions on phase 7's chunks at full
+# width: K10's launches per full-level coordinate-list step, derived from
+# the code at L = 4 (models/sgnn.py, nn/blocks.py): every sparse conv is one
+# forward launch, 51 as in serving (the encoder 3 x (p1, 2 resblock, p3),
+# the refinements 3 x (p1, U-Net 8, n1), the surface p1 + U-Net 8), and in
+# the backward one input-gradient launch each but the encoder's first p1,
+# whose input is the data; the dense flow's step launches no hand-written
+# kernel (the JAX package turns K8 off under training)
+SECONDARY_TRAIN = {"sparse": {"gather_gemm": 51, "gather_gemm_dx": 50},
+                   "dense_flow": {}}
+# bf16 steps of each execution through the CLI: two epochs of the 24
+# chunks at batch 8, the second ending at full level, so that the epoch's
+# prediction dump runs
+SECONDARY_TRAIN_STEPS = 6
+
+
+def phase_train_secondary(results: dict) -> None:
+    """Phase 10: the coordinate lists and the dense flow train (bf16,
+    128x64x64, batch 8, occupancy fractions (1.0, 0.5, 0.25, 0.125))."""
+    import dataclasses
+
+    from sgnn_tpu_torch.config import SGNNConfig
+    from sgnn_tpu_torch.infer import SceneInferencer
+    from sgnn_tpu_torch.models.dense_flow import GenModelDense
+    from sgnn_tpu_torch.models.sgnn import GenModelSparse
+    from sgnn_tpu_torch.ops import kernels as K
+    from sgnn_tpu_torch.params import init_params, load_jax_params
+    from sgnn_tpu_torch.tools import train as train_cli
+    from sgnn_tpu_torch.tools.test_scene import load_params
+    from sgnn_tpu_torch.train import step as TS
+
+    base = SGNNConfig(input_dim=TRAIN_DIMS, batch_size=TRAIN_BATCH,
+                      compute_dtype="float32", execution="sparse")
+    L, B = base.num_hierarchy_levels, TRAIN_BATCH
+    lw = np.ones(L + 1, np.float32)  # every level and the surface
+    with tempfile.TemporaryDirectory() as tmp:
+        files, batch = _train_batch("train2", tmp, base)
+        dev = TS.to_device(batch, "cuda")
+        weights = init_params(base, seed=0)
+
+        # f32, the coordinate lists: K10 (forward and input gradient)
+        # against the plain versions, under phase 7's rule
+        _f32_steps("train2", lambda: TS.train_model(base), weights, dev, lw)
+
+        for ex, want in SECONDARY_TRAIN.items():
+            cfg = dataclasses.replace(base, execution=ex,
+                                      compute_dtype="bfloat16")
+            model = TS.train_model(cfg).cuda()
+            load_jax_params(model, *weights)
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            K.reset_launch_counts()
+            m, _ = _step(model, dev, lw)
+            counts = K.launch_counts()
+            peak = torch.cuda.max_memory_allocated()
+            per = np.round(m["per_level"].cpu().numpy(), 5).tolist()
+            log(f"[train2] {ex} bfloat16 step: loss {float(m['loss']):.5f}, "
+                f"per level {per}; overflow {m['overflow']}; launches "
+                f"{ {k: v for k, v in counts.items() if v} } (expected "
+                f"{want}); peak device memory {peak / 2**20:.1f} MiB")
+            require(np.isfinite(float(m["loss"])), f"{ex}: loss {m['loss']}")
+            for name, n in counts.items():
+                require(n == want.get(name, 0),
+                        f"{ex}: {name} launched {n} times per train step, "
+                        f"expected {want.get(name, 0)}")
+            if ex == "sparse":
+                results["gather_gemm"]["launches"] = (
+                    counts["gather_gemm"] + counts["gather_gemm_dx"])
+                # every K10 call of a second step, forward and input
+                # gradient, against its plain version on its own inputs
+                with MainPathCheck() as chk:
+                    _step(model, dev, lw)
+                for name in want:
+                    st = chk.stats[name]
+                    log(f"[train2] step inputs, {name}: {st['calls']} calls, "
+                        f"max |kernel - plain| {st['err']:.3e} (at most "
+                        f"{st['ratio']:.2f} of tol)")
+                    require(st["calls"] == want[name],
+                            f"{name}: {st['calls']} checked calls, expected "
+                            f"{want[name]}")
+            _step_ms("train2", f"one bfloat16 {ex} step" + (
+                "" if want else " (no hand-written kernel)"), model, dev, lw,
+                peak, plain=bool(want))
+            del model
+
+            # the training CLI, in-process, SECONDARY_TRAIN_STEPS steps
+            # over the chunks; its checkpoint served by the execution's
+            # eval forward
+            lst = os.path.join(tmp, "all.txt")
+            with open(lst, "w") as fh:
+                fh.write("\n".join(os.path.basename(f) for f in files) + "\n")
+            save = os.path.join(tmp, f"logs_{ex}")
+            K.reset_launch_counts()
+            t0 = time.perf_counter()
+            trainer = train_cli.main([
+                "--data_path", tmp, "--train_file_list", lst, "--save", save,
+                "--execution", ex, "--compute_dtype", "bfloat16",
+                "--batch_size", str(B), "--num_iters_per_level", "1",
+                "--max_steps", str(SECONDARY_TRAIN_STEPS)])
+            wall = time.perf_counter() - t0
+            losses = [loss for _, loss in trainer.loss_history]
+            meshes = sorted(os.path.relpath(os.path.join(d, f), save)
+                            for d, _, fs in os.walk(save) for f in fs
+                            if f.endswith(".ply"))
+            log(f"[train2] CLI --execution {ex}: {len(losses)} steps in "
+                f"{wall:.1f} s; losses "
+                f"{' '.join(f'{v:.4f}' for v in losses)}; launches "
+                f"{ {k: v for k, v in K.launch_counts().items() if v} }; "
+                f"{len(meshes)} prediction PLYs ({meshes[:3]} ...)")
+            require(len(losses) == SECONDARY_TRAIN_STEPS
+                    and np.isfinite(losses).all(), f"{ex}: losses {losses}")
+            require(len(meshes) > 0, f"{ex}: the CLI wrote no predictions")
+            ckpts = sorted(f for f in os.listdir(save) if f.endswith(".ckpt"))
+            require(len(ckpts) > 0, f"{ex}: no checkpoint in {save}")
+            dims = (96, 128, 128)
+            serve_cfg = dataclasses.replace(cfg, batch_size=1)
+            served = (GenModelSparse if ex == "sparse"
+                      else GenModelDense)(serve_cfg).cuda()
+            load_jax_params(served, *load_params(
+                os.path.join(save, ckpts[-1]), serve_cfg))
+            _, _, i_locs, i_sdf = _room(dims, seed=7)
+            r = SceneInferencer(served)({
+                "name": "room7", "sdf": np.zeros(dims, np.float32),
+                "input_locs": i_locs, "input_sdf": i_sdf,
+                "orig_dims": np.asarray(dims), "world2grid": np.eye(4)})
+            require(np.isfinite(r["levels"][0]["dense_out"]).all()
+                    and np.isfinite(r["surf_sdf"]).all(),
+                    f"{ex}: the trained checkpoint served non-finite values")
+            log(f"[train2] {ex}: {ckpts[-1]} served a {dims} room: active "
+                f"per level {r['level_active']}, surface "
+                f"{len(r['surf_locs'])} voxels")
+            del served
 
 
 # ------------------------------------------------------------------ phase 9
@@ -3641,6 +3913,7 @@ def main() -> int:
         serve_weights = phase_serve(model, weights)
         phase_secondary(results, weights)
         phase_train(results)
+        phase_train_secondary(results)
         phase_drive(device["card"], serve_weights)
     except SmokeError as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)

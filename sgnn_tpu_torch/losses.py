@@ -1,13 +1,15 @@
-"""Hierarchical occupancy/SDF losses of the dense-flow and folded
-executions (port of ``sgnn_tpu/losses.py``: ``preprocess_sdf:48``,
-``apply_log_transform:54``, ``compute_targets:59``,
+"""Hierarchical occupancy/SDF losses (port of ``sgnn_tpu/losses.py``:
+``preprocess_sdf:48``, ``apply_log_transform:54``, ``compute_targets:59``,
 ``compute_bce_dense:152``, ``compute_l1_dense:200``,
-``compute_weights_missing_geo_dense:221``, ``compute_loss_dense_flow:235``;
-the reference's loss.py) and its evaluation metrics at a coordinate list
-of predicted voxels (``compute_l1_predsurf_sparse_dense:172``,
-``compute_l1_tgtsurf_sparse_dense:327``, ``compute_iou_sparse_dense:353``),
-computed on the device their tensors lie on (summed in f64). Every
-reduction is a masked mean over dense grids or rows.
+``compute_weights_missing_geo_dense:221``, ``compute_loss_dense_flow:235``
+for the dense-flow and folded executions; ``compute_weights_missing_geo:
+91``, ``compute_bce_sparse_dense:131``, ``compute_loss:379`` for the
+coordinate lists; the reference's loss.py) and the evaluation metrics at a
+coordinate list of predicted voxels (``compute_l1_predsurf_sparse_dense:
+172``, ``compute_l1_tgtsurf_sparse_dense:327``,
+``compute_iou_sparse_dense:353``), computed on the device their tensors
+lie on. Every reduction is a masked mean over dense grids or rows: the
+losses' in f32 as the JAX package sums them, the metrics' in f64.
 
 Conventions (loss.py:10-13): UNK_THRESH = 2, UNK_ID = -1. A voxel with
 known >= UNK_THRESH is unobserved; with use_loss_masking those voxels are
@@ -139,6 +141,17 @@ def compute_weights_missing_geo_dense(weight_missing_geo: float,
     return weights
 
 
+def _coarse_loss(coarse_out, targets: TargetBundle, w0, use_log_transform,
+                 use_loss_masking):
+    """Level 0: BCE and L1 of the dense coarse prediction over every
+    coarse voxel."""
+    occ0 = targets.target_for_occs[0]
+    return compute_bce_dense(coarse_out[..., 0], occ0, w0,
+                             use_loss_masking) + compute_l1_dense(
+        coarse_out[..., 1], targets.target_for_hier[0], w0,
+        use_log_transform, use_loss_masking, occ0 == UNK_ID)
+
+
 def compute_loss_dense_flow(out, targets: TargetBundle, loss_weights,
                             truncation: float, *, num_refine_active: int,
                             do_surf: bool, use_log_transform: bool = True,
@@ -154,17 +167,11 @@ def compute_loss_dense_flow(out, targets: TargetBundle, loss_weights,
     if weight_missing_geo > 1:
         weights = compute_weights_missing_geo_dense(weight_missing_geo,
                                                     input_mask, L)
-    dev = out.coarse_out.device
-    minus1 = torch.tensor(-1.0, device=dev)
-    losses = []
-    occ0 = targets.target_for_occs[0]
-    unk0 = occ0 == UNK_ID
-    lvl0 = compute_bce_dense(out.coarse_out[..., 0], occ0, weights[0],
-                             use_loss_masking) + compute_l1_dense(
-        out.coarse_out[..., 1], targets.target_for_hier[0], weights[0],
-        use_log_transform, use_loss_masking, unk0)
+    minus1 = torch.tensor(-1.0, device=out.coarse_out.device)
+    lvl0 = _coarse_loss(out.coarse_out, targets, weights[0],
+                        use_log_transform, use_loss_masking)
     total = loss_weights[0] * lvl0
-    losses.append(lvl0)
+    losses = [lvl0]
 
     def masked_level(pred, site_mask, occ_t, hier_t, w):
         unk = occ_t == UNK_ID
@@ -214,11 +221,13 @@ def compute_l1_predsurf_sparse_dense(locs, num_valid: int, preds,
                                      dense_tgts, weights,
                                      use_log_transform: bool,
                                      use_loss_masking: bool,
-                                     known_mask_unk):
+                                     known_mask_unk, mean=None):
     """L1 at the predicted voxels ``locs [cap, 4]`` (z, y, x, b), the first
     ``num_valid`` rows, against the dense target SDF [B, Z, Y, X]; with
     ``use_loss_masking`` the voxels ``known_mask_unk`` (bool, True =
-    unknown) marks are left out (the reference's loss.py:122-157)."""
+    unknown) marks are left out (the reference's loss.py:122-157).
+    ``mean``: the masked mean, the metric's f64 one by default; the loss
+    passes ``_masked_mean``."""
     tgt = gather_dense(dense_tgts[..., None], locs)[:, 0]
     mask = C.valid_mask(num_valid, locs.shape[0], locs.device)
     if use_loss_masking and known_mask_unk is not None:
@@ -230,7 +239,7 @@ def compute_l1_predsurf_sparse_dense(locs, num_valid: int, preds,
     loss = (p - t).abs()
     if weights is not None:
         loss = loss * gather_dense(weights[..., None], locs)[:, 0]
-    return _metric_mean(loss, mask)
+    return (mean or _metric_mean)(loss, mask)
 
 
 def _scatter_rows(locs, rows, vals, fill, shape) -> torch.Tensor:
@@ -277,3 +286,83 @@ def compute_iou_sparse_dense(locs, num_valid: int, occupied, dense_tgts,
     union = (pred | tgt1).sum()
     iou = inter.float() / union.clamp_min(1).float()
     return torch.where(union > 0, iou, torch.full_like(iou, -1.0))
+
+
+def compute_weights_missing_geo(weight_missing_geo: float, input_locs,
+                                input_num_valid: int, target_for_occs: list
+                                ) -> list:
+    """compute_weights_missing_geo_dense at the voxels of the sparse input
+    rows ``input_locs`` (the first ``input_num_valid``)."""
+    finest = target_for_occs[-1]
+    valid = C.valid_mask(input_num_valid, input_locs.shape[0],
+                         input_locs.device)
+    is_input = _scatter_rows(input_locs, valid, torch.ones_like(valid), False,
+                             finest.shape)
+    return compute_weights_missing_geo_dense(weight_missing_geo, is_input,
+                                             len(target_for_occs))
+
+
+def compute_bce_sparse_dense(locs, num_valid: int, logits, dense_tgts,
+                             weights, use_loss_masking: bool):
+    """BCE of the logits at ``locs [cap, 4]`` (the first ``num_valid``
+    rows) against the dense occupancy [B, z, y, x] in {0, 1, UNK_ID}
+    (the reference's loss.py:58-82)."""
+    tgt = gather_dense(dense_tgts[..., None], locs)[:, 0]
+    mask = C.valid_mask(num_valid, locs.shape[0], locs.device)
+    if use_loss_masking:
+        mask = mask & (tgt != UNK_ID)
+    else:
+        tgt = torch.where(tgt == UNK_ID, torch.zeros_like(tgt), tgt)
+    loss = bce_with_logits(logits, tgt)
+    if weights is not None:
+        loss = loss * gather_dense(weights[..., None], locs)[:, 0]
+    return _masked_mean(loss, mask)
+
+
+def compute_loss(out, targets: TargetBundle, loss_weights, truncation: float,
+                 *, num_refine_active: int, do_surf: bool,
+                 use_log_transform: bool = True,
+                 weight_missing_geo: float = 1.0, input_locs=None,
+                 input_num_valid: int = 0, use_loss_masking: bool = True,
+                 known=None):
+    """Total hierarchical loss of a coordinate-list GenModelOutput
+    (loss.py:160-199, at each level's unpruned rows): the same terms as
+    compute_loss_dense_flow, gathered at the rows. Returns (total,
+    per-level list: level 0..L-1, surface; -1 for an inactive level)."""
+    L = len(targets.target_for_occs)
+    weights = [None] * L
+    if weight_missing_geo > 1:
+        weights = compute_weights_missing_geo(
+            weight_missing_geo, input_locs, input_num_valid,
+            targets.target_for_occs)
+    minus1 = torch.tensor(-1.0, device=out.coarse_out.device)
+    lvl0 = _coarse_loss(out.coarse_out, targets, weights[0],
+                        use_log_transform, use_loss_masking)
+    total = loss_weights[0] * lvl0
+    losses = [lvl0]
+    for h in range(1, L):
+        if h - 1 < num_refine_active:
+            locs_u, out_u, num_u = out.refine_outs[h - 1]
+            occ_t = targets.target_for_occs[h]
+            lvl = compute_bce_sparse_dense(
+                locs_u, num_u, out_u[:, 0], occ_t, weights[h],
+                use_loss_masking) + compute_l1_predsurf_sparse_dense(
+                locs_u, num_u, out_u[:, 1], targets.target_for_hier[h],
+                weights[h], use_log_transform, use_loss_masking,
+                occ_t == UNK_ID, mean=_masked_mean)
+            total = total + loss_weights[h] * lvl
+            losses.append(lvl)
+        else:
+            losses.append(minus1)
+    if do_surf:
+        known_unk = (known >= UNK_THRESH if use_loss_masking
+                     and known is not None else None)
+        surf = compute_l1_predsurf_sparse_dense(
+            out.surf_locs, out.surf_num_valid, out.surf_sdf[:, 0],
+            targets.target_for_sdf, weights[-1], use_log_transform,
+            use_loss_masking, known_unk, mean=_masked_mean)
+        total = total + loss_weights[-1] * surf
+        losses.append(surf)
+    else:
+        losses.append(minus1)
+    return total, losses

@@ -6,28 +6,33 @@
   ``DenseTrunk`` serves with prepared eval constants; ``dense_trunk_train``
   is the same trunk over parameter tensors, with batch-moment BN when
   training. Every execution of the port shares it.
-- The eval forward of ``genmodel_apply_dense`` (:390-596),
-  ``GenModelDense``: every level is a masked dense channels-last grid
+- ``genmodel_apply_dense`` (:390-596), served by ``GenModelDense`` and
+  trained by ``GenModelDenseTrain`` (batch moments, no K8 under training,
+  as the JAX package has it): every level is a masked dense channels-last grid
   ``[B, Z, Y, X, C]`` with a bool mask ``[B, Z, Y, X]``; submanifold
   convs are dense convs times the mask, strided convs max-pool the mask,
   the generative upsample is a transposed conv, pruning ands the mask
   with the occupancy gate. Concatenations stay virtual: activations are
   lists of channel groups, and each consumer splits its weights per
-  group. With ``cfg.use_pallas_conv`` every eligible 3^3 conv (volume
-  >= ``cfg.pallas_min_voxels``, shapes ``conv3d_3x3x3_folded`` supports)
-  runs K8, exactly where the JAX package routes its Pallas kernel.
+  group. With ``cfg.use_pallas_conv`` every eligible 3^3 conv of the eval
+  forward (volume >= ``cfg.pallas_min_voxels``, shapes
+  ``conv3d_3x3x3_folded`` supports) runs K8, exactly where the JAX
+  package routes its Pallas kernel.
+- ``EvalModel`` and ``TrainModel``, the serving and the trainable models'
+  bases, which every execution shares.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import functools
 
 import numpy as np
 import torch
 from torch import nn
 
 from sgnn_tpu_torch.config import SGNNConfig
-from sgnn_tpu_torch.nn.blocks import PreparedTree
+from sgnn_tpu_torch.nn.blocks import PreparedTree, prepared_bn, sub
 from sgnn_tpu_torch.ops import bn as BN
 from sgnn_tpu_torch.ops import coords as C
 from sgnn_tpu_torch.ops import dense as D
@@ -151,7 +156,9 @@ def dense_trunk_train(enc_p: dict, enc_s: dict, cfg: SGNNConfig,
 #
 # A "groups" value is a list of [B, Z, Y, X, C_i] grids sharing one mask:
 # the virtual concatenation along channels. Parameters are a prepared
-# tree (ops/bn.prepare_eval_tree): f32 weights, BN eval constants.
+# tree (ops/bn.prepare_eval_tree: f32 weights, BN eval constants, stats
+# None) with ``bn = prepared_bn``, or parameter tensors with
+# ``ops/bn.batch_norm`` (nn/blocks.py); every block returns its new stats.
 
 
 def _pallas_ok(grid: torch.Tensor, weight: torch.Tensor, min_voxels: int
@@ -231,16 +238,22 @@ def _linear(groups, p):
     return acc + p["bias"]
 
 
-def _mask_bn(p, groups, mask):
-    """Masked eval BN + ReLU per group over the group's channel slice."""
-    outs, off = [], 0
+def _mask_bn(bn, p, s, groups, mask):
+    """Masked BN + ReLU per group over the group's channel slice of the
+    node's vectors (dense_flow.py:187-215). Returns (the groups, the new
+    stats: the groups' slices concatenated; None for a prepared node)."""
+    outs, parts, off = [], [], 0
     for g in groups:
         c = g.shape[-1]
-        outs.append(BN.batch_norm_rows(g, mask, p["mean"][off:off + c],
-                                       p["inv"][off:off + c],
-                                       p["bias"][off:off + c]))
+        pg = {k: v[off:off + c] for k, v in p.items()}
+        sg = None if s is None else {k: v[off:off + c] for k, v in s.items()}
+        y, ns = bn(pg, sg, g, mask)
+        outs.append(y)
+        parts.append(ns)
         off += c
-    return outs
+    if s is None:
+        return outs, None
+    return outs, {k: torch.cat([q[k] for q in parts]) for k in parts[0]}
 
 
 def _upsample2(grid):
@@ -250,47 +263,78 @@ def _upsample2(grid):
     return grid
 
 
-def _resblock(p, grid, mask, use_pallas, impl):
-    y = _mask_bn(p["bn0"], [grid], mask)
+def _resblock(p, s, grid, mask, bn, use_pallas, impl):
+    new = {}
+    y, new["bn0"] = _mask_bn(bn, p["bn0"], sub(s, "bn0"), [grid], mask)
     y = _subm_conv(y, mask, p["conv0"], use_pallas, impl)
-    y = _mask_bn(p["bn1"], [y], mask)
+    y, new["bn1"] = _mask_bn(bn, p["bn1"], sub(s, "bn1"), [y], mask)
     y = _subm_conv(y, mask, p["conv1"], use_pallas, impl)
-    return grid + y
+    return grid + y, new
 
 
-def _unet(p, groups, mask, use_pallas, impl):
-    """FullyConvolutionalNet (reps=1, residual): returns the groups [x,
-    up(deeper)...] at this resolution."""
+def _unet(p, s, groups, mask, bn, use_pallas, impl):
+    """FullyConvolutionalNet (reps=1, residual): returns (the groups [x,
+    up(deeper)...] at this resolution, new stats)."""
     x = groups[0] if len(groups) == 1 else torch.cat(groups, -1)
-    x = _resblock(p["block"], x, mask, use_pallas, impl)
+    new = {}
+    x, new["block"] = _resblock(p["block"], sub(s, "block"), x, mask, bn,
+                                use_pallas, impl)
     if "deeper" not in p:
-        return [x]
-    y = _mask_bn(p["down_bn"], [x], mask)
+        return [x], new
+    y, new["down_bn"] = _mask_bn(bn, p["down_bn"], sub(s, "down_bn"), [x],
+                                 mask)
     down, down_mask = _strided_conv(y, mask, p["down_conv"])
-    deep = _unet(p["deeper"], [down], down_mask, use_pallas, impl)
+    deep, new["deeper"] = _unet(p["deeper"], sub(s, "deeper"), [down],
+                                down_mask, bn, use_pallas, impl)
     m = mask[..., None]
-    return [x, *[_upsample2(d) * m.to(d.dtype) for d in deep]]
+    return [x, *[_upsample2(d) * m.to(d.dtype) for d in deep]], new
 
 
-def _encoder_layer(p, groups, mask, use_pallas, impl):
-    """Returns (the downsampled grid, its mask, (the skip ft2, its
-    mask))."""
+def _encoder_layer(p, s, groups, mask, bn, use_pallas, impl):
+    """Returns (the downsampled grid, its mask, (the skip ft2, its mask),
+    new stats)."""
+    new = {}
     x = _subm_conv(groups, mask, p["p1"], use_pallas, impl)
-    x = _resblock(p["p2"], x, mask, use_pallas, impl)
-    y = _mask_bn(p["p2_bn"], [x], mask)
+    x, new["p2"] = _resblock(p["p2"], sub(s, "p2"), x, mask, bn, use_pallas,
+                             impl)
+    y, new["p2_bn"] = _mask_bn(bn, p["p2_bn"], sub(s, "p2_bn"), [x], mask)
     down, down_mask = _strided_conv(y, mask, p["p3"])
-    z = _mask_bn(p["p3_bn"], [down], down_mask)
-    return z[0], down_mask, (y[0], mask)
+    z, new["p3_bn"] = _mask_bn(bn, p["p3_bn"], sub(s, "p3_bn"), [down],
+                               down_mask)
+    return z[0], down_mask, (y[0], mask), new
+
+
+def _refine_level(p, s, cfg, cur, cur_mask, bn, use_pallas, impl):
+    """One generative level (dense_flow.py:486-528): U-Net, the fused
+    upsample conv, the heads and the pruned mask. Returns (the next groups,
+    their mask, out [B, z, y, x, 2] f32, the unpruned mask, new stats)."""
+    new = {}
+    z = _subm_conv(cur, cur_mask, p["p1"], use_pallas, impl)
+    z, new["p2"] = _unet(p["p2"], sub(s, "p2"), [z], cur_mask, bn,
+                         use_pallas, impl)
+    z, new["p3"] = _mask_bn(bn, p["p3"], sub(s, "p3"), z, cur_mask)
+    mask_unfilt = _upsample2(cur_mask)
+    up = _upsampled_conv(z, p["n1"])
+    up = up * mask_unfilt[..., None].to(up.dtype)
+    up, new["n2"] = _mask_bn(bn, p["n2"], sub(s, "n2"), [up], mask_unfilt)
+    up = up[0]
+    occ = _linear([up], p["linear"])
+    out_h = torch.cat([occ, _linear([up], p["linearsdf"])], -1)
+    new_mask = mask_unfilt & (torch.sigmoid(occ[..., 0]) > 0.5)
+    nmf = new_mask[..., None].to(up.dtype)
+    nxt = [up * nmf] * cfg.pass_feats + [out_h.to(up.dtype) * nmf] * \
+        cfg.pass_occ
+    return nxt, new_mask, out_h, mask_unfilt, new
 
 
 @dataclasses.dataclass
 class DenseFlowOutput:
     """coarse_out [B, Z8, Y8, X8, 2] f32 (occ logit, sdf); refine_outs:
-    per level [B, z, y, x, 2] f32 at the unpruned upsampled sites;
+    per active level [B, z, y, x, 2] f32 at the unpruned upsampled sites;
     refine_masks_unfilt: per level [B, z, y, x] bool, those sites;
-    surf_sdf [B, Z, Y, X] f32; surf_mask [B, Z, Y, X] bool; level_active:
-    active voxels per level, coarse to fine (0-d tensors; the last is the
-    surface's)."""
+    surf_sdf [B, Z, Y, X] f32; surf_mask [B, Z, Y, X] bool (zeros without
+    the surface head); level_active: active voxels per level, coarse to
+    fine (0-d tensors; the last is the surface's)."""
     coarse_out: torch.Tensor
     refine_outs: list
     refine_masks_unfilt: list
@@ -299,15 +343,23 @@ class DenseFlowOutput:
     level_active: list
 
 
-def genmodel_apply_dense(tree: dict, trunk: DenseTrunk, cfg: SGNNConfig,
-                         st: SparseTensor, *, impl: str | None = None
-                         ) -> DenseFlowOutput:
-    """The eval forward of every level and the surface head
-    (dense_flow.py:390-596 with training=False, num_refine_active = all,
-    do_surf=True, no spatial sharding). ``tree``: the prepared
-    ``process_sparse`` / ``refinement`` / ``surfacepred`` subtrees."""
+def genmodel_apply_dense(tree: dict, stats, cfg: SGNNConfig,
+                         st: SparseTensor, *, trunk, bn,
+                         num_refine_active: int | None = None,
+                         do_surf: bool = True, training: bool = False,
+                         impl: str | None = None):
+    """The dense-flow forward (dense_flow.py:390-596, no spatial sharding):
+    ``tree``/``stats`` the sparse levels' subtrees (``process_sparse``,
+    ``refinement``, ``surfacepred``; stats None for a prepared tree),
+    ``trunk(x) -> (y, coarse_out, its new stats)``, ``bn`` as in
+    nn/blocks.py. The first ``num_refine_active`` refinement levels run
+    (all by default), the surface head with ``do_surf`` once all do. With
+    ``training`` no conv runs K8 (the JAX package turns its kernel off
+    under training) and nothing is recomputed in the backward (no
+    ``jax.checkpoint``). Returns (DenseFlowOutput, new stats in the JAX
+    tree's layout; an inactive level keeps its stats)."""
     use_pallas = (max(1, int(cfg.pallas_min_voxels))
-                  if cfg.use_pallas_conv else 0)
+                  if cfg.use_pallas_conv and not training else 0)
     dt = getattr(torch, cfg.compute_dtype)
     B = st.batch_size
     Z, Y, X = st.spatial_size
@@ -318,14 +370,17 @@ def genmodel_apply_dense(tree: dict, trunk: DenseTrunk, cfg: SGNNConfig,
     mask[keys[st.valid() & (keys >= 0)]] = True
     mask = mask.reshape(B, Z, Y, X)
 
-    skips = []
+    skips, enc_s = [], []
     x, m = grid, mask
-    for p in tree["process_sparse"]:
-        x, m, ft2 = _encoder_layer(p, [x], m, use_pallas, impl)
+    for lvl, p in enumerate(tree["process_sparse"]):
+        x, m, ft2, s_l = _encoder_layer(
+            p, None if stats is None else stats["process_sparse"][lvl], [x],
+            m, bn, use_pallas, impl)
         skips.append(ft2)
+        enc_s.append(s_l)
     skips.append((x, m))
 
-    y, coarse_out = trunk(x)
+    y, coarse_out, s_trunk = trunk(x)
     cur_mask = torch.sigmoid(coarse_out[..., 0]) > 0.5
     cmf = cur_mask[..., None].to(dt)
     cur = ([coarse_out.to(dt) * cmf] * cfg.pass_occ
@@ -333,47 +388,71 @@ def genmodel_apply_dense(tree: dict, trunk: DenseTrunk, cfg: SGNNConfig,
     active = [cur_mask.sum()]
 
     L_ref = cfg.num_refine_levels
+    n_active = L_ref if num_refine_active is None else num_refine_active
     ref_outs, ref_masks = [], []
-    for h, p in enumerate(tree["refinement"]):
+    new_ref = list(sub(stats, "refinement") or [None] * L_ref)
+    for h in range(n_active):
         if cfg.use_skip_sparse:
             sk = skips[L_ref - h][0]
             cur = [*cur, sk * cur_mask[..., None].to(sk.dtype)]
-        z = _subm_conv(cur, cur_mask, p["p1"], use_pallas, impl)
-        z = _unet(p["p2"], [z], cur_mask, use_pallas, impl)
-        z = _mask_bn(p["p3"], z, cur_mask)
-        mask_unfilt = _upsample2(cur_mask)
-        up = _upsampled_conv(z, p["n1"])
-        up = up * mask_unfilt[..., None].to(up.dtype)
-        up = _mask_bn(p["n2"], [up], mask_unfilt)[0]
-        occ = _linear([up], p["linear"])
-        out_h = torch.cat([occ, _linear([up], p["linearsdf"])], -1)
-        cur_mask = mask_unfilt & (torch.sigmoid(occ[..., 0]) > 0.5)
-        nmf = cur_mask[..., None].to(dt)
-        cur = ([up * nmf] * cfg.pass_feats
-               + [out_h.to(dt) * nmf] * cfg.pass_occ)
+        cur, cur_mask, out_h, mask_unfilt, new_ref[h] = _refine_level(
+            tree["refinement"][h], None if stats is None
+            else stats["refinement"][h], cfg, cur, cur_mask, bn, use_pallas,
+            impl)
         ref_outs.append(out_h)
         ref_masks.append(mask_unfilt)
         active.append(cur_mask.sum())
 
-    p = tree["surfacepred"]
-    if cfg.use_skip_sparse:
-        sk = skips[0][0]
-        cur = [*cur, sk * cur_mask[..., None].to(sk.dtype)]
-    z = _subm_conv(cur, cur_mask, p["p1"], use_pallas, impl)
-    z = _unet(p["p2"], [z], cur_mask, use_pallas, impl)
-    z = _mask_bn(p["p3"], z, cur_mask)
-    surf = _linear(z, p["linear"])[..., 0]
+    if do_surf and n_active == L_ref:
+        p, s_s = tree["surfacepred"], sub(stats, "surfacepred")
+        if cfg.use_skip_sparse:
+            sk = skips[0][0]
+            cur = [*cur, sk * cur_mask[..., None].to(sk.dtype)]
+        new_surf = {}
+        z = _subm_conv(cur, cur_mask, p["p1"], use_pallas, impl)
+        z, new_surf["p2"] = _unet(p["p2"], sub(s_s, "p2"), [z], cur_mask, bn,
+                                  use_pallas, impl)
+        z, new_surf["p3"] = _mask_bn(bn, p["p3"], sub(s_s, "p3"), z,
+                                     cur_mask)
+        surf = _linear(z, p["linear"])[..., 0]
+    else:
+        surf = torch.zeros(B, Z, Y, X, device=grid.device)
+        cur_mask = torch.zeros_like(mask)
+        new_surf = sub(stats, "surfacepred")
+    new = {"encoder": {"process_sparse": enc_s, **s_trunk},
+           "refinement": new_ref, "surfacepred": new_surf}
     return DenseFlowOutput(coarse_out, ref_outs, ref_masks, surf, cur_mask,
-                           active)
+                           active), new
+
+
+def sparse_levels(tree: dict) -> dict:
+    """The sparse levels' subtrees of a params or stats tree: the
+    encoder's process_sparse, the refinements and the surface head."""
+    return {"process_sparse": tree["encoder"]["process_sparse"],
+            "refinement": tree["refinement"],
+            "surfacepred": tree["surfacepred"]}
 
 
 def sparse_levels_tree(params: dict, stats: dict) -> dict:
-    """The prepared subtrees of the sparse levels (BN eps 1e-4): the
-    encoder's process_sparse, the refinements and the surface head."""
-    sel = [{"process_sparse": t["encoder"]["process_sparse"],
-            "refinement": t["refinement"], "surfacepred": t["surfacepred"]}
-           for t in (params, stats)]
-    return BN.prepare_eval_tree(*sel)
+    """The prepared subtrees of the sparse levels (BN eps 1e-4)."""
+    return BN.prepare_eval_tree(sparse_levels(params), sparse_levels(stats))
+
+
+def genmodel_apply_dense_train(params: dict, stats: dict, cfg: SGNNConfig,
+                               st: SparseTensor, *, num_refine_active: int,
+                               do_surf: bool, training: bool = True,
+                               impl: str | None = None):
+    """``genmodel_apply_dense`` over the JAX tree's parameter tensors
+    (batch moments when ``training``, the running stats else; K8 only
+    when not training). Returns (DenseFlowOutput, new stats)."""
+    def trunk(x):
+        return dense_trunk_train(params["encoder"], stats["encoder"], cfg, x,
+                                 training=training)
+    return genmodel_apply_dense(
+        sparse_levels(params), sparse_levels(stats), cfg, st, trunk=trunk,
+        bn=functools.partial(BN.batch_norm, training=training),
+        num_refine_active=num_refine_active, do_surf=do_surf,
+        training=training, impl=impl)
 
 
 class EvalModel(nn.Module):
@@ -393,6 +472,10 @@ class EvalModel(nn.Module):
         self.trunk.load(params["encoder"], stats["encoder"], self.dtype)
         self.weights.load(sparse_levels_tree(params, stats))
 
+    def trunk_fn(self, x: torch.Tensor):
+        """The prepared trunk as the forwards' ``trunk``."""
+        return (*self.trunk(x), {})
+
     def scene_cfg(self, st: SparseTensor) -> SGNNConfig:
         """The config at ``st``'s volume and batch (raises for dims the
         model cannot take)."""
@@ -406,5 +489,86 @@ class GenModelDense(EvalModel):
     @torch.no_grad()
     def forward(self, st: SparseTensor, impl: str | None = None
                 ) -> DenseFlowOutput:
-        return genmodel_apply_dense(self.weights.tree(), self.trunk,
-                                    self.scene_cfg(st), st, impl=impl)
+        return genmodel_apply_dense(self.weights.tree(), None,
+                                    self.scene_cfg(st), st,
+                                    trunk=self.trunk_fn, bn=prepared_bn,
+                                    impl=impl)[0]
+
+
+class TrainModel(nn.Module):
+    """A trainable model of any execution: one ``nn.Parameter`` per leaf
+    of the JAX params tree and one buffer per leaf of its stats tree, both
+    in the JAX flatten order (``params.tree_items``); ``param_tree``/
+    ``stat_tree`` give them back as the nested trees the functional
+    forwards take, so checkpoints move between the executions and the two
+    packages. Initialised from ``params.init_params(cfg, seed)``. Each
+    subclass trains one execution, ``EXECUTION``, which its ``cfg`` is set
+    to (the train step dispatches on ``cfg.execution``)."""
+
+    EXECUTION = ""
+
+    def __init__(self, cfg: SGNNConfig, seed: int = 0):
+        from sgnn_tpu_torch.params import init_params, tree_items
+
+        super().__init__()
+        self.cfg = dataclasses.replace(cfg, execution=self.EXECUTION)
+        p, st = init_params(cfg, seed)
+        self._templates = (p, st)
+        self.param_keys = [k for k, _ in tree_items(p)]
+        self.stat_keys = [k for k, _ in tree_items(st)]
+        self.weights = nn.ParameterList(
+            nn.Parameter(torch.from_numpy(np.array(v)))
+            for _, v in tree_items(p))
+        for i, (_, v) in enumerate(tree_items(st)):
+            self.register_buffer(f"stat{i}", torch.from_numpy(np.array(v)))
+
+    def _stat_list(self) -> list:
+        return [getattr(self, f"stat{i}") for i in range(len(self.stat_keys))]
+
+    def params_like(self, leaves) -> dict:
+        """The params tree with ``leaves`` (in ``param_keys`` order)."""
+        from sgnn_tpu_torch.params import tree_build
+
+        by_key = dict(zip(self.param_keys, leaves))
+        return tree_build(self._templates[0], lambda k, _: by_key[k])
+
+    def param_tree(self) -> dict:
+        return self.params_like(self.weights)
+
+    def stat_tree(self) -> dict:
+        from sgnn_tpu_torch.params import tree_build
+
+        by_key = dict(zip(self.stat_keys, self._stat_list()))
+        return tree_build(self._templates[1], lambda k, _: by_key[k])
+
+    @torch.no_grad()
+    def load(self, params: dict, stats: dict) -> None:
+        """Copy numpy (or tensor) trees in the JAX layout into the model."""
+        from sgnn_tpu_torch.params import tree_items
+
+        for t, (_, v) in zip(self.weights, tree_items(params)):
+            t.copy_(torch.tensor(np.asarray(v, np.float32)))
+        self.set_stats(stats)
+
+    @torch.no_grad()
+    def set_stats(self, stats: dict) -> None:
+        """Store a stats tree (the forward's new running stats)."""
+        from sgnn_tpu_torch.params import tree_items
+
+        for t, (_, v) in zip(self._stat_list(), tree_items(stats)):
+            t.copy_(v if torch.is_tensor(v)
+                    else torch.tensor(np.asarray(v, np.float32)))
+
+
+class GenModelDenseTrain(TrainModel):
+    """The trainable dense-flow model (``genmodel_apply_dense_train``)."""
+
+    EXECUTION = "dense_flow"
+
+    def forward(self, st: SparseTensor, *, num_refine_active: int,
+                do_surf: bool, training: bool = True,
+                impl: str | None = None):
+        return genmodel_apply_dense_train(
+            self.param_tree(), self.stat_tree(), self.cfg, st,
+            num_refine_active=num_refine_active, do_surf=do_surf,
+            training=training, impl=impl)

@@ -12,8 +12,8 @@ stats are what ``train/step.py`` consumes. ``jax.checkpoint`` is not
 ported (the step fits the card without recomputation; ROADMAP).
 
 ``GenModelFoldedTrain`` holds the JAX tree's parameters and running stats
-(``params.load_jax_params`` fills it, ``params.export_params`` reads it
-back).
+(``models/dense_flow.TrainModel``: ``params.load_jax_params`` fills it,
+``params.export_params`` reads it back).
 """
 
 from __future__ import annotations
@@ -21,15 +21,12 @@ from __future__ import annotations
 import dataclasses
 from typing import Any
 
-import numpy as np
 import torch
-from torch import nn
 
 from sgnn_tpu_torch.config import SGNNConfig
-from sgnn_tpu_torch.models.dense_flow import dense_trunk_train
+from sgnn_tpu_torch.models.dense_flow import TrainModel, dense_trunk_train
 from sgnn_tpu_torch.ops import folded as FO
 from sgnn_tpu_torch.ops.folded import FGrid
-from sgnn_tpu_torch.params import init_params, tree_build, tree_items
 
 CPAD = 16
 
@@ -194,54 +191,10 @@ def genmodel_apply_folded_train(params: dict, stats: dict, cfg: SGNNConfig,
                            surf_mask), s
 
 
-class GenModelFoldedTrain(nn.Module):
-    """The trainable model: one ``nn.Parameter`` per leaf of the JAX params
-    tree and one buffer per leaf of its stats tree, both in the JAX flatten
-    order (``params.tree_items``); ``param_tree``/``stat_tree`` give them
-    back as the nested trees the functional forward takes. Initialised
-    from ``params.init_params(cfg, seed)``."""
+class GenModelFoldedTrain(TrainModel):
+    """The trainable folded model (``genmodel_apply_folded_train``)."""
 
-    def __init__(self, cfg: SGNNConfig, seed: int = 0):
-        super().__init__()
-        self.cfg = cfg
-        p, st = init_params(cfg, seed)
-        self._templates = (p, st)
-        self.param_keys = [k for k, _ in tree_items(p)]
-        self.stat_keys = [k for k, _ in tree_items(st)]
-        self.weights = nn.ParameterList(
-            nn.Parameter(torch.from_numpy(np.array(v)))
-            for _, v in tree_items(p))
-        for i, (_, v) in enumerate(tree_items(st)):
-            self.register_buffer(f"stat{i}", torch.from_numpy(np.array(v)))
-
-    def _stat_list(self) -> list:
-        return [getattr(self, f"stat{i}") for i in range(len(self.stat_keys))]
-
-    def params_like(self, leaves) -> dict:
-        """The params tree with ``leaves`` (in ``param_keys`` order)."""
-        by_key = dict(zip(self.param_keys, leaves))
-        return tree_build(self._templates[0], lambda k, _: by_key[k])
-
-    def param_tree(self) -> dict:
-        return self.params_like(self.weights)
-
-    def stat_tree(self) -> dict:
-        by_key = dict(zip(self.stat_keys, self._stat_list()))
-        return tree_build(self._templates[1], lambda k, _: by_key[k])
-
-    @torch.no_grad()
-    def load(self, params: dict, stats: dict) -> None:
-        """Copy numpy (or tensor) trees in the JAX layout into the model."""
-        for t, (_, v) in zip(self.weights, tree_items(params)):
-            t.copy_(torch.tensor(np.asarray(v, np.float32)))
-        self.set_stats(stats)
-
-    @torch.no_grad()
-    def set_stats(self, stats: dict) -> None:
-        """Store a stats tree (the forward's new running stats)."""
-        for t, (_, v) in zip(self._stat_list(), tree_items(stats)):
-            t.copy_(v if torch.is_tensor(v)
-                    else torch.tensor(np.asarray(v, np.float32)))
+    EXECUTION = "folded"
 
     def forward(self, locs, feats, num_valid: int, *, num_refine_active: int,
                 do_surf: bool, training: bool = True):

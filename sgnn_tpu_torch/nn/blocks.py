@@ -1,17 +1,21 @@
 """Building blocks of the coordinate-list execution over SparseTensors
-(port of ``sgnn_tpu/nn/blocks.py``, the eval-mode apply side; the
-parameter trees come from ``params.init_params`` or the JAX package).
+(port of ``sgnn_tpu/nn/blocks.py``, the apply side; the parameter trees
+come from ``params.init_params`` or the JAX package).
 
-Blocks take a *prepared* subtree (``PreparedTree``): every BN node
-already holds its eval constants (``ops/bn.prepare_eval_tree``), every
-other leaf the f32 parameter. The wiring follows the reference for
+Each block takes its parameter subtree, its running-stats subtree and a
+``bn(params, stats, x, mask) -> (y, new stats)`` that applies one BN node
+with its ReLU: ``prepared_bn`` for the serving forward, whose tree is
+*prepared* (``PreparedTree``: every BN node already holds its eval
+constants, ``ops/bn.prepare_eval_tree``; stats None), or ``ops/bn.
+batch_norm`` over parameter tensors (batch moments when training). Each
+returns its new stats subtree. The wiring follows the reference for
 checkpoint parity:
   * residual block: identity + BN-ReLU-conv x2;
   * encoder layer: subm conv -> residual block -> BN-ReLU (the skip) ->
     stride-2 conv -> BN-ReLU;
   * sparse U-Net: per level a residual block, then [identity | BN-ReLU ->
     stride-2 conv -> recurse -> unpool] concatenated.
-All submanifold convs at one active-site set share one index grid.
+All submanifold convs at one active-site set share one neighbour list.
 """
 
 from __future__ import annotations
@@ -68,52 +72,70 @@ class PreparedTree(nn.Module):
         return build(self._names)
 
 
-def bn_relu(p: dict, feats: torch.Tensor, mask: torch.Tensor
-            ) -> torch.Tensor:
+def prepared_bn(p: dict, s, feats: torch.Tensor, mask: torch.Tensor):
     """Eval BN + ReLU of the rows of ``feats`` with a prepared BN node;
-    rows where ``mask`` is False are zero."""
-    return BN.batch_norm_rows(feats, mask, p["mean"], p["inv"], p["bias"])
+    rows where ``mask`` is False are zero. The stats pass through."""
+    return BN.batch_norm_rows(feats, mask, p["mean"], p["inv"],
+                              p["bias"]), s
 
 
-def resblock_apply(p: dict, st: SparseTensor, *, index_grid=None,
-                   backend: str, impl: str | None = None) -> SparseTensor:
-    if index_grid is None:
-        index_grid = st.index_grid()
+def sub(stats, key):
+    """A stats subtree, or None for a prepared tree's (absent) stats."""
+    return None if stats is None else stats[key]
+
+
+def resblock_apply(p: dict, s, st: SparseTensor, *, bn, nbr=None,
+                   backend: str, impl: str | None = None):
+    if nbr is None:
+        nbr = CV.neighbours(st, backend)
     mask = st.valid()
-    kw = dict(index_grid=index_grid, backend=backend, impl=impl)
-    y = bn_relu(p["bn0"], st.feats, mask)
+    kw = dict(nbr=nbr, backend=backend, impl=impl)
+    new = {}
+    y, new["bn0"] = bn(p["bn0"], sub(s, "bn0"), st.feats, mask)
     y = CV.submanifold_conv3d(st.with_feats(y), p["conv0"], **kw).feats
-    y = bn_relu(p["bn1"], y, mask)
+    y, new["bn1"] = bn(p["bn1"], sub(s, "bn1"), y, mask)
     y = CV.submanifold_conv3d(st.with_feats(y), p["conv1"], **kw).feats
-    return st.with_feats(st.feats + y)
+    return st.with_feats(st.feats + y), new
 
 
-def encoder_layer_apply(p: dict, st: SparseTensor, *, out_capacity: int,
-                        backend: str, impl: str | None = None):
-    """Returns (the downsampled SparseTensor, the skip ft2)."""
-    kw = dict(index_grid=st.index_grid(), backend=backend, impl=impl)
-    x = CV.submanifold_conv3d(st, p["p1"], **kw)
-    x = resblock_apply(p["p2"], x, **kw)
-    ft2 = x.with_feats(bn_relu(p["p2_bn"], x.feats, x.valid()))
-    x = CV.strided_conv3d_down(ft2, p["p3"], out_capacity=out_capacity, **kw)
-    return x.with_feats(bn_relu(p["p3_bn"], x.feats, x.valid())), ft2
+def encoder_layer_apply(p: dict, s, st: SparseTensor, *, out_capacity: int,
+                        bn, backend: str, impl: str | None = None):
+    """Returns (the downsampled SparseTensor, the skip ft2, new stats)."""
+    grid = st.index_grid()
+    kw = dict(backend=backend, impl=impl)
+    nbr = CV.neighbours(st, backend, grid)
+    new = {}
+    x = CV.submanifold_conv3d(st, p["p1"], nbr=nbr, **kw)
+    x, new["p2"] = resblock_apply(p["p2"], sub(s, "p2"), x, bn=bn, nbr=nbr,
+                                  **kw)
+    y, new["p2_bn"] = bn(p["p2_bn"], sub(s, "p2_bn"), x.feats, x.valid())
+    ft2 = x.with_feats(y)
+    x = CV.strided_conv3d_down(ft2, p["p3"], out_capacity=out_capacity,
+                               index_grid=grid, **kw)
+    y, new["p3_bn"] = bn(p["p3_bn"], sub(s, "p3_bn"), x.feats, x.valid())
+    return x.with_feats(y), ft2, new
 
 
-def sparse_unet_apply(p: dict, st: SparseTensor, *, backend: str,
-                      impl: str | None = None) -> SparseTensor:
+def sparse_unet_apply(p: dict, s, st: SparseTensor, *, bn, nbr=None,
+                      backend: str, impl: str | None = None):
     """FullyConvolutionalNet (reps=1, residual): the output carries the
     widths of every level (identity first, then the unpooled deeper
-    branch)."""
-    index_grid = st.index_grid()
-    x = resblock_apply(p["block"], st, index_grid=index_grid,
-                       backend=backend, impl=impl)
+    branch). Returns (it, new stats)."""
+    grid = st.index_grid()
+    if nbr is None:
+        nbr = CV.neighbours(st, backend, grid)
+    kw = dict(backend=backend, impl=impl)
+    new = {}
+    x, new["block"] = resblock_apply(p["block"], sub(s, "block"), st, bn=bn,
+                                     nbr=nbr, **kw)
     if "deeper" not in p:
-        return x
-    y = bn_relu(p["down_bn"], x.feats, x.valid())
+        return x, new
+    y, new["down_bn"] = bn(p["down_bn"], sub(s, "down_bn"), x.feats,
+                           x.valid())
     down = CV.strided_conv3d_down(x.with_feats(y), p["down_conv"],
-                                  out_capacity=x.capacity,
-                                  index_grid=index_grid, backend=backend,
-                                  impl=impl)
-    deep = sparse_unet_apply(p["deeper"], down, backend=backend, impl=impl)
+                                  out_capacity=x.capacity, index_grid=grid,
+                                  **kw)
+    deep, new["deeper"] = sparse_unet_apply(p["deeper"], sub(s, "deeper"),
+                                            down, bn=bn, **kw)
     up = CV.unpool_x2(x.locs, x.num_valid, deep)
-    return x.with_feats(torch.cat([x.feats, up.feats], -1))
+    return x.with_feats(torch.cat([x.feats, up.feats], -1)), new

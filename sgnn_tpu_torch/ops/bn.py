@@ -1,8 +1,11 @@
 """Batch norm (port of ``sgnn_tpu/ops/bn.py``): dense channels-last grids
 (``batch_norm_dense``: ``nn.BatchNorm3d`` semantics, eps 1e-5) in the eval
 form with precomputed constants and in the training form with batch
-moments and the running-stats update; and the eval form over the masked
-rows of the sparse levels (``batch_norm`` with a mask, scn's eps 1e-4)."""
+moments and the running-stats update; and the masked rows of the sparse
+levels (``batch_norm`` with a mask, scn's eps 1e-4): the eval form with
+precomputed constants (``batch_norm_rows``) and the form over parameter
+tensors (``batch_norm``, with the batch moments of the mask's rows when
+training)."""
 
 from __future__ import annotations
 
@@ -59,21 +62,36 @@ def prepare_eval_tree(params, stats, eps: float = SPARSE_BN_EPS):
     return torch.tensor(np.asarray(params, np.float32))
 
 
-def batch_norm_dense(params: dict, stats: dict, x: torch.Tensor, *,
-                     training: bool, eps: float = DENSE_BN_EPS,
-                     momentum: float = BN_MOMENTUM):
-    """BN + ReLU over the last axis of ``x [..., C]`` with parameter tensors
-    (ops/bn.py:batch_norm, relu=True). Training: one-pass batch moments
-    (E[x^2] - E[x]^2) over every voxel, and the running stats updated with
-    the unbiased variance (detached); eval: the running stats. Returns
-    (y in x's type, new stats). The clamps are torch.relu: gradient 0 at
-    exactly 0, as jnp.maximum's."""
+def masked_moments(x: torch.Tensor, mask: torch.Tensor | None):
+    """(mean, biased var, count) f32 over the rows of ``x [..., C]`` where
+    ``mask [...]`` is True (every row without a mask), in one pass:
+    E[x^2] - E[x]^2, the count clamped to at least 1, the variance to at
+    least 0 (torch.relu: gradient 0 at exactly 0)."""
+    xf = x.float().reshape(-1, x.shape[-1])
+    if mask is not None:
+        m = mask.reshape(-1, 1).float()
+        count = m.sum()
+        s, sq = (xf * m).sum(0), (xf * xf * m).sum(0)
+    else:
+        count = torch.tensor(float(xf.shape[0]), device=x.device)
+        s, sq = xf.sum(0), (xf * xf).sum(0)
+    count = count.clamp_min(1.0)
+    mean = s / count
+    return mean, torch.relu(sq / count - mean * mean), count
+
+
+def batch_norm(params: dict, stats: dict, x: torch.Tensor,
+               mask: torch.Tensor | None = None, *, training: bool,
+               eps: float = SPARSE_BN_EPS, momentum: float = BN_MOMENTUM):
+    """BN + ReLU over the last axis of ``x [..., C]`` with parameter
+    tensors (ops/bn.py:batch_norm, relu=True). Training: the batch moments
+    of the rows where ``mask [...]`` is True, and the running stats updated
+    with the unbiased variance (detached); eval: the running stats. The
+    output is rounded to x's type, then zero where ``mask`` is False.
+    Returns (y, new stats)."""
     if training:
-        xf = x.float().reshape(-1, x.shape[-1])
-        n = max(float(xf.shape[0]), 1.0)
-        mean = xf.sum(0) / n
-        var = torch.relu((xf * xf).sum(0) / n - mean * mean)
-        unbiased = var * (n / max(n - 1.0, 1.0))
+        mean, var, count = masked_moments(x, mask)
+        unbiased = var * (count / (count - 1.0).clamp_min(1.0))
         new_stats = {
             "mean": (momentum * stats["mean"]
                      + (1.0 - momentum) * mean).detach(),
@@ -83,5 +101,18 @@ def batch_norm_dense(params: dict, stats: dict, x: torch.Tensor, *,
     else:
         mean, var, new_stats = stats["mean"], stats["var"], stats
     inv = torch.rsqrt(var + eps) * params["scale"]
-    y = torch.relu((x.float() - mean) * inv + params["bias"])
-    return y.to(x.dtype), new_stats
+    y = torch.relu((x.float() - mean) * inv + params["bias"]).to(x.dtype)
+    if mask is not None:
+        y = torch.where(mask[..., None], y, 0)
+    return y, new_stats
+
+
+def batch_norm_dense(params: dict, stats: dict, x: torch.Tensor, *,
+                     training: bool, eps: float = DENSE_BN_EPS,
+                     momentum: float = BN_MOMENTUM):
+    """BN + ReLU over the last axis of ``x [..., C]``, every voxel counted
+    (ops/bn.py:batch_norm_dense, relu=True): ``batch_norm`` without a mask
+    at the dense eps. Returns (y in x's type, new stats). The clamps are
+    torch.relu: gradient 0 at exactly 0."""
+    return batch_norm(params, stats, x, training=training, eps=eps,
+                      momentum=momentum)

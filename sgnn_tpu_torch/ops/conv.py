@@ -5,12 +5,16 @@ Two backends compute one function, selected by ``backend`` (the
 config's ``conv_backend``), passed explicitly down every call:
 
 - ``"gather"``: the input's index grid gives each output row's
-  neighbour rows (``neighbor_rows``), and ``gather_gemm`` contracts them
-  with the taps (K10 on the card);
+  neighbour rows (``neighbor_rows``, held by a ``NeighbourList``), and
+  ``gather_gemm`` contracts them with the taps (K10 on the card, forward
+  and, under autograd, the input gradient over the list's inverse). The
+  convs of one active-site set share one list (``neighbours``), so its
+  inverse is built once;
 - ``"dense"``: densify, one dense conv, gather at the active sites. The
   JAX package leaves these convs to XLA, so they are cuDNN calls here,
   under the dense trunk's flags (``ops/dense.py``: f32, no TF32,
-  deterministic), on operands rounded to the compute type.
+  deterministic), on operands rounded to the compute type, under autograd
+  too.
 
 Submanifold semantics: inactive sites are absent from the index grid, so
 the op is a zero-padded dense conv evaluated at the active sites.
@@ -36,11 +40,11 @@ def _check_backend(backend: str) -> None:
 
 
 def gather_gemm(feats: torch.Tensor, nbr_rows: torch.Tensor,
-                weight: torch.Tensor, *, impl: str | None = None
+                weight: torch.Tensor, *, impl: str | None = None, nbr=None
                 ) -> torch.Tensor:
     """y[n] = sum_k W[k] @ feats[nbr_rows[n, k] - 1], 0 for missing
     neighbours, in feats' type (K10 for a CUDA tensor)."""
-    return K_gg.gather_gemm(feats, nbr_rows, weight, impl=impl)
+    return K_gg.gather_gemm(feats, nbr_rows, weight, impl=impl, nbr=nbr)
 
 
 def neighbor_rows(locs: torch.Tensor, index_grid: torch.Tensor,
@@ -55,6 +59,20 @@ def neighbor_rows(locs: torch.Tensor, index_grid: torch.Tensor,
     return C.lookup(keys, index_grid)
 
 
+def neighbours(st: SparseTensor, backend: str, index_grid=None, *,
+               filter_size: int = 3):
+    """The submanifold neighbour list of ``st``'s sites for the "gather"
+    backend (None for "dense", which needs none)."""
+    if backend != "gather":
+        return None
+    if index_grid is None:
+        index_grid = st.index_grid()
+    rows = neighbor_rows(st.locs, index_grid,
+                         C.neighbor_offsets(filter_size, st.locs.device),
+                         st.spatial_size, st.batch_size)
+    return K_gg.NeighbourList(rows, st.num_valid, st.capacity)
+
+
 def _dense_weight(weight: torch.Tensor, k: int, dtype) -> torch.Tensor:
     """[k^3, Cin, Cout] -> torch conv layout [Cout, Cin, k, k, k], f32
     holding values rounded to ``dtype``."""
@@ -63,27 +81,26 @@ def _dense_weight(weight: torch.Tensor, k: int, dtype) -> torch.Tensor:
 
 
 def submanifold_conv3d(st: SparseTensor, weight: torch.Tensor, *,
-                       filter_size: int = 3, index_grid=None,
+                       filter_size: int = 3, index_grid=None, nbr=None,
                        backend: str = "gather", impl: str | None = None
                        ) -> SparseTensor:
     """scn.SubmanifoldConvolution: output sites == input sites. Weight
-    [filter_size^3, Cin, Cout], taps in C order."""
+    [filter_size^3, Cin, Cout], taps in C order. ``nbr``: the sites'
+    neighbour list (``neighbours``), built here when not given."""
     _check_backend(backend)
-    offsets = C.neighbor_offsets(filter_size, st.locs.device)
-    if weight.shape[0] != offsets.shape[0]:
+    if weight.shape[0] != filter_size ** 3:
         raise ValueError(f"weight taps {weight.shape[0]} != "
-                         f"{offsets.shape[0]}")
+                         f"{filter_size ** 3}")
     valid = st.valid()[:, None]
     if backend == "dense":
         dense = sparse_to_dense(st)
         y = D.conv3d(dense, _dense_weight(weight, filter_size, dense.dtype),
                      padding=(filter_size - 1) // 2)
         return st.with_feats(torch.where(valid, gather_dense(y, st.locs), 0))
-    if index_grid is None:
-        index_grid = st.index_grid()
-    rows = neighbor_rows(st.locs, index_grid, offsets, st.spatial_size,
-                         st.batch_size)
-    out = gather_gemm(st.masked_feats(), rows, weight, impl=impl)
+    if nbr is None:
+        nbr = neighbours(st, backend, index_grid, filter_size=filter_size)
+    out = gather_gemm(st.masked_feats(), nbr.rows, weight, impl=impl,
+                      nbr=nbr)
     return st.with_feats(torch.where(valid, out, 0))
 
 
@@ -113,7 +130,9 @@ def strided_conv3d_down(st: SparseTensor, weight: torch.Tensor, *,
         rows = neighbor_rows(out_locs, index_grid,
                              C.neighbor_offsets(2, st.locs.device),
                              st.spatial_size, st.batch_size, scale=2)
-        out = gather_gemm(st.masked_feats(), rows, weight, impl=impl)
+        nbr = K_gg.NeighbourList(rows, num_out, st.capacity)
+        out = gather_gemm(st.masked_feats(), rows, weight, impl=impl,
+                          nbr=nbr)
     valid = C.valid_mask(num_out, cap_out, out.device)[:, None]
     return make_sparse(out_locs, torch.where(valid, out, 0), num_out,
                        out_size, st.batch_size)

@@ -1,6 +1,7 @@
 """Hand-written CUDA kernels of the serving and training paths, one module
 per kernel (K7, ``conv_raw``, and K4's raw mode run only in training; K8
-only in the dense-flow execution, K10 only in the coordinate-list one,
+only in the dense-flow execution, K10 only in the coordinate-list one
+(its input-gradient mode, ``gather_gemm_dx``, in its training),
 K9 on no path; K8 and K9 share ``conv3d_cl``; the int8 modes of K1-K3
 sit beside their other modes and share ``tile_amax``'s scale pre-pass).
 
@@ -29,6 +30,7 @@ _COUNTERS = {
     "conv3d_folded": (conv3d_cl, "folded_launches"),
     "conv3d": (conv3d_cl, "launches"),
     "gather_gemm": (gather_gemm, "launches"),
+    "gather_gemm_dx": (gather_gemm, "dx_launches"),
     "conv_site_q": (conv_site, "q_launches"),
     "downconv_q": (downconv, "q_launches"),
     "upconv_q": (upconv, "q_launches"),

@@ -5,15 +5,14 @@ JAX package's ``tools/train.py``.
         --train_file_list train_list.txt --val_file_list val_list.txt \\
         --save logs/mp
 
-It trains the folded execution on the CUDA device ``--gpu`` with the
+It trains the execution ``--execution`` (folded by default; dense_flow;
+sparse, the coordinate lists) on the CUDA device ``--gpu`` with the
 hand-written kernels; ``--cpu`` runs it on the host with every kernel's
 plain PyTorch version. Without ``--cpu`` a missing CUDA device is an
-error. Not ported, and refused with a message: ``--execution sparse`` and
-``dense_flow`` (their training forwards, ROADMAP Queue 1), ``--fuse_train_bn
-0``, ``--ckpt_backend orbax``, ``--rss_restart_gb`` > 0 and
-``--num_devices`` > 1. The JAX trainer's per-epoch prediction dump
-(``visualize_batch``) is not ported: no meshes are written during
-training.
+error. Every ``--save_epoch`` epochs, once every level is active, the
+predictions on one batch are written under ``--save``. Not ported, and
+refused with a message: ``--fuse_train_bn 0``, ``--ckpt_backend orbax``,
+``--rss_restart_gb`` > 0 and ``--num_devices`` > 1.
 """
 
 from __future__ import annotations
@@ -29,8 +28,7 @@ def parse_args(argv=None):
     # the reference's train.py:21-58, plus the JAX package's additions
     p = argparse.ArgumentParser(
         prog="python -m sgnn_tpu_torch.tools.train",
-        description="Train the model on .sdfs chunks (folded execution). "
-                    "No prediction meshes are written during training.")
+        description="Train the model on .sdfs chunks.")
     p.add_argument("--gpu", type=int, default=0,
                    help="CUDA device index (ignored with --cpu)")
     p.add_argument("--cpu", action="store_true",
@@ -62,8 +60,8 @@ def parse_args(argv=None):
     p.add_argument("--start_epoch", type=int, default=0)
     p.add_argument("--max_epoch", type=int, default=5)
     p.add_argument("--save_epoch", type=int, default=1,
-                   help="accepted for compatibility (it paces the "
-                        "prediction dump, which is not ported)")
+                   help="write the predictions on one batch every N epochs, "
+                        "once every level is active (0 = never)")
     p.add_argument("--lr", type=float, default=0.001)
     p.add_argument("--decay_lr", type=int, default=10)
     p.add_argument("--weight_decay", type=float, default=0.0)
@@ -78,7 +76,9 @@ def parse_args(argv=None):
     p.add_argument("--input_capacity", type=int, default=0)
     p.add_argument("--autotune_capacity", type=int, default=0,
                    help="derive the occupancy fractions (which size the "
-                        "input rows' capacity) from N sampled train chunks")
+                        "input rows' capacity and, with --execution sparse, "
+                        "every level's coordinate list) from N sampled "
+                        "train chunks")
     p.add_argument("--occupancy_fractions", type=float, nargs="+",
                    default=[1.0, 0.5, 0.25, 0.125])
     p.add_argument("--ckpt_backend", default="npz", choices=["npz", "orbax"],
@@ -87,8 +87,14 @@ def parse_args(argv=None):
     p.add_argument("--seed", type=int, default=0)
     p.add_argument("--execution", default="folded",
                    choices=["sparse", "dense_flow", "folded"],
-                   help="folded only (the other executions are not "
-                        "ported)")
+                   help="folded (the default; the JAX CLI's is dense_flow): "
+                        "the hand-written folded kernels; dense_flow: masked "
+                        "dense grids, its full-resolution convs in cuDNN "
+                        "(126 of the 190-196 ms of a bf16 forward of a "
+                        "96x192x192 scene go to cuDNN's deterministic "
+                        "transposed convs on an NVIDIA H100 80GB HBM3 at "
+                        "700 W, PERF.md section 5); sparse: the coordinate "
+                        "lists on K10")
     p.add_argument("--compute_dtype", default="bfloat16",
                    choices=["float32", "bfloat16"])
     p.add_argument("--dense_transfer", action="store_true",
@@ -111,10 +117,6 @@ def parse_args(argv=None):
     if args.num_hierarchy_levels <= 1:
         p.error("--num_hierarchy_levels must be > 1")
     refusals = [
-        (args.execution != "folded",
-         f"--execution {args.execution} does not train in the port "
-         f"(ROADMAP, Queue 1: training through the secondary executions); "
-         f"use folded"),
         (not args.fuse_train_bn,
          "--fuse_train_bn 0 (the composed BN -> op ablation) is not ported"),
         (args.ckpt_backend != "npz",
@@ -198,7 +200,8 @@ def main(argv=None):
         occupancy_fractions=occupancy_fractions, max_steps=args.max_steps,
         compute_dtype=args.compute_dtype,
         transfer_dtype=args.transfer_dtype,
-        scheduler_step_size=args.scheduler_step_size, device=device,
+        scheduler_step_size=args.scheduler_step_size,
+        save_epoch=args.save_epoch, execution=args.execution, device=device,
     )
     trainer = Trainer(opts)
 

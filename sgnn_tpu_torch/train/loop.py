@@ -26,7 +26,6 @@ import torch
 from sgnn_tpu_torch import checkpoint as CK
 from sgnn_tpu_torch import schedules as S
 from sgnn_tpu_torch.config import SGNNConfig
-from sgnn_tpu_torch.models.folded_train import GenModelFoldedTrain
 from sgnn_tpu_torch.params import export_params, load_jax_params
 from sgnn_tpu_torch.train import state as ST
 from sgnn_tpu_torch.train import step as TS
@@ -69,6 +68,8 @@ class TrainOptions:
     max_steps: int = 0  # 0 = unlimited
     log_every: int = 20
     ckpt_every: int = 2000
+    save_epoch: int = 1  # prediction dump every N epochs (0 = never)
+    execution: str = "folded"
     device: str = "cuda"
 
 
@@ -91,11 +92,10 @@ class Trainer:
             batch_size=opts.batch_size,
             input_capacity=opts.input_capacity,
             occupancy_fractions=tuple(opts.occupancy_fractions),
-            execution="folded",
+            execution=opts.execution,
             compute_dtype=opts.compute_dtype,
         )
-        self.model = GenModelFoldedTrain(self.cfg, seed=opts.seed).to(
-            self.device)
+        self.model = TS.train_model(self.cfg, seed=opts.seed).to(self.device)
         self.opt = ST.make_optimizer(self.model, opts.lr, opts.weight_decay)
         self.transfer_dtype = getattr(torch, opts.transfer_dtype)
         self.start_epoch = opts.start_epoch
@@ -191,7 +191,11 @@ class Trainer:
             self.epoch = epoch
             start = time.time()
             accum = _MetricAccum(L)
-            for batch, dev in self._prefetch(train_loader):
+            vis_batch, num_batches = None, len(train_loader)
+            for t, (batch, dev) in enumerate(self._prefetch(train_loader)):
+                if (o.save_epoch and epoch % o.save_epoch == 0
+                        and t + 2 == num_batches):
+                    vis_batch = batch  # the reference's train.py:270
                 with_metrics = (o.log_every > 0
                                 and self.iteration % o.log_every == 0)
                 metrics, lw = self.run_step(batch, with_metrics, dev)
@@ -199,6 +203,11 @@ class Trainer:
                     print(f"[capacity] WARNING iter {self.iteration}: "
                           f"{batch['target_overflow']} target/hierarchy rows "
                           f"dropped at collate (raise the capacities)")
+                if metrics["overflow"] > 0:
+                    print(f"[capacity] WARNING iter {self.iteration}: "
+                          f"{metrics['overflow']} voxels overflowed a level "
+                          f"capacity (raise occupancy_fractions or use "
+                          f"--autotune_capacity)")
                 accum.add(metrics, with_metrics)
                 self.loss_history.append((self.iteration,
                                           accum.losses[0][-1]))
@@ -219,6 +228,11 @@ class Trainer:
                 if o.max_steps and self.iteration >= o.max_steps:
                     done = True
                     break
+            lw = S.get_loss_weights(self.iteration, L, o.num_iters_per_level,
+                                    o.weight_sdf_loss)
+            if vis_batch is not None and S.active_levels(lw) == (L - 1, True):
+                self.visualize_batch(vis_batch, os.path.join(
+                    log_dir, f"iter{self.iteration}-epoch{epoch}", "train"))
             if val_loader is not None and not done:
                 self.validate(val_loader, val_f, epoch)
             self.save_ckpt(os.path.join(log_dir, f"model-epoch-{epoch}.ckpt"),
@@ -228,6 +242,74 @@ class Trainer:
         log_f.close()
         if val_f:
             val_f.close()
+
+    @torch.no_grad()
+    def visualize_batch(self, batch: dict, out_dir: str) -> None:
+        """The first ``cfg.batch_size`` samples of a collated host batch
+        through the execution's eval forward (every level and the surface;
+        BN on its running stats): per sample the input, predicted and
+        target meshes and each level's predicted occupancy as a point cloud
+        (meshing/export.save_predictions; the JAX trainer's
+        visualize_batch, train/loop.py:192-317). Runs the kernels on the
+        card and raises on a failure."""
+        from sgnn_tpu_torch.meshing.export import save_predictions
+        from sgnn_tpu_torch.ops.sparse import make_sparse
+
+        cfg, trunc = self.cfg, self.opts.truncation
+        B, dims = cfg.batch_size, cfg.input_dim
+        if "sdf" in batch:
+            sdf = batch["sdf"]
+        else:  # sparse-target rows: the dense target on the host
+            tn = int(batch["target_num_valid"])
+            tl, tv = batch["target_locs"][:tn], batch["target_vals"][:tn]
+            Bf = int(batch["known_unk"].shape[0])
+            sdf = np.full((Bf,) + tuple(dims), -np.inf, np.float32)
+            pos = np.unpackbits(batch["target_pos"].reshape(Bf, -1), axis=1,
+                                bitorder="little")[:, :int(np.prod(dims))]
+            sdf[pos.reshape(sdf.shape) > 0] = trunc
+            sdf[tl[:, 3], tl[:, 0], tl[:, 1], tl[:, 2]] = tv
+        n = int(batch["input_num_valid"])
+        keep = batch["input_locs"][:n, 3] < B
+        k = min(int(keep.sum()), cfg.input_cap)
+        locs = np.full((cfg.input_cap, 4), -1, np.int32)
+        feats = np.zeros((cfg.input_cap, 1), np.float32)
+        locs[:k] = batch["input_locs"][:n][keep][:k]
+        feats[:k] = batch["input_sdf"][:n][keep][:k]
+        tl, tf = (torch.from_numpy(a).to(self.device) for a in (locs, feats))
+        kw = dict(num_refine_active=cfg.num_refine_levels, do_surf=True,
+                  training=False)
+        if cfg.execution == "folded":
+            out, _ = self.model(tl, tf, k, **kw)
+        else:
+            out, _ = self.model(make_sparse(tl, tf, k, dims, B), **kw)
+        names = batch.get("names", [])
+        for b in range(B):
+            sel = locs[:k, 3] == b
+            if hasattr(out, "refine_masks_unfilt"):
+                occs = [(m[b] & (torch.sigmoid(g[b][..., 0]) > 0.5))
+                        .nonzero().cpu().numpy().astype(np.int32)
+                        for g, m in zip(out.refine_outs,
+                                        out.refine_masks_unfilt)]
+                sm = out.surf_mask[b]
+                surf = (sm.nonzero().cpu().numpy().astype(np.int32),
+                        out.surf_sdf[b][sm].cpu().numpy())
+            else:
+                occs = []
+                for lu, ou, nu in out.refine_outs:
+                    lu, ou = lu[:nu], ou[:nu]
+                    m = (lu[:, 3] == b) & (torch.sigmoid(ou[:, 0]) > 0.5)
+                    occs.append(lu[m][:, :3].cpu().numpy())
+                sn = out.surf_num_valid
+                sl = out.surf_locs[:sn]
+                m = sl[:, 3] == b
+                surf = (sl[m][:, :3].cpu().numpy(),
+                        out.surf_sdf[:sn, 0][m].cpu().numpy())
+            save_predictions(
+                out_dir, names[b] if b < len(names) else str(b),
+                locs[:k][sel][:, :3], feats[:k][sel][:, 0], dims,
+                target_for_sdf=sdf[b], target_for_occs=None,
+                pred_surf=surf if len(surf[0]) else None,
+                pred_occ_locs=occs or None, truncation=trunc)
 
     def validate(self, val_loader, val_f=None, epoch: int = 0) -> dict:
         o = self.opts

@@ -3,10 +3,13 @@
 
 A collated batch goes to the device (``to_device``: pinned, non-blocking
 copies, float arrays in the transfer type), targets are densified there
-(``_densify_rows``, ``_unpack_known_bits``), the folded training forward
-and ``losses.compute_loss_dense_flow`` run, autograd gives the gradients,
-Adam updates the parameters and the new BN running stats are stored. The
-JAX step's ``pmean``s over its data axis have no counterpart (one device).
+(``_densify_rows``, ``_unpack_known_bits``), the training forward of the
+model's execution (``cfg.execution``: folded, dense_flow or the coordinate
+lists, sparse) and its loss run (``losses.compute_loss_dense_flow``, or
+``compute_loss`` at the coordinate lists' rows), autograd gives the
+gradients, Adam updates the parameters and the new BN running stats are
+stored. The JAX step's ``pmean``s over its data axis have no counterpart
+(one device).
 """
 
 from __future__ import annotations
@@ -16,8 +19,27 @@ import torch
 
 from sgnn_tpu_torch import losses as L
 from sgnn_tpu_torch.config import SGNNConfig
-from sgnn_tpu_torch.models.folded_train import genmodel_apply_folded_train
+from sgnn_tpu_torch.models.dense_flow import (GenModelDenseTrain,
+                                              genmodel_apply_dense_train)
+from sgnn_tpu_torch.models.folded_train import (GenModelFoldedTrain,
+                                                genmodel_apply_folded_train)
+from sgnn_tpu_torch.models.sgnn import (GenModelSparseTrain,
+                                        genmodel_apply_train)
+from sgnn_tpu_torch.ops.sparse import make_sparse
 from sgnn_tpu_torch.train.state import set_lr
+
+# the trainable model of each execution (cfg.execution)
+TRAIN_MODELS = {m.EXECUTION: m for m in (
+    GenModelFoldedTrain, GenModelDenseTrain, GenModelSparseTrain)}
+
+
+def train_model(cfg: SGNNConfig, seed: int = 0):
+    """The trainable model of ``cfg.execution``, initialised from
+    ``params.init_params(cfg, seed)``."""
+    if cfg.execution not in TRAIN_MODELS:
+        raise ValueError(f"execution {cfg.execution!r}, expected one of "
+                         f"{sorted(TRAIN_MODELS)}")
+    return TRAIN_MODELS[cfg.execution](cfg, seed=seed)
 
 
 def to_device(batch: dict, device, transfer_dtype=torch.float32) -> dict:
@@ -131,18 +153,32 @@ def _input_mask(cfg: SGNNConfig, locs, n: int) -> torch.Tensor:
 def _forward_loss(params, stats, cfg, inputs, targets, loss_weights, known,
                   *, num_refine_active, do_surf, use_log_transform,
                   weight_missing_geo, use_loss_masking, training):
+    """The training forward of ``cfg.execution`` and its loss (the JAX
+    step's _forward_loss, train/step.py:135-182)."""
     locs, feats, n = inputs
-    out, new_stats = genmodel_apply_folded_train(
-        params, stats, cfg, locs, feats, n,
-        num_refine_active=num_refine_active, do_surf=do_surf,
-        training=training)
+    kw = dict(num_refine_active=num_refine_active, do_surf=do_surf,
+              training=training)
+    lkw = dict(num_refine_active=num_refine_active, do_surf=do_surf,
+               use_log_transform=use_log_transform,
+               weight_missing_geo=weight_missing_geo,
+               use_loss_masking=use_loss_masking, known=known)
+    if cfg.execution == "folded":
+        out, new_stats = genmodel_apply_folded_train(params, stats, cfg, locs,
+                                                     feats, n, **kw)
+    else:
+        st = make_sparse(locs, feats, n, cfg.input_dim, cfg.batch_size)
+        if cfg.execution == "sparse":
+            out, new_stats = genmodel_apply_train(params, stats, cfg, st,
+                                                  **kw)
+            total, per_level = L.compute_loss(
+                out, targets, loss_weights, cfg.truncation, input_locs=st.locs,
+                input_num_valid=st.num_valid, **lkw)
+            return total, (per_level, out, new_stats)
+        out, new_stats = genmodel_apply_dense_train(params, stats, cfg, st,
+                                                    **kw)
     total, per_level = L.compute_loss_dense_flow(
         out, targets, loss_weights, cfg.truncation,
-        num_refine_active=num_refine_active, do_surf=do_surf,
-        use_log_transform=use_log_transform,
-        weight_missing_geo=weight_missing_geo,
-        input_mask=_input_mask(cfg, locs, n),
-        use_loss_masking=use_loss_masking, known=known)
+        input_mask=_input_mask(cfg, locs, n), **lkw)
     return total, (per_level, out, new_stats)
 
 
@@ -152,28 +188,47 @@ def _iou(pred, tgt1):
                        torch.tensor(-1.0, device=pred.device))
 
 
-def _metrics_dense(cfg, out, targets, known, *, num_refine_active, do_surf,
-                   use_loss_masking) -> dict:
-    """IoU per level and the surface L1 metrics (train.py:271-297)."""
+def _metrics(cfg, out, targets, known, *, num_refine_active, do_surf,
+             use_loss_masking) -> dict:
+    """IoU per level and the surface L1 metrics (train.py:271-297), of a
+    dense-flow output or at the coordinate lists' rows
+    (train/step.py:185-277; the rows' metrics summed in f64, as the
+    evaluation's)."""
     dev = out.coarse_out.device
     minus1 = torch.tensor(-1.0, device=dev)
+    rows = not hasattr(out, "refine_masks_unfilt")
     occ0 = targets.target_for_occs[0]
     pred0 = torch.sigmoid(out.coarse_out[..., 0]) > 0.5
     if use_loss_masking:
         pred0 = pred0 & (occ0 != L.UNK_ID)
     ious = [_iou(pred0, occ0 == 1.0)]
     for h in range(1, cfg.num_hierarchy_levels):
-        if h - 1 < num_refine_active:
-            occ_t = targets.target_for_occs[h]
-            pred = out.refine_masks_unfilt[h - 1] & (
-                torch.sigmoid(out.refine_outs[h - 1][..., 0]) > 0.5)
-            if use_loss_masking:
-                pred = pred & (occ_t != L.UNK_ID)
-            ious.append(_iou(pred, occ_t == 1.0))
-        else:
+        if h - 1 >= num_refine_active:
             ious.append(minus1)
+            continue
+        occ_t = targets.target_for_occs[h]
+        if rows:
+            locs_u, out_u, num_u = out.refine_outs[h - 1]
+            ious.append(L.compute_iou_sparse_dense(
+                locs_u, num_u, torch.sigmoid(out_u[:, 0]) > 0.5, occ_t,
+                use_loss_masking))
+            continue
+        pred = out.refine_masks_unfilt[h - 1] & (
+            torch.sigmoid(out.refine_outs[h - 1][..., 0]) > 0.5)
+        if use_loss_masking:
+            pred = pred & (occ_t != L.UNK_ID)
+        ious.append(_iou(pred, occ_t == 1.0))
     l1pred = l1tgt = minus1
-    if do_surf:
+    if do_surf and rows:
+        tgt = targets.target_for_sdf
+        l1pred = L.compute_l1_predsurf_sparse_dense(
+            out.surf_locs, out.surf_num_valid, out.surf_sdf[:, 0], tgt, None,
+            False, use_loss_masking,
+            known >= L.UNK_THRESH if use_loss_masking else None)
+        l1tgt = L.compute_l1_tgtsurf_sparse_dense(
+            out.surf_locs, out.surf_num_valid, out.surf_sdf[:, 0], tgt,
+            cfg.truncation, use_loss_masking, known)
+    elif do_surf:
         tgt, m = targets.target_for_sdf, out.surf_mask
         if use_loss_masking:
             m = m & (known < L.UNK_THRESH)
@@ -228,10 +283,13 @@ def train_step(model, opt, batch: dict, loss_weights, lr: float, *,
     opt.step()
     model.set_stats(new_stats)
     metrics = {"loss": total.detach(),
-               "per_level": torch.stack([p.detach() for p in per_level])}
+               "per_level": torch.stack([p.detach() for p in per_level]),
+               # rows the coordinate lists' compactions dropped at a
+               # capacity (train/step.py:349-356); 0 for a dense output
+               "overflow": max(getattr(out, "overflows", None) or [0])}
     if with_metrics:
         with torch.no_grad():
-            metrics.update(_metrics_dense(
+            metrics.update(_metrics(
                 cfg, out, targets, known,
                 num_refine_active=num_refine_active, do_surf=do_surf,
                 use_loss_masking=use_loss_masking))
@@ -253,7 +311,7 @@ def eval_step(model, batch: dict, loss_weights, *, num_refine_active: int,
         use_log_transform=use_log_transform,
         weight_missing_geo=weight_missing_geo,
         use_loss_masking=use_loss_masking, training=False)
-    m = _metrics_dense(cfg, out, targets, known,
-                       num_refine_active=num_refine_active, do_surf=do_surf,
-                       use_loss_masking=use_loss_masking)
+    m = _metrics(cfg, out, targets, known,
+                 num_refine_active=num_refine_active, do_surf=do_surf,
+                 use_loss_masking=use_loss_masking)
     return {"loss": total, "per_level": torch.stack(per_level), **m}

@@ -111,7 +111,7 @@ def test_port_imports_without_jax():
         "import sgnn_tpu_torch.datagen.segmentation\n"
         "import sgnn_tpu_torch.datagen.render, sgnn_tpu_torch.datagen.fusion\n"
         "import sgnn_tpu_torch.datagen.scene, sgnn_tpu_torch.datagen.chunking\n"
-        "import sgnn_tpu_torch.utils.native_build\n"
+        "import sgnn_tpu_torch.utils.native_build, sgnn_tpu_torch.utils.vis\n"
         "from sgnn_tpu_torch.tools import test_scene, train, evaluate\n"
         "from sgnn_tpu_torch.tools import convert_checkpoint, make_chunks\n"
         "from sgnn_tpu_torch.tools import generate_scans, make_synthetic_scenes\n"
@@ -122,6 +122,8 @@ def test_port_imports_without_jax():
         "    '--target_data_path', 't', '--test_file_list', 'l',\n"
         "    '--model_path', 'm.ckpt'])\n"
         "train.parse_args(['--data_path', 'd', '--train_file_list', 'l'])\n"
+        "train.parse_args(['--data_path', 'd', '--train_file_list', 'l',\n"
+        "    '--execution', 'sparse'])\n"
         "convert_checkpoint.parse_args(['--input', 'a.pth', '--output',\n"
         "    'b.ckpt'])\n"
         "generate_scans.parse_args(['--scan_path', 's', '--scan_mesh_path',\n"

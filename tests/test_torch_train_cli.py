@@ -142,8 +142,6 @@ def test_cli_cpu_trains_and_serves(chunks, tmp_path):
 
 
 @pytest.mark.parametrize("extra,msg", [
-    (["--execution", "dense_flow"], "Queue 1"),
-    (["--execution", "sparse"], "Queue 1"),
     (["--fuse_train_bn", "0"], "fuse_train_bn"),
     (["--ckpt_backend", "orbax"], "orbax"),
     (["--rss_restart_gb", "8"], "rss_restart_gb"),
