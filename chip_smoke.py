@@ -42,9 +42,12 @@ where every phase passed prints the two JSON lines at the end):
    warps over grid rows: gate with and without the raw grid, mask_scale 1
    and 2 with 2 xqm == xq and an odd xq, summed over 1 and 4 groups of
    widths 1 and 5 < cpad, cpad 8 and 16, batch 2, Y != X, x-tail slots,
-   all-zero, all-ones and -0 masks). Bounds count an input group only in
-   the 32-byte sectors of the voxels its function reads, a mask read at
-   every voxel and every output in full;
+   all-zero, all-ones and -0 masks); and K1, K3, K4 and K7 on z-sharded
+   slabs whose z halo ring holds the neighbours' planes and mask (the
+   kernel audit of phase 11's path: a kernel that took the ring for
+   zeros would disagree with its plain version). Bounds count an input
+   group only in the 32-byte sectors of the voxels its function reads, a
+   mask read at every voxel and every output in full;
 4. forward: the full-width model (L=4, nf 16, bf16, seeded random
    weights) answers three synthetic sphere scenes through
    sgnn_tpu_torch.infer.SceneInferencer; every kernel of that path must
@@ -124,7 +127,22 @@ where every phase passed prints the two JSON lines at the end):
    dense_flow for SECONDARY_TRAIN_STEPS steps (finite losses, the epoch's
    prediction PLYs), its checkpoint served by the execution's eval
    forward;
-11. the card's name and power limit again, a JSON line of per-kernel
+11. multi: the multi-device paths (sgnn_tpu_torch/parallel), two ranks
+   sharing the card over gloo (halo planes and all-reduces staged through
+   pinned host memory; NCCL's path needs a card a rank): the 192^3 sphere
+   scene z-sharded at full width through the folded forward in f32 (masks
+   bit-equal to the unsharded forward here, values within 2e-4) and bf16
+   (surface IoU against phase 4's bar, or bit-equal), each rank's kernel
+   launches required (phase 4's per forward), ms per forward and the
+   halo exchanges' share; the dense flow z-sharded in f32 (within 2e-4 of
+   the unsharded dense flow, IoU >= 0.999); data-parallel folded
+   training, 2 ranks x batch 4 on phase 7's kind of chunks: an f32 step
+   with kernels against the plain 2-rank step under phase 7's rule, three
+   bf16 steps with the parameters bit-identical across ranks after each,
+   each rank's launches as train_launches derives them, ms per step and
+   the all-reduces' share; data-parallel serving, a phase-5 room a rank
+   through SceneInferencer, bit-equal to the room served in this process;
+12. the card's name and power limit again, a JSON line of per-kernel
    results (launches, error, ms against the plain version and against one
    PyTorch call where one computes the same function, and the card's bound
    for the same work), then the status line {"ok": true, "device": {...}}.
@@ -2163,6 +2181,120 @@ class KernelChecks:
         self.run("head_gate_raw", "B8 128x64x64 mask_scale 1", raw,
                  [0, 1, 3], gate_cpad=16, work=raw_work)
         self.k4_edge_cases()
+        self.ring_cases()
+
+    def ring_cases(self):
+        """The kernel audit of the z-sharded forward: K1, K3, K4 and K7 on
+        slabs whose z halo ring holds the neighbours' planes, as
+        ops/folded.py:halo_exchange_z leaves it, not zeros. A slab is
+        planes 1 .. Z + 2 of a folded grid of Z + 2 planes, so its ring
+        planes 0 and Z + 1 carry data and a mask while its y and x rings
+        stay zero; masks are random, inputs under an affine masked by
+        them (the ring too) and the others dense. Each kernel is held
+        against its plain version, which reads the ring from memory: a
+        kernel that took the ring for zeros, or skipped a brick whose own
+        voxels are empty while a ring plane it reads is not, would
+        disagree. K1's and K3's bricks cover the ring (K3's first brick
+        row lies on it); the slab's Z + 2 is off K1's brick."""
+        from sgnn_tpu_torch.ops.kernels import conv_raw as K_raw
+
+        FO = self.FO
+        gen = torch.Generator().manual_seed(11)
+
+        def slab(dims, c, cpad, mask=None, mask_grid=False):
+            """(FGrid of a slab of ``dims`` with filled z rings, its dense
+            source of Z + 2 planes)."""
+            big = (dims[0] + 2,) + tuple(dims[1:])
+            if mask_grid:
+                d = mask[..., None].float().expand(*mask.shape, cpad)
+            else:
+                d = torch.randn(1, *big, c, generator=gen)
+                if mask is not None:
+                    d = d * mask[..., None]
+            g = FO.fold(d.to(self.dev), cpad)
+            return FO.FGrid(g.data[:, 1:-1].contiguous(), dims, g.real_c,
+                            cpad)
+
+        def cast(fg, dt):
+            return fg.with_data(fg.data.to(dt))
+
+        def ringed_mask(dims, p):
+            return torch.rand(1, dims[0] + 2, *dims[1:], generator=gen) < p
+
+        # K1: affine and residual over 2 groups at cpad 16 and 8, and raw
+        for cpad, widths, has_aff in ((16, [16, 8], True), (8, [8, 5], True),
+                                      (16, [16], False)):
+            dims = (9, 29, 40)
+            m = ringed_mask(dims, 0.3)
+            fm = slab(dims, cpad, cpad, m, mask_grid=True)
+            gs = [slab(dims, c, cpad, m if has_aff else None) for c in widths]
+            res = slab(dims, cpad, cpad)
+            w = FO.prep_conv_weights(self.weights(27, sum(widths), cpad),
+                                     widths, torch.float32).to(self.dev)
+            aff = self.affines(widths) if has_aff else None
+
+            def conv(dt, gs=gs, fm=fm, res=res, w=w, aff=aff, cpad=cpad):
+                grp, mm = [cast(g, dt) for g in gs], cast(fm, dt)
+                r = cast(res, dt)
+                return lambda impl: (FO.subm_conv_fused(
+                    grp, mm, w, cpad, aff=aff, residual=r, impl=impl).data,)
+            self.run("conv_site", f"z ring filled: cpad{cpad} G{len(widths)}"
+                     f" {'affine' if has_aff else 'raw'}+residual, {dims}",
+                     conv, [0], resid=res)
+
+        # K3 from a coarse slab with filled rings: the fine mask expanded
+        # (serving) and given
+        cdims = (6, 12, 20)
+        fdims = tuple(2 * d for d in cdims)
+        cm = ringed_mask(cdims, 0.4)
+        cfm = slab(cdims, 16, 16, cm, mask_grid=True)
+        cg = [slab(cdims, 16, 16, cm) for _ in range(3)]
+        wu = FO.prep_upconv_weights(self.weights(27, 48, 16), [16] * 3,
+                                    torch.float32).to(self.dev)
+        affu = self.affines([16] * 3)
+        ffm = self.mask(torch.rand(1, *fdims, generator=gen) < 0.5, 16)
+        for label, fine in (("fmask=None", None), ("fmask given", ffm)):
+            def up(dt, fine=fine):
+                grp, m = [cast(g, dt) for g in cg], cast(cfm, dt)
+                f = cast(fine, dt) if fine is not None else None
+                return lambda impl: (FO.upconv_fused(
+                    grp, m, f, wu, 16, aff=affu, impl=impl).data,)
+            self.run("upconv", f"z ring filled: G3 {label}, coarse {cdims}",
+                     up, [0])
+
+        # K4 gated: the coarse mask with a filled ring (mask_scale 2, the
+        # serving call) and a fine one (mask_scale 1)
+        wh = FO.prep_head_weights(self.weights(16, 2), [16],
+                                  torch.float32)[0].to(self.dev)
+        bh = FO.prep_bias(np.array([0.1, -0.2], np.float32)).to(self.dev)
+        affh = self.affines([16])[0]
+        fm1 = slab(fdims, 16, 16, ringed_mask(fdims, 0.5), mask_grid=True)
+        for scale, mk in ((2, cfm), (1, fm1)):
+            upg = slab(fdims, 16, 16)
+
+            def gate(dt, upg=upg, mk=mk, scale=scale):
+                u, m = cast(upg, dt), cast(mk, dt)
+
+                def call(impl):
+                    outs = FO.head_site_fused(u, m, wh, bh, affh, 2,
+                                              fm_scale=scale, impl=impl)
+                    return tuple(o.data for o in outs)
+                return call
+            self.run("head_gate", f"z ring filled: mask_scale {scale}, "
+                     f"fine {fdims}", gate, [0, 1], gate_cpad=16)
+
+        # K7 on a halo'd input whose z ring holds data (a re-halo'd slab)
+        for cpad, cin, cout in ((16, 16, 16), (8, 5, 8)):
+            dims = (10, 13, 40)
+            x = slab(dims, cin, cpad, ringed_mask(dims, 0.3)).data
+            w27 = torch.from_numpy(self.weights(27, cin, cout))
+
+            def raw(dt, x=x, w27=w27, cin=cin, cpad=cpad):
+                xd, wd = x.to(dt), FO._prep_taps(w27, dt).to(self.dev)
+                return lambda impl: (K_raw.conv_raw(xd, wd, cin, cpad,
+                                                    impl=impl),)
+            self.run("conv_raw", f"z ring filled: cpad{cpad} {cin}->{cout},"
+                     f" {dims}", raw, [0], dense=True)
 
     def k7_edge_cases(self):
         """K7 where its Hopper design has edges (output bricks of 2 x 4 x 32
@@ -3115,37 +3247,6 @@ def phase_secondary(results: dict, weights) -> None:
 # ------------------------------------------------------------------ phase 7
 
 
-class PlainKernels:
-    """While active, every kernel wrapper runs its plain PyTorch version
-    (on the card): the whole training step without a hand-written
-    kernel."""
-
-    NAMES = {"conv_site": "conv_site", "downconv": "downconv",
-             "upconv": "upconv", "head_gate": "head", "head_sum": "head",
-             "surf_head": "surf_head", "scatter": "scatter",
-             "conv_raw": "conv_raw", "gather_gemm": "gather_gemm",
-             "gather_gemm_dx": "gather_gemm"}
-
-    def __enter__(self):
-        import importlib
-
-        self.saved = []
-        for fn, mod in self.NAMES.items():
-            m = importlib.import_module(f"sgnn_tpu_torch.ops.kernels.{mod}")
-            orig = getattr(m, fn)
-            self.saved.append((m, fn, orig))
-            setattr(m, fn, functools.partial(_plain_call, orig))
-        return self
-
-    def __exit__(self, *exc):
-        for m, fn, orig in self.saved:
-            setattr(m, fn, orig)
-
-
-def _plain_call(orig, *args, impl=None, **kw):
-    return orig(*args, impl="plain", **kw)
-
-
 def train_launches(cfg) -> dict:
     """Kernel launches of one full-level train step, from the code
     (models/folded_train.py, ops/folded.py): every U-Net has 3 levels of
@@ -3217,11 +3318,12 @@ def _step(model, batch, lw, plain=False):
     """One full-level train step (lr 1e-3) on a device batch, with the
     kernels or (``plain``) their plain versions; returns its metrics and
     the gradients."""
+    from sgnn_tpu_torch.ops import kernels as K
     from sgnn_tpu_torch.train import state as ST
     from sgnn_tpu_torch.train import step as TS
 
     opt = ST.make_optimizer(model)
-    with PlainKernels() if plain else contextlib.nullcontext():
+    with K.plain_versions() if plain else contextlib.nullcontext():
         m = TS.train_step(model, opt, batch, lw, 1e-3,
                           num_refine_active=model.cfg.num_refine_levels,
                           do_surf=True)
@@ -3325,6 +3427,13 @@ def _f32_steps(tag: str, make, weights, dev: dict, lw) -> None:
                                tree_items(model.stat_tree())])
         keys = model.param_keys
         del model
+    _hold_f32_runs(tag, runs, keys)
+
+
+def _hold_f32_runs(tag: str, runs: dict, keys: list) -> None:
+    """Phase 7's rule on three f32 steps from one start, ``runs``: label
+    -> (loss, per-level losses, gradients, running stats), labels
+    "kernels", "plain" and "plain, inputs moved" (_f32_steps)."""
     lp, pp, gp, sp = runs["plain"]
     ratios = {}
     for label in ("kernels", "plain, inputs moved"):
@@ -3894,6 +4003,293 @@ def phase_drive(card: str, serve_weights) -> None:
 # --------------------------------------------------------------------- main
 
 
+# ----------------------------------------------------------------- phase 11
+#
+# the multi-device paths (sgnn_tpu_torch/parallel) on the one card: two
+# ranks share cuda:0 over gloo, so compute stays on the card and the halo
+# planes and all-reduces go through pinned host memory (NCCL refuses two
+# ranks on one device; its path, one card a rank, runs only on a host with
+# more cards)
+
+MULTI_SCENE = (192, 192, 192)  # two slabs of the 96x192x192 bench scene
+MULTI_RANKS = 2
+MULTI_REPS = 3  # timed forwards or steps a rank
+MULTI_REL = 2e-4  # f32 sharded vs unsharded: rtol and atol
+MULTI_BATCHES = 3  # DP steps, each a global batch of TRAIN_BATCH chunks
+# the folded-path kernels every sharded forward launches on each rank
+FOLDED_PATH = ("conv_site", "downconv", "upconv", "head_gate", "surf_head",
+               "scatter")
+
+
+def _multi_close(what: str, got, ref) -> float:
+    """max |got - ref| of two arrays, required within MULTI_REL (rtol and
+    atol, as np.allclose has them)."""
+    err = float(np.abs(got - ref).max()) if got.size else 0.0
+    require(np.allclose(got, ref, rtol=MULTI_REL, atol=MULTI_REL),
+            f"{what}: max |sharded - unsharded| {err}")
+    return err
+
+
+def _padded_room(i: int) -> dict:
+    """Phase 5's room i as a scene sample padded to multiples of 32 (the
+    dataset's dim_round at L = 4), as SceneInferencer takes it."""
+    dims = SERVE_DIMS[i]
+    _, _, i_locs, i_sdf = _room(dims, seed=i)
+    pad = tuple(-(-d // 32) * 32 for d in dims)
+    return {"name": f"room{i}", "sdf": np.zeros(pad, np.float32),
+            "input_locs": i_locs, "input_sdf": i_sdf,
+            "orig_dims": np.asarray(dims), "world2grid": np.eye(4)}
+
+
+def phase_multi(weights, serve_weights) -> None:
+    """Phase 11 (module docstring): the unsharded references here, then
+    one launch of MULTI_RANKS ranks on cuda:0 over gloo running every
+    multi-device job (parallel.programs.sequence), then the checks."""
+    import dataclasses
+
+    from sgnn_tpu_torch.config import SGNNConfig
+    from sgnn_tpu_torch.data.dataset import SceneDataset, collate_sparse
+    from sgnn_tpu_torch.infer import SceneInferencer, synthetic_scene
+    from sgnn_tpu_torch.models.dense_flow import GenModelDense
+    from sgnn_tpu_torch.models.folded_flow import GenModelFolded
+    from sgnn_tpu_torch.ops import kernels as K
+    from sgnn_tpu_torch.ops.sparse import make_sparse
+    from sgnn_tpu_torch.parallel import mesh as PM
+    from sgnn_tpu_torch.parallel import programs as PG
+    from sgnn_tpu_torch.params import init_params, load_jax_params
+
+    n = MULTI_RANKS
+    log(f"[multi] {n} ranks share cuda:0 over gloo: kernels on the card, "
+        f"halo planes and all-reduces staged through pinned host memory")
+    serve_kw = dict(input_dim=MULTI_SCENE, batch_size=1,
+                    occupancy_fractions=FRACTIONS)
+    scene = synthetic_scene(MULTI_SCENE, seed=0)
+    locs, feats = _rows(scene)
+    hl, hf = locs.cpu().numpy(), feats.cpu().numpy()
+    log(f"[multi] scene {MULTI_SCENE}: {len(hl)} active input voxels; "
+        f"each rank's slab {(MULTI_SCENE[0] // n,) + MULTI_SCENE[1:]}")
+
+    # the unsharded references, in this process, with phase 4's weights or
+    # the first seed's whose gates leave a surface on this scene in both
+    # types
+    models = {dt: GenModelFolded(SGNNConfig(compute_dtype=dt,
+                                            **serve_kw)).cuda()
+              for dt in ("float32", "bfloat16")}
+    for seed in (None, *range(8)):
+        if seed is not None:
+            weights = init_params(models["float32"].cfg, seed)
+        surfs = []
+        for model in models.values():
+            load_jax_params(model, *weights)
+            surfs.append(int(model(locs, feats, MULTI_SCENE).surf_mask.sum()))
+        log(f"[multi] weights {'of phase 4' if seed is None else seed}: "
+            f"surface {surfs} voxels (f32, bf16)")
+        if min(surfs) > 0:
+            break
+    require(min(surfs) > 0, "every seed closed the surface")
+    refs = {}
+    for dt, model in models.items():
+        out = model(locs, feats, MULTI_SCENE)
+        ms = _time_ms(lambda: model(locs, feats, MULTI_SCENE),
+                      reps=MULTI_REPS)
+        refs[dt] = (out.surf_mask.cpu().numpy(), out.surf_sdf.cpu().numpy(),
+                    out.coarse_out.cpu().numpy(), ms)
+        log(f"[multi] unsharded folded {dt}: active per level "
+            f"{[int(a) for a in out.level_active]}, {ms:.2f} ms per forward "
+            f"(CUDA events, mean of {MULTI_REPS})")
+        del out
+    del models, model
+    dcfg = SGNNConfig(compute_dtype="float32", execution="dense_flow",
+                      **serve_kw)
+    cap = dcfg.input_cap
+    k = min(len(hl), cap)
+    dl = np.full((cap, 4), -1, np.int64)
+    df = np.zeros((cap, 1), np.float32)
+    dl[:k], df[:k] = hl[:k], hf[:k]
+    dense = GenModelDense(dcfg).cuda()
+    load_jax_params(dense, *weights)
+    st = make_sparse(torch.from_numpy(dl).cuda(),
+                     torch.from_numpy(df).cuda(), k, MULTI_SCENE, 1)
+    out = dense(st)
+    dms = _time_ms(lambda: dense(st), reps=1)
+    dref = (out.surf_mask.cpu().numpy(), out.surf_sdf.cpu().numpy())
+    require(dref[0].any(), "the dense flow's surface is empty")
+    log(f"[multi] unsharded dense flow float32: surface "
+        f"{int(dref[0].sum())} voxels, {dms:.1f} ms per forward")
+    del dense, out, st
+
+    # DP training: phase 7's chunks, a global batch of TRAIN_BATCH a step
+    tcfg = SGNNConfig(input_dim=TRAIN_DIMS, batch_size=TRAIN_BATCH,
+                      compute_dtype="float32", execution="folded")
+    rank_cfg = dataclasses.replace(tcfg, batch_size=TRAIN_BATCH // n)
+    lw = np.ones(tcfg.num_hierarchy_levels + 1, np.float32)
+    tw = init_params(tcfg, seed=0)
+    with tempfile.TemporaryDirectory() as tmp:
+        from sgnn_tpu_torch.data.capacity import estimate_row_capacities
+
+        files = _write_chunks(tmp, TRAIN_BATCH * MULTI_BATCHES)
+        caps = estimate_row_capacities(files, tcfg.num_hierarchy_levels,
+                                       tcfg.truncation, TRAIN_BATCH)
+        ds = SceneDataset(files, tcfg.truncation, tcfg.num_hierarchy_levels,
+                          sparse_targets=True)
+        batches = [collate_sparse([ds[j] for j in range(
+            i * TRAIN_BATCH, (i + 1) * TRAIN_BATCH)], tcfg.input_cap, *caps)
+            for i in range(MULTI_BATCHES)]
+
+    # DP serving: phase 5's first rooms, one a rank, and here
+    rooms = [_padded_room(i) for i in range(n)]
+    scfg = SGNNConfig(batch_size=1, occupancy_fractions=FRACTIONS,
+                      compute_dtype="bfloat16")
+    served = GenModelFolded(scfg).cuda()
+    load_jax_params(served, *serve_weights)
+    room_refs = [SceneInferencer(served)(r) for r in rooms]
+    del served
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+
+    fkw = dict(serve_kw)
+    step = dict(num_refine_active=tcfg.num_refine_levels, do_surf=True,
+                device="cuda:0")
+    tkw = {k: getattr(tcfg, k) for k in ("input_dim", "batch_size",
+                                         "execution")}
+    jobs = [
+        ("serve_folded", (dict(fkw, compute_dtype="float32"), weights, hl, hf,
+                          MULTI_SCENE), dict(device="cuda:0",
+                                             reps=MULTI_REPS)),
+        ("serve_folded", (dict(fkw, compute_dtype="bfloat16"), weights, hl,
+                          hf, MULTI_SCENE), dict(device="cuda:0",
+                                                 reps=MULTI_REPS)),
+        ("serve_dense", (dict(fkw, compute_dtype="float32",
+                              execution="dense_flow"), weights, dl, df, k),
+         dict(device="cuda:0", reps=1)),
+        ("train_dp", (dict(tkw, compute_dtype="float32"), tw, batches[:1],
+                      lw, 1e-3), step),
+        ("train_dp", (dict(tkw, compute_dtype="float32"), tw, batches[:1],
+                      lw, 1e-3), dict(step, plain=True)),
+        ("train_dp", (dict(tkw, compute_dtype="float32"), tw, batches[:1],
+                      lw, 1e-3), dict(step, plain=True, noise=1e-6)),
+        ("train_dp", (dict(tkw, compute_dtype="bfloat16"), tw, batches, lw,
+                      1e-3), dict(step, reps=MULTI_REPS)),
+        ("serve_scenes", (dict(batch_size=1, occupancy_fractions=FRACTIONS,
+                               compute_dtype="bfloat16"), serve_weights,
+                          rooms), dict(device="cuda:0")),
+    ]
+    t0 = time.perf_counter()
+    res = PM.launch(PG.sequence, n, "gloo", args=(jobs,), timeout_s=600)
+    log(f"[multi] one launch of {n} ranks ran {len(jobs)} jobs in "
+        f"{time.perf_counter() - t0:.1f} s (spawn and build included)")
+
+    # z-sharded folded serving against the unsharded forward
+    for j, dt in enumerate(("float32", "bfloat16")):
+        ranks = [r[j] for r in res]
+        mask = np.concatenate([r["surf_mask"] for r in ranks], 1)
+        sdf = np.concatenate([r["surf_sdf"] for r in ranks], 1)
+        coarse = np.concatenate([r["coarse_out"] for r in ranks], 1)
+        rmask, rsdf, rcoarse, rms = refs[dt]
+        for r in ranks:
+            got = {k: r["launches"][k] for k in FOLDED_PATH}
+            require(all(got[k] == EXPECTED[k] for k in FOLDED_PATH)
+                    and sum(r["launches"].values()) == sum(got.values()),
+                    f"{dt} sharded forward, rank {r['rank']}: launches "
+                    f"{r['launches']}, expected {EXPECTED}")
+            log(f"[multi] z-sharded folded {dt}, rank {r['rank']}: launches "
+                f"{got}; {r['ms']:.2f} ms per forward (CUDA events, mean of "
+                f"{MULTI_REPS}, the other rank sharing the card), halo "
+                f"exchanges {r['exchange_ms']:.2f} ms of a forward timed "
+                f"with a synchronisation at each (host clock, host-staged "
+                f"over gloo)")
+        same = np.array_equal(mask, rmask)
+        bits = same and np.array_equal(sdf, rsdf) and np.array_equal(
+            coarse, rcoarse)
+        inter, union = (mask & rmask).sum(), (mask | rmask).sum()
+        iou = float(inter / max(union, 1))
+        if dt == "float32":
+            require(same, f"f32 sharded surface mask differs in "
+                          f"{int((mask != rmask).sum())} voxels")
+            e1 = _multi_close("f32 sharded sdf", np.where(mask, sdf, 0),
+                              np.where(rmask, rsdf, 0))
+            e2 = _multi_close("f32 sharded coarse output", coarse, rcoarse)
+            msg = (f"masks bit-equal, max |sdf diff| {e1:.3e}, coarse "
+                   f"{e2:.3e}")
+        else:
+            require(bits or iou >= MIN_IOU_BF16,
+                    f"bf16 sharded surface IoU {iou} < {MIN_IOU_BF16}")
+            msg = f"surface IoU {iou:.5f}"
+        log(f"[multi] z-sharded folded {dt} vs unsharded ({rms:.2f} ms): "
+            f"surface {int(mask.sum())} voxels, {msg}; "
+            f"{'bit-equal' if bits else 'not bit-equal'}")
+
+    # z-sharded dense-flow serving
+    ranks = [r[2] for r in res]
+    mask = np.concatenate([r["surf_mask"] for r in ranks], 1)
+    sdf = np.concatenate([r["surf_sdf"] for r in ranks], 1)
+    for r in ranks:
+        require(not any(r["launches"].values()),
+                f"the sharded dense flow launched {r['launches']}")
+    inter, union = (mask & dref[0]).sum(), (mask | dref[0]).sum()
+    iou = float(inter / max(union, 1))
+    require(iou >= MIN_IOU_F32, f"dense flow f32 sharded surface IoU {iou}")
+    both = mask & dref[0]
+    err = _multi_close("dense flow f32 sharded sdf", sdf[both],
+                       dref[1][both])
+    ms = " ".join(f"{r['ms']:.1f}" for r in ranks)
+    ex = " ".join(f"{r['exchange_ms']:.1f}" for r in ranks)
+    log(f"[multi] z-sharded dense flow float32 vs unsharded ({dms:.1f} ms):"
+        f" surface {int(mask.sum())} vs {int(dref[0].sum())} voxels, IoU "
+        f"{iou:.5f}, max |sdf diff| on the common surface {err:.3e}; ms per "
+        f"forward by rank {ms} (CUDA events, the other rank sharing the "
+        f"card; collectives {ex} ms of it, host-staged over gloo)")
+
+    # DP training: the f32 step with kernels against the plain 2-rank step
+    # under phase 7's rule, then the bf16 steps
+    keys = sorted(res[0][3]["grads"])
+    runs = {}
+    for label, j in (("kernels", 3), ("plain", 4),
+                     ("plain, inputs moved", 5)):
+        a, b = res[0][j], res[1][j]
+        require(all(np.array_equal(p, q)
+                    for p, q in zip(a["params"], b["params"])),
+                f"DP f32 step ({label}): ranks hold different parameters")
+        runs[label] = (float(a["metrics"]["loss"]),
+                       np.asarray(a["metrics"]["per_level"]),
+                       [torch.from_numpy(a["grads"][key]) for key in keys],
+                       [torch.from_numpy(v) for _, v in
+                        sorted(a["stats"].items())])
+    _hold_f32_runs("multi", runs, keys)
+    want = train_launches(rank_cfg)
+    a, b = res[0][6], res[1][6]
+    for i, (p, q) in enumerate(zip(a["params"], b["params"])):
+        require(np.array_equal(p, q),
+                f"DP bf16 step {i}: ranks hold different parameters")
+    for r in (a, b):
+        require(r["launches"] == want, f"DP bf16 step, rank {r['rank']}: "
+                                       f"launches {r['launches']}, expected "
+                                       f"{want}")
+        log(f"[multi] DP bf16 step, rank {r['rank']} (batch "
+            f"{rank_cfg.batch_size} of {TRAIN_BATCH}): launches "
+            f"{ {k: v for k, v in r['launches'].items() if v} }; "
+            f"{r['ms']:.1f} ms per step (CUDA events, mean of "
+            f"{MULTI_REPS}), all-reduces {r['exchange_ms']:.1f} ms of it "
+            f"(host-staged)")
+    log(f"[multi] DP bf16: {MULTI_BATCHES} steps, parameters bit-identical "
+        f"across ranks after each; loss {float(a['metrics']['loss']):.5f}")
+
+    # DP serving: a room a rank against the same room served here
+    for i, r in enumerate(res):
+        got, ref = r[7], room_refs[i]
+        equal = (np.array_equal(got["surf_locs"], ref["surf_locs"])
+                 and np.array_equal(got["surf_sdf"], ref["surf_sdf"]))
+        require(len(ref["surf_locs"]) > 0, f"DP serving: {ref['name']} "
+                                           f"has no surface")
+        require(equal, f"DP serving: rank {i}'s {got['name']} ("
+                       f"{len(got['surf_locs'])} voxels) differs from the "
+                       f"single-process surface ({len(ref['surf_locs'])})")
+        log(f"[multi] DP serving, rank {i}: {got['name']} "
+            f"{SERVE_DIMS[i]}, surface {len(got['surf_locs'])} voxels, "
+            f"bit-equal to the single-process surface; launches "
+            f"{ {k: v for k, v in got['launches'].items() if v} }")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
@@ -3915,6 +4311,7 @@ def main() -> int:
         phase_train(results)
         phase_train_secondary(results)
         phase_drive(device["card"], serve_weights)
+        phase_multi(weights, serve_weights)
     except SmokeError as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1

@@ -22,9 +22,13 @@ names mirror the JAX package so each module's counterpart is easy to find:
                          .ckpt files; reference .pth both ways
   datagen/               synthetic rooms, .sens, depth rendering and TSDF
                          fusion (host numpy and g++-built C++), chunking
+  parallel/              multi-device execution over torch.distributed:
+                         process groups and per-rank batches, the
+                         collectives with their gradients, z-sharded
+                         grids, the per-rank programs
   tools/                 the CLIs: test_scene, evaluate, train,
                          convert_checkpoint, make_synthetic_scenes,
-                         generate_scans, make_chunks
+                         generate_scans, make_chunks, dryrun_multichip
 
 This package imports torch and numpy only: never jax, never sgnn_tpu.
 """

@@ -30,6 +30,13 @@ UP_AXIS = 0  # z (reference train.py:73)
 UNK_THRESH = 2  # known >= 2 is unobserved (loss.py:10)
 
 
+def shard_files(files, host_id: int, num_hosts: int):
+    """Disjoint per-host file shards for multi-host data parallelism
+    (dataset.py:30-38): each host loads only its stride slice of the file
+    list, so no file is read twice."""
+    return files[host_id::num_hosts]
+
+
 class SceneDataset:
     """Chunk samples (dicts with ``name``, ``input_locs`` [N, 3] zyx,
     ``input_sdf`` [N] with |sdf| < truncation, the target as ``sdf`` /

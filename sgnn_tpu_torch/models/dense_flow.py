@@ -17,7 +17,12 @@
   group. With ``cfg.use_pallas_conv`` every eligible 3^3 conv of the eval
   forward (volume >= ``cfg.pallas_min_voxels``, shapes
   ``conv3d_3x3x3_folded`` supports) runs K8, exactly where the JAX
-  package routes its Pallas kernel.
+  package routes its Pallas kernel. With ``space`` (a process group) the
+  scene's z is sharded over ranks (``sp_axis`` there): each rank scatters
+  its slab, 3^3 and upsampled convs exchange one boundary plane with each
+  neighbour and run as plain convs, the trunk runs on the gathered grid
+  (``sharded_trunk``), and BN moments are summed over the data and space
+  groups (the trunk's over the data group).
 - ``EvalModel`` and ``TrainModel``, the serving and the trainable models'
   bases, which every execution shares.
 """
@@ -38,6 +43,8 @@ from sgnn_tpu_torch.ops import coords as C
 from sgnn_tpu_torch.ops import dense as D
 from sgnn_tpu_torch.ops.kernels import conv3d_cl as K_cl
 from sgnn_tpu_torch.ops.sparse import SparseTensor, sparse_to_dense
+from sgnn_tpu_torch.parallel import comm
+from sgnn_tpu_torch.parallel.spatial import halo_exchange
 
 
 def trunk_layers(cfg: SGNNConfig) -> list:
@@ -121,10 +128,12 @@ class DenseTrunk(nn.Module):
 
 
 def dense_trunk_train(enc_p: dict, enc_s: dict, cfg: SGNNConfig,
-                      x: torch.Tensor, *, training: bool):
+                      x: torch.Tensor, *, training: bool, group=None):
     """dense_trunk(training=...) over the encoder's parameter tensors:
     returns (features y, coarse_out f32, new stats of the trunk's BNs).
-    Weights are rounded to x's type, as ``w.astype(x.dtype)`` does."""
+    Weights are rounded to x's type, as ``w.astype(x.dtype)`` does.
+    ``group``: the data group the BN moments are summed over (never the
+    space group: ``sharded_trunk``)."""
     dt = x.dtype
     layers = {name: (stride, pad, tr)
               for name, _, _, _, stride, pad, tr in trunk_layers(cfg)}
@@ -136,7 +145,7 @@ def dense_trunk_train(enc_p: dict, enc_s: dict, cfg: SGNNConfig,
         y = conv(inp, enc_p[name]["conv"].to(dt).float(), stride=stride,
                  padding=pad)
         y, bn_s = BN.batch_norm_dense(enc_p[name]["bn"], enc_s[name]["bn"],
-                                      y, training=training)
+                                      y, training=training, group=group)
         s[name] = {"bn": bn_s}
         return y
 
@@ -150,6 +159,21 @@ def dense_trunk_train(enc_p: dict, enc_s: dict, cfg: SGNNConfig,
     occ = D.conv3d(y, enc_p["occpred"].to(dt).float())
     sdf = D.conv3d(y, enc_p["sdfpred"].to(dt).float())
     return y, torch.cat([occ, sdf], -1).float(), s
+
+
+def sharded_trunk(trunk, x: torch.Tensor, space):
+    """``trunk(x) -> (y, coarse_out, stats)`` of a z-sharded 1/8-res grid
+    (dense_trunk's ``sp_axis``, :338-386): the slabs are all-gathered over
+    the space group, the trunk runs replicated on the whole grid and each
+    rank keeps its own slab of y and coarse_out. The trunk's BN reduces
+    over the data group only: the gathered grid is already whole in z, and
+    a space all-reduce would count every voxel n times (:338-342)."""
+    if comm.size(space) == 1:
+        return trunk(x)
+    zl, i = x.shape[1], comm.index(space)
+    y, coarse_out, s = trunk(comm.all_gather(x, space, 1))
+    return (y.narrow(1, i * zl, zl).contiguous(),
+            coarse_out.narrow(1, i * zl, zl).contiguous(), s)
 
 
 # ------------------------------------------------- the dense-flow forward
@@ -172,18 +196,25 @@ def _pallas_ok(grid: torch.Tensor, weight: torch.Tensor, min_voxels: int
                                                        weight.shape)
 
 
-def _conv_one(grid, weight, filter_size, use_pallas, impl):
+def _conv_one(grid, weight, filter_size, use_pallas, impl, space=None):
     """Dense f^3 conv (zero padding) of one group, weight [f^3, C, Cout],
-    in the grid's type: K8 where routed, else the plain conv."""
-    if filter_size == 3 and _pallas_ok(grid, weight, use_pallas):
-        return K_cl.conv3d_3x3x3_folded(grid, weight, impl=impl)
+    in the grid's type: K8 where routed, else the plain conv. With
+    ``space`` the grid is a z-slab: one boundary plane is exchanged with
+    each neighbour and the conv runs unpadded in z, always as the plain
+    conv (dense_flow.py:85-128: the JAX package takes XLA's conv there,
+    never its kernel, which pads z with zeros itself)."""
     k = filter_size
     w = weight.to(grid.dtype).float().reshape(k, k, k, *weight.shape[1:])
-    return D.conv3d(grid, w.permute(4, 3, 0, 1, 2), padding=(k - 1) // 2)
+    w = w.permute(4, 3, 0, 1, 2)
+    if space is not None and k == 3:
+        return D.conv3d(halo_exchange(grid, 1, space), w, padding=(0, 1, 1))
+    if k == 3 and _pallas_ok(grid, weight, use_pallas):
+        return K_cl.conv3d_3x3x3_folded(grid, weight, impl=impl)
+    return D.conv3d(grid, w, padding=(k - 1) // 2)
 
 
 def _subm_conv(groups, mask, weight, use_pallas=0, impl=None,
-               filter_size=3):
+               filter_size=3, space=None):
     """Per-group convs summed in the compute type, then masked: weight
     [K, sum(C_i), Cout] -> one grid."""
     if weight.shape[1] != sum(g.shape[-1] for g in groups):
@@ -193,7 +224,7 @@ def _subm_conv(groups, mask, weight, use_pallas=0, impl=None,
     for g in groups:
         c = g.shape[-1]
         yi = _conv_one(g, weight[:, off:off + c], filter_size, use_pallas,
-                       impl)
+                       impl, space)
         y = yi if y is None else y + yi
         off += c
     return y * mask[..., None].to(y.dtype)
@@ -214,12 +245,19 @@ def _strided_conv(groups, mask, weight):
     return y * new_mask[..., None].to(y.dtype), new_mask
 
 
-def _upsampled_conv(groups, weight27):
-    """Fused [2x NN upsample -> 3^3 conv] per group, summed."""
+def _upsampled_conv(groups, weight27, space=None):
+    """Fused [2x NN upsample -> 3^3 conv] per group, summed. With ``space``
+    one coarse halo plane a side gives the two fine planes the conv needs
+    across the slab boundary, and the halo's fine planes are cropped
+    (:151-172)."""
     y, off = None, 0
     for g in groups:
         c = g.shape[-1]
+        if space is not None:
+            g = halo_exchange(g, 1, space)
         yi = D.upsampled_conv3d(g, weight27[:, off:off + c])
+        if space is not None:
+            yi = yi[:, 2:-2]
         y = yi if y is None else y + yi
         off += c
     return y
@@ -263,40 +301,40 @@ def _upsample2(grid):
     return grid
 
 
-def _resblock(p, s, grid, mask, bn, use_pallas, impl):
+def _resblock(p, s, grid, mask, bn, use_pallas, impl, space=None):
     new = {}
     y, new["bn0"] = _mask_bn(bn, p["bn0"], sub(s, "bn0"), [grid], mask)
-    y = _subm_conv(y, mask, p["conv0"], use_pallas, impl)
+    y = _subm_conv(y, mask, p["conv0"], use_pallas, impl, space=space)
     y, new["bn1"] = _mask_bn(bn, p["bn1"], sub(s, "bn1"), [y], mask)
-    y = _subm_conv(y, mask, p["conv1"], use_pallas, impl)
+    y = _subm_conv(y, mask, p["conv1"], use_pallas, impl, space=space)
     return grid + y, new
 
 
-def _unet(p, s, groups, mask, bn, use_pallas, impl):
+def _unet(p, s, groups, mask, bn, use_pallas, impl, space=None):
     """FullyConvolutionalNet (reps=1, residual): returns (the groups [x,
     up(deeper)...] at this resolution, new stats)."""
     x = groups[0] if len(groups) == 1 else torch.cat(groups, -1)
     new = {}
     x, new["block"] = _resblock(p["block"], sub(s, "block"), x, mask, bn,
-                                use_pallas, impl)
+                                use_pallas, impl, space)
     if "deeper" not in p:
         return [x], new
     y, new["down_bn"] = _mask_bn(bn, p["down_bn"], sub(s, "down_bn"), [x],
                                  mask)
     down, down_mask = _strided_conv(y, mask, p["down_conv"])
     deep, new["deeper"] = _unet(p["deeper"], sub(s, "deeper"), [down],
-                                down_mask, bn, use_pallas, impl)
+                                down_mask, bn, use_pallas, impl, space)
     m = mask[..., None]
     return [x, *[_upsample2(d) * m.to(d.dtype) for d in deep]], new
 
 
-def _encoder_layer(p, s, groups, mask, bn, use_pallas, impl):
+def _encoder_layer(p, s, groups, mask, bn, use_pallas, impl, space=None):
     """Returns (the downsampled grid, its mask, (the skip ft2, its mask),
     new stats)."""
     new = {}
-    x = _subm_conv(groups, mask, p["p1"], use_pallas, impl)
+    x = _subm_conv(groups, mask, p["p1"], use_pallas, impl, space=space)
     x, new["p2"] = _resblock(p["p2"], sub(s, "p2"), x, mask, bn, use_pallas,
-                             impl)
+                             impl, space)
     y, new["p2_bn"] = _mask_bn(bn, p["p2_bn"], sub(s, "p2_bn"), [x], mask)
     down, down_mask = _strided_conv(y, mask, p["p3"])
     z, new["p3_bn"] = _mask_bn(bn, p["p3_bn"], sub(s, "p3_bn"), [down],
@@ -304,17 +342,18 @@ def _encoder_layer(p, s, groups, mask, bn, use_pallas, impl):
     return z[0], down_mask, (y[0], mask), new
 
 
-def _refine_level(p, s, cfg, cur, cur_mask, bn, use_pallas, impl):
+def _refine_level(p, s, cfg, cur, cur_mask, bn, use_pallas, impl,
+                  space=None):
     """One generative level (dense_flow.py:486-528): U-Net, the fused
     upsample conv, the heads and the pruned mask. Returns (the next groups,
     their mask, out [B, z, y, x, 2] f32, the unpruned mask, new stats)."""
     new = {}
-    z = _subm_conv(cur, cur_mask, p["p1"], use_pallas, impl)
+    z = _subm_conv(cur, cur_mask, p["p1"], use_pallas, impl, space=space)
     z, new["p2"] = _unet(p["p2"], sub(s, "p2"), [z], cur_mask, bn,
-                         use_pallas, impl)
+                         use_pallas, impl, space)
     z, new["p3"] = _mask_bn(bn, p["p3"], sub(s, "p3"), z, cur_mask)
     mask_unfilt = _upsample2(cur_mask)
-    up = _upsampled_conv(z, p["n1"])
+    up = _upsampled_conv(z, p["n1"], space)
     up = up * mask_unfilt[..., None].to(up.dtype)
     up, new["n2"] = _mask_bn(bn, p["n2"], sub(s, "n2"), [up], mask_unfilt)
     up = up[0]
@@ -347,40 +386,65 @@ def genmodel_apply_dense(tree: dict, stats, cfg: SGNNConfig,
                          st: SparseTensor, *, trunk, bn,
                          num_refine_active: int | None = None,
                          do_surf: bool = True, training: bool = False,
-                         impl: str | None = None):
-    """The dense-flow forward (dense_flow.py:390-596, no spatial sharding):
-    ``tree``/``stats`` the sparse levels' subtrees (``process_sparse``,
-    ``refinement``, ``surfacepred``; stats None for a prepared tree),
-    ``trunk(x) -> (y, coarse_out, its new stats)``, ``bn`` as in
-    nn/blocks.py. The first ``num_refine_active`` refinement levels run
-    (all by default), the surface head with ``do_surf`` once all do. With
-    ``training`` no conv runs K8 (the JAX package turns its kernel off
-    under training) and nothing is recomputed in the backward (no
-    ``jax.checkpoint``). Returns (DenseFlowOutput, new stats in the JAX
-    tree's layout; an inactive level keeps its stats)."""
+                         impl: str | None = None, space=None):
+    """The dense-flow forward (dense_flow.py:390-596): ``tree``/``stats``
+    the sparse levels' subtrees (``process_sparse``, ``refinement``,
+    ``surfacepred``; stats None for a prepared tree), ``trunk(x) -> (y,
+    coarse_out, its new stats)``, ``bn`` as in nn/blocks.py. The first
+    ``num_refine_active`` refinement levels run (all by default), the
+    surface head with ``do_surf`` once all do. With ``training`` no conv
+    runs K8 (the JAX package turns its kernel off under training) and
+    nothing is recomputed in the backward (no ``jax.checkpoint``).
+
+    ``space``: a process group to shard the scene's z over (``sp_axis``).
+    Every rank passes the whole ``st`` with ``st.spatial_size`` the GLOBAL
+    dims, scatters its own z-slab, exchanges a boundary plane at each 3^3
+    and upsampled conv (plain convs: no K8), runs the trunk replicated
+    (``sharded_trunk``), and gets local z-slabs out. ``bn`` must then sum
+    its moments over the space group too (and the data group), and
+    ``trunk``'s over the data group only. Z must divide by 32 times the
+    group's size. Returns (DenseFlowOutput, new stats in the JAX tree's
+    layout; an inactive level keeps its stats)."""
     use_pallas = (max(1, int(cfg.pallas_min_voxels))
-                  if cfg.use_pallas_conv and not training else 0)
+                  if cfg.use_pallas_conv and not training and space is None
+                  else 0)
     dt = getattr(torch, cfg.compute_dtype)
     B = st.batch_size
     Z, Y, X = st.spatial_size
-    grid = sparse_to_dense(st).to(dt)
-    keys = C.flat_key(st.locs, st.spatial_size, B).long()
-    mask = torch.zeros(B * Z * Y * X, dtype=torch.bool,
+    n_sp = comm.size(space)
+    if space is not None and Z % (32 * n_sp):
+        raise ValueError(f"spatial sharding: Z={Z} must divide by 32*{n_sp} "
+                         "so every strided conv sees an even local extent")
+    zl = Z // n_sp
+    if space is None:
+        grid = sparse_to_dense(st).to(dt)
+        keys = C.flat_key(st.locs, st.spatial_size, B).long()
+        ok = st.valid() & (keys >= 0)
+    else:
+        lz = st.locs[:, 0].long() - comm.index(space) * zl
+        ok = st.valid() & (lz >= 0) & (lz < zl)
+        keys = ((st.locs[:, 3].long() * zl + lz) * Y
+                + st.locs[:, 1].long()) * X + st.locs[:, 2].long()
+        flat = torch.zeros(B * zl * Y * X, st.num_channels, dtype=dt,
+                           device=st.locs.device)
+        flat[keys[ok]] = st.feats[ok].to(dt)
+        grid = flat.reshape(B, zl, Y, X, st.num_channels)
+    mask = torch.zeros(B * zl * Y * X, dtype=torch.bool,
                        device=st.locs.device)
-    mask[keys[st.valid() & (keys >= 0)]] = True
-    mask = mask.reshape(B, Z, Y, X)
+    mask[keys[ok]] = True
+    mask = mask.reshape(B, zl, Y, X)
 
     skips, enc_s = [], []
     x, m = grid, mask
     for lvl, p in enumerate(tree["process_sparse"]):
         x, m, ft2, s_l = _encoder_layer(
             p, None if stats is None else stats["process_sparse"][lvl], [x],
-            m, bn, use_pallas, impl)
+            m, bn, use_pallas, impl, space)
         skips.append(ft2)
         enc_s.append(s_l)
     skips.append((x, m))
 
-    y, coarse_out, s_trunk = trunk(x)
+    y, coarse_out, s_trunk = sharded_trunk(trunk, x, space)
     cur_mask = torch.sigmoid(coarse_out[..., 0]) > 0.5
     cmf = cur_mask[..., None].to(dt)
     cur = ([coarse_out.to(dt) * cmf] * cfg.pass_occ
@@ -398,7 +462,7 @@ def genmodel_apply_dense(tree: dict, stats, cfg: SGNNConfig,
         cur, cur_mask, out_h, mask_unfilt, new_ref[h] = _refine_level(
             tree["refinement"][h], None if stats is None
             else stats["refinement"][h], cfg, cur, cur_mask, bn, use_pallas,
-            impl)
+            impl, space)
         ref_outs.append(out_h)
         ref_masks.append(mask_unfilt)
         active.append(cur_mask.sum())
@@ -409,14 +473,15 @@ def genmodel_apply_dense(tree: dict, stats, cfg: SGNNConfig,
             sk = skips[0][0]
             cur = [*cur, sk * cur_mask[..., None].to(sk.dtype)]
         new_surf = {}
-        z = _subm_conv(cur, cur_mask, p["p1"], use_pallas, impl)
+        z = _subm_conv(cur, cur_mask, p["p1"], use_pallas, impl,
+                       space=space)
         z, new_surf["p2"] = _unet(p["p2"], sub(s_s, "p2"), [z], cur_mask, bn,
-                                  use_pallas, impl)
+                                  use_pallas, impl, space)
         z, new_surf["p3"] = _mask_bn(bn, p["p3"], sub(s_s, "p3"), z,
                                      cur_mask)
         surf = _linear(z, p["linear"])[..., 0]
     else:
-        surf = torch.zeros(B, Z, Y, X, device=grid.device)
+        surf = torch.zeros(B, zl, Y, X, device=grid.device)
         cur_mask = torch.zeros_like(mask)
         new_surf = sub(stats, "surfacepred")
     new = {"encoder": {"process_sparse": enc_s, **s_trunk},
@@ -441,18 +506,23 @@ def sparse_levels_tree(params: dict, stats: dict) -> dict:
 def genmodel_apply_dense_train(params: dict, stats: dict, cfg: SGNNConfig,
                                st: SparseTensor, *, num_refine_active: int,
                                do_surf: bool, training: bool = True,
-                               impl: str | None = None):
+                               impl: str | None = None, data=None,
+                               space=None):
     """``genmodel_apply_dense`` over the JAX tree's parameter tensors
     (batch moments when ``training``, the running stats else; K8 only
-    when not training). Returns (DenseFlowOutput, new stats)."""
+    when not training). ``data``: the data-parallel group; ``space``: the
+    z-sharding group. The sparse levels' moments are summed over both,
+    the trunk's over ``data`` only (dense_flow.py:421-425, :487). Returns
+    (DenseFlowOutput, new stats)."""
     def trunk(x):
         return dense_trunk_train(params["encoder"], stats["encoder"], cfg, x,
-                                 training=training)
+                                 training=training, group=data)
+    both = tuple(g for g in (data, space) if g is not None) or None
     return genmodel_apply_dense(
         sparse_levels(params), sparse_levels(stats), cfg, st, trunk=trunk,
-        bn=functools.partial(BN.batch_norm, training=training),
+        bn=functools.partial(BN.batch_norm, training=training, group=both),
         num_refine_active=num_refine_active, do_surf=do_surf,
-        training=training, impl=impl)
+        training=training, impl=impl, space=space)
 
 
 class EvalModel(nn.Module):
@@ -487,12 +557,14 @@ class GenModelDense(EvalModel):
     """The dense-flow serving forward of a SparseTensor of input rows."""
 
     @torch.no_grad()
-    def forward(self, st: SparseTensor, impl: str | None = None
-                ) -> DenseFlowOutput:
+    def forward(self, st: SparseTensor, impl: str | None = None,
+                space=None) -> DenseFlowOutput:
+        """``space``: shard the scene's z over this process group (every
+        rank passes the whole scene; the outputs are its local slabs)."""
         return genmodel_apply_dense(self.weights.tree(), None,
                                     self.scene_cfg(st), st,
                                     trunk=self.trunk_fn, bn=prepared_bn,
-                                    impl=impl)[0]
+                                    impl=impl, space=space)[0]
 
 
 class TrainModel(nn.Module):
@@ -567,8 +639,8 @@ class GenModelDenseTrain(TrainModel):
 
     def forward(self, st: SparseTensor, *, num_refine_active: int,
                 do_surf: bool, training: bool = True,
-                impl: str | None = None):
+                impl: str | None = None, data=None, space=None):
         return genmodel_apply_dense_train(
             self.param_tree(), self.stat_tree(), self.cfg, st,
             num_refine_active=num_refine_active, do_surf=do_surf,
-            training=training, impl=impl)
+            training=training, impl=impl, data=data, space=space)

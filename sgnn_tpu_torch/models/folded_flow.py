@@ -2,10 +2,11 @@
 
 Port of ``sgnn_tpu/models/folded_flow.py`` ``genmodel_apply_folded``
 (:126) in its serving form: ``want_level_outputs=False`` (no per-level
-raw head grids), every refinement level and the surface head active, no
-spatial sharding. The surface head is the multi-scale packed
-head (``surf_head_packed``, K5) over the surface U-Net's groups at their
-native resolutions; ``GenModelFolded(cfg, surf_pack=False)`` builds the
+raw head grids), every refinement level and the surface head active; on
+one device or z-sharded over a process group (``space``: the halo
+exchange at each 3^3 site, ``ops/folded.py:halo_exchange_z``). The
+surface head is the multi-scale packed head (``surf_head_packed``, K5)
+over the surface U-Net's groups at their native resolutions; ``GenModelFolded(cfg, surf_pack=False)`` builds the
 counterpart of the JAX package's ``SGNN_NO_SURFPACK`` branch instead:
 the groups upsampled to full resolution and the summed head site
 (``surf_head_fused``, K4 summed mode).
@@ -30,10 +31,11 @@ import torch
 from torch import nn
 
 from sgnn_tpu_torch.config import SGNNConfig
-from sgnn_tpu_torch.models.dense_flow import DenseTrunk
+from sgnn_tpu_torch.models.dense_flow import DenseTrunk, sharded_trunk
 from sgnn_tpu_torch.ops import folded as FO
 from sgnn_tpu_torch.ops import quant as Q
 from sgnn_tpu_torch.ops.folded import MAXC, FGrid
+from sgnn_tpu_torch.parallel import comm
 
 CPAD = 16  # lane budget of every level but the encoder's first
 
@@ -212,9 +214,15 @@ class BNFolded(nn.Module):
         return FO.bn_folded(fg, fm, self.mean, self.inv, self.bias)
 
 
+def _same(g: FGrid) -> FGrid:
+    return g
+
+
 class ResBlock(nn.Module):
     """Two BN -> conv sites; the identity branch is added inside the
-    second kernel, after its mask."""
+    second kernel, after its mask. ``ex``: the z halo exchange of each
+    conv input under spatial sharding (the residual is read inside the
+    slab only)."""
 
     def __init__(self, nf: int, q: bool = False):
         super().__init__()
@@ -225,17 +233,19 @@ class ResBlock(nn.Module):
         self.conv0.load(p["conv0"], dtype, (p["bn0"], s["bn0"]))
         self.conv1.load(p["conv1"], dtype, (p["bn1"], s["bn1"]))
 
-    def forward(self, fg: FGrid, fm: FGrid, impl: str | None = None
-                ) -> FGrid:
-        y = self.conv0([fg], fm, impl=impl)
-        return self.conv1([y], fm, residual=fg, impl=impl)
+    def forward(self, fg: FGrid, fm: FGrid, impl: str | None = None,
+                ex=_same) -> FGrid:
+        y = self.conv0([ex(fg)], fm, impl=impl)
+        return self.conv1([ex(y)], fm, residual=fg, impl=impl)
 
 
 class UNet(nn.Module):
     """FullyConvolutionalNet (reps=1, residual) over ``levels`` levels of
     width nf; returns the GROUPS [x, up(deeper)...] at this resolution, or
     with ``defer`` the (group, scale) pairs at their native resolutions
-    (scale = the NN-upsample factor to this one; nothing is upsampled)."""
+    (scale = the NN-upsample factor to this one; nothing is upsampled).
+    ``ex``: the z halo exchange of conv inputs and of the coarse mask
+    under spatial sharding."""
 
     def __init__(self, nf: int, levels: int = 3, q: bool = False):
         super().__init__()
@@ -252,12 +262,13 @@ class UNet(nn.Module):
             self.deeper.load(p["deeper"], s["deeper"], dtype)
 
     def forward(self, fg: FGrid, fm: FGrid, impl: str | None = None,
-                defer: bool = False) -> list:
-        x = self.block(fg, fm, impl=impl)
+                defer: bool = False, ex=_same) -> list:
+        x = self.block(fg, fm, impl=impl, ex=ex)
         if self.deeper is None:
             return [(x, 1)] if defer else [x]
+        # the down site reads inside the slab only: no exchange
         down, down_fm = self.down(x, fm, impl=impl)
-        deep = self.deeper(down, down_fm, impl=impl, defer=defer)
+        deep = self.deeper(down, ex(down_fm), impl=impl, defer=defer, ex=ex)
         if defer:
             return [(x, 1), *[(d, 2 * s) for d, s in deep]]
         # no mask multiply on the upsampled groups: every consumer applies
@@ -284,11 +295,12 @@ class EncoderLayer(nn.Module):
         self.p3_bn.load(p["p3_bn"], s["p3_bn"])
 
     def forward(self, groups: list, fm: FGrid, cpad_out: int | None = None,
-                impl: str | None = None):
-        x = self.p1(groups, fm, impl=impl)
-        x = self.p2(x, fm, impl=impl)
+                impl: str | None = None, ex=_same):
+        x = self.p1([ex(g) for g in groups], fm, impl=impl)
+        x = self.p2(x, fm, impl=impl, ex=ex)
         y = self.p2_bn(x, fm)
         down, down_fm = self.p3(y, fm, cpad_out=cpad_out, impl=impl)
+        down_fm = ex(down_fm)
         return self.p3_bn(down, down_fm), down_fm, (y, fm)
 
 
@@ -309,13 +321,15 @@ class Refinement(nn.Module):
         self.up.load(p["n1"], (p["p3"], s["p3"]), dtype)
         self.head.load(p, s, dtype)
 
-    def forward(self, cur: list, cur_fm: FGrid, impl: str | None = None):
-        z = self.p1(cur, cur_fm, impl=impl)
-        zg = self.p2(z, cur_fm, impl=impl)
+    def forward(self, cur: list, cur_fm: FGrid, impl: str | None = None,
+                ex=_same):
+        z = self.p1([ex(g) for g in cur], cur_fm, impl=impl)
+        zg = self.p2(z, cur_fm, impl=impl, ex=ex)
         # the unfiltered fine mask is the NN-dup of cur_fm: the upconv and
         # the head site expand it from the coarse grid
-        up = self.up(zg, cur_fm, impl=impl)
-        return self.head(up, cur_fm, impl=impl)
+        up = self.up([ex(g) for g in zg], cur_fm, impl=impl)
+        upm, o2m, new_fm = self.head(up, cur_fm, impl=impl)
+        return upm, o2m, ex(new_fm)
 
 
 class SurfacePred(nn.Module):
@@ -332,9 +346,11 @@ class SurfacePred(nn.Module):
         self.p2.load(p["p2"], s["p2"], dtype)
         self.head.load(p, s, dtype)
 
-    def forward(self, cur: list, cur_fm: FGrid, impl: str | None = None):
-        z = self.p1(cur, cur_fm, impl=impl)
-        groups = self.p2(z, cur_fm, impl=impl, defer=self.head.pack)
+    def forward(self, cur: list, cur_fm: FGrid, impl: str | None = None,
+                ex=_same):
+        z = self.p1([ex(g) for g in cur], cur_fm, impl=impl)
+        groups = self.p2(z, cur_fm, impl=impl, defer=self.head.pack, ex=ex)
+        # the heads read inside the slab only (folded_flow.py:90)
         return self.head(groups, cur_fm, impl=impl)
 
 
@@ -404,34 +420,64 @@ class GenModelFolded(nn.Module):
 
     @torch.no_grad()
     def forward(self, locs: torch.Tensor, feats: torch.Tensor, dims: tuple,
-                batch_size: int = 1, impl: str | None = None
+                batch_size: int = 1, impl: str | None = None, space=None
                 ) -> FoldedOutput:
         """``locs [N, 4]`` (z, y, x, b) rows and ``feats [N, 1]`` TSDF
-        values of the active input voxels of a ``dims`` scene."""
+        values of the active input voxels of a ``dims`` scene.
+
+        ``space``: a process group to shard the scene's z over
+        (folded_flow.py:126-330, ``sp_axis``): every rank passes the whole
+        scene with ``dims`` the GLOBAL dims and scatters its own slab
+        (``scatter_sparse_sharded``); each 3^3 conv and upconv site refills
+        its inputs' z ring from the neighbours (``halo_exchange_z``), and
+        so does every mask a site reads; the trunk runs replicated
+        (``sharded_trunk``); every other op is slab-local, and the outputs
+        are this rank's z-slabs. Z must divide by 32 times the group's
+        size; the int8 forward is refused (its per-tile scales would be
+        picked on the slab, not on the scene)."""
         cfg, dt = self.cfg, self.dtype
         X = dims[2]
         # level 0 runs at cpad 8 when its widths allow: 16 voxels per row
         cpad0 = 8 if (cfg.input_nf <= 8 and cfg.nf_per_level[0] <= 8
                       and X % 16 == 0) else CPAD
-        x, m = FO.scatter_sparse(locs, feats, locs.shape[0], dims,
-                                 batch_size, cpad=cpad0, dtype=dt,
-                                 feat_bound=cfg.truncation, impl=impl)
+        if space is None:
+            ex = _same
+            x, m = FO.scatter_sparse(locs, feats, locs.shape[0], dims,
+                                     batch_size, cpad=cpad0, dtype=dt,
+                                     feat_bound=cfg.truncation, impl=impl)
+        else:
+            n_sp = comm.size(space)
+            if dims[0] % (32 * n_sp):
+                raise ValueError(f"spatial folded: Z={dims[0]} must divide "
+                                 f"by 32*{n_sp}")
+            if cfg.quantize_int8:
+                raise ValueError("spatial folded: the int8 forward is not "
+                                 "sharded (tile_amax's tiles would be picked"
+                                 " on each slab, not on the scene)")
+
+            def ex(g):
+                return FO.halo_exchange_z(g, space)
+            x, m = FO.scatter_sparse_sharded(
+                locs, feats, locs.shape[0], dims, batch_size, space,
+                cpad=cpad0, dtype=dt, feat_bound=cfg.truncation, impl=impl)
+            m = ex(m)
 
         # ---- encoder levels
         skips = []
         for lvl, layer in enumerate(self.encoder):
             widen = lvl == 0 and cpad0 != CPAD
             x, m, ft2 = layer([x], m, cpad_out=CPAD if widen else None,
-                              impl=impl)
+                              impl=impl, ex=ex)
             if widen:  # the full-res skip is consumed at cpad 16
                 ft2 = (FO.repack_cpad(ft2[0], CPAD), ft2[1])
             skips.append(ft2)
         skips.append((x, m))
 
         # ---- coarse dense trunk (1/8 res)
-        y, coarse_out = self.trunk(FO.unfold(x))
+        y, coarse_out, _ = sharded_trunk(
+            lambda t: (*self.trunk(t), None), FO.unfold(x), space)
         cur_mask = torch.sigmoid(coarse_out[..., 0]) > 0.5
-        cur_fm = FO.fold_mask(cur_mask, CPAD, dt)
+        cur_fm = ex(FO.fold_mask(cur_mask, CPAD, dt))
         cur = []
         if cfg.pass_occ:
             o = FO.fold(coarse_out.to(dt), CPAD)
@@ -447,13 +493,14 @@ class GenModelFolded(nn.Module):
             if cfg.use_skip_sparse:
                 sk = skips[L_ref - h][0]
                 cur = [*cur, sk.with_data(sk.data * cur_fm.data)]
-            upm, o2m, cur_fm = ref(cur, cur_fm, impl=impl)
+            upm, o2m, cur_fm = ref(cur, cur_fm, impl=impl, ex=ex)
             cur = [upm] * cfg.pass_feats + [o2m] * cfg.pass_occ
-            active.append((cur_fm.data[..., ::CPAD] > 0).sum())
+            # inside the slab: under sharding the ring holds a neighbour's
+            active.append((cur_fm.data[:, 1:-1, ..., ::CPAD] > 0).sum())
 
         # ---- surface prediction
         if cfg.use_skip_sparse:
             sk = skips[0][0]
             cur = [*cur, sk.with_data(sk.data * cur_fm.data)]
-        surf, surf_mask = self.surface(cur, cur_fm, impl=impl)
+        surf, surf_mask = self.surface(cur, cur_fm, impl=impl, ex=ex)
         return FoldedOutput(coarse_out, surf, surf_mask, active)

@@ -193,16 +193,17 @@ def genmodel_apply(tree: dict, stats, cfg: SGNNConfig, st: SparseTensor, *,
 def genmodel_apply_train(params: dict, stats: dict, cfg: SGNNConfig,
                          st: SparseTensor, *, num_refine_active: int,
                          do_surf: bool, training: bool = True,
-                         impl: str | None = None):
+                         impl: str | None = None, group=None):
     """``genmodel_apply`` over the JAX tree's parameter tensors (batch
-    moments when ``training``, the running stats else). Returns
-    (GenModelOutput, new stats)."""
+    moments when ``training``, summed over the ranks of ``group``, the
+    data-parallel group, at every BN as ``axis_name`` there; the running
+    stats else). Returns (GenModelOutput, new stats)."""
     def trunk(x):
         return dense_trunk_train(params["encoder"], stats["encoder"], cfg, x,
-                                 training=training)
+                                 training=training, group=group)
     return genmodel_apply(
         sparse_levels(params), sparse_levels(stats), cfg, st, trunk=trunk,
-        bn=functools.partial(BN.batch_norm, training=training),
+        bn=functools.partial(BN.batch_norm, training=training, group=group),
         num_refine_active=num_refine_active, do_surf=do_surf, impl=impl)
 
 
@@ -226,8 +227,8 @@ class GenModelSparseTrain(TrainModel):
 
     def forward(self, st: SparseTensor, *, num_refine_active: int,
                 do_surf: bool, training: bool = True,
-                impl: str | None = None):
+                impl: str | None = None, group=None):
         return genmodel_apply_train(
             self.param_tree(), self.stat_tree(), self.cfg, st,
             num_refine_active=num_refine_active, do_surf=do_surf,
-            training=training, impl=impl)
+            training=training, impl=impl, group=group)

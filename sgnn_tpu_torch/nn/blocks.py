@@ -7,9 +7,10 @@ Each block takes its parameter subtree, its running-stats subtree and a
 with its ReLU: ``prepared_bn`` for the serving forward, whose tree is
 *prepared* (``PreparedTree``: every BN node already holds its eval
 constants, ``ops/bn.prepare_eval_tree``; stats None), or ``ops/bn.
-batch_norm`` over parameter tensors (batch moments when training). Each
-returns its new stats subtree. The wiring follows the reference for
-checkpoint parity:
+batch_norm`` over parameter tensors (batch moments when training, summed
+over a process group bound in with ``functools.partial(..., group=)``:
+the JAX blocks' ``axis_name``). Each returns its new stats subtree. The
+wiring follows the reference for checkpoint parity:
   * residual block: identity + BN-ReLU-conv x2;
   * encoder layer: subm conv -> residual block -> BN-ReLU (the skip) ->
     stride-2 conv -> BN-ReLU;

@@ -1,16 +1,19 @@
 """Batch norm (port of ``sgnn_tpu/ops/bn.py``): dense channels-last grids
 (``batch_norm_dense``: ``nn.BatchNorm3d`` semantics, eps 1e-5) in the eval
 form with precomputed constants and in the training form with batch
-moments and the running-stats update; and the masked rows of the sparse
-levels (``batch_norm`` with a mask, scn's eps 1e-4): the eval form with
-precomputed constants (``batch_norm_rows``) and the form over parameter
-tensors (``batch_norm``, with the batch moments of the mask's rows when
-training)."""
+moments (all-reduced over a process group under data parallelism or
+spatial sharding) and the running-stats update; and the masked rows of
+the sparse levels (``batch_norm`` with a mask, scn's eps 1e-4): the eval
+form with precomputed constants (``batch_norm_rows``) and the form over
+parameter tensors (``batch_norm``, with the batch moments of the mask's
+rows when training)."""
 
 from __future__ import annotations
 
 import numpy as np
 import torch
+
+from sgnn_tpu_torch.parallel import comm
 
 SPARSE_BN_EPS = 1e-4
 DENSE_BN_EPS = 1e-5
@@ -62,11 +65,15 @@ def prepare_eval_tree(params, stats, eps: float = SPARSE_BN_EPS):
     return torch.tensor(np.asarray(params, np.float32))
 
 
-def masked_moments(x: torch.Tensor, mask: torch.Tensor | None):
+def masked_moments(x: torch.Tensor, mask: torch.Tensor | None,
+                   group=None):
     """(mean, biased var, count) f32 over the rows of ``x [..., C]`` where
     ``mask [...]`` is True (every row without a mask), in one pass:
     E[x^2] - E[x]^2, the count clamped to at least 1, the variance to at
-    least 0 (torch.relu: gradient 0 at exactly 0)."""
+    least 0 (torch.relu: gradient 0 at exactly 0). With ``group`` (a
+    process group or a tuple of them) the count and the sums are summed
+    over its ranks first, where ops/bn.py:56-59 psums them (one
+    all-reduce; its backward all-reduces the cotangents)."""
     xf = x.float().reshape(-1, x.shape[-1])
     if mask is not None:
         m = mask.reshape(-1, 1).float()
@@ -75,6 +82,7 @@ def masked_moments(x: torch.Tensor, mask: torch.Tensor | None):
     else:
         count = torch.tensor(float(xf.shape[0]), device=x.device)
         s, sq = xf.sum(0), (xf * xf).sum(0)
+    count, s, sq = comm.all_reduce_each([count, s, sq], group)
     count = count.clamp_min(1.0)
     mean = s / count
     return mean, torch.relu(sq / count - mean * mean), count
@@ -82,15 +90,17 @@ def masked_moments(x: torch.Tensor, mask: torch.Tensor | None):
 
 def batch_norm(params: dict, stats: dict, x: torch.Tensor,
                mask: torch.Tensor | None = None, *, training: bool,
-               eps: float = SPARSE_BN_EPS, momentum: float = BN_MOMENTUM):
+               eps: float = SPARSE_BN_EPS, momentum: float = BN_MOMENTUM,
+               group=None):
     """BN + ReLU over the last axis of ``x [..., C]`` with parameter
     tensors (ops/bn.py:batch_norm, relu=True). Training: the batch moments
-    of the rows where ``mask [...]`` is True, and the running stats updated
-    with the unbiased variance (detached); eval: the running stats. The
-    output is rounded to x's type, then zero where ``mask`` is False.
-    Returns (y, new stats)."""
+    of the rows where ``mask [...]`` is True (over the ranks of ``group``
+    too, as ``axis_name`` there), and the running stats updated with the
+    unbiased variance (detached); eval: the running stats. The output is
+    rounded to x's type, then zero where ``mask`` is False. Returns (y,
+    new stats)."""
     if training:
-        mean, var, count = masked_moments(x, mask)
+        mean, var, count = masked_moments(x, mask, group)
         unbiased = var * (count / (count - 1.0).clamp_min(1.0))
         new_stats = {
             "mean": (momentum * stats["mean"]
@@ -109,10 +119,10 @@ def batch_norm(params: dict, stats: dict, x: torch.Tensor,
 
 def batch_norm_dense(params: dict, stats: dict, x: torch.Tensor, *,
                      training: bool, eps: float = DENSE_BN_EPS,
-                     momentum: float = BN_MOMENTUM):
+                     momentum: float = BN_MOMENTUM, group=None):
     """BN + ReLU over the last axis of ``x [..., C]``, every voxel counted
     (ops/bn.py:batch_norm_dense, relu=True): ``batch_norm`` without a mask
     at the dense eps. Returns (y in x's type, new stats). The clamps are
     torch.relu: gradient 0 at exactly 0."""
     return batch_norm(params, stats, x, training=training, eps=eps,
-                      momentum=momentum)
+                      momentum=momentum, group=group)

@@ -40,7 +40,8 @@ class _Conv(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, w, stride, padding, transposed):
         ctx.save_for_backward(x, w)
-        ctx.conf = ([stride] * 3, [padding] * 3, transposed)
+        pad = list(padding) if isinstance(padding, tuple) else [padding] * 3
+        ctx.conf = ([stride] * 3, pad, transposed)
         fn = nnf.conv_transpose3d if transposed else nnf.conv3d
         with torch.backends.cudnn.flags(**_CUDNN):
             return fn(x, w, stride=stride, padding=padding)
@@ -57,8 +58,9 @@ class _Conv(torch.autograd.Function):
 
 
 def conv3d(x: torch.Tensor, weight: torch.Tensor, *, stride: int = 1,
-           padding: int = 0) -> torch.Tensor:
-    """nn.Conv3d on channels-last input; ``weight`` already rounded."""
+           padding: int | tuple = 0) -> torch.Tensor:
+    """nn.Conv3d on channels-last input; ``weight`` already rounded;
+    ``padding`` one int or (z, y, x)."""
     y = _Conv.apply(x.permute(0, 4, 1, 2, 3).float(), weight, stride,
                     padding, False)
     return y.permute(0, 2, 3, 4, 1).to(x.dtype)

@@ -21,13 +21,18 @@ The sites take kernel-ready weights prepared once by the ``prep_*``
 functions below (the port's replacement for the JAX package's
 record/replay weight stream).
 
+``scatter_sparse_sharded`` and ``halo_exchange_z`` (port of :1772-1825)
+serve a z-sharded slab: rows land on the rank that owns their z, and a
+3^3 site's inputs get their z ring from the neighbours' planes.
+
 The training sites at the end of the module (port of
 ``sgnn_tpu/ops/folded.py:1135-1769``) are ``torch.autograd.Function``s
 with the JAX package's custom-VJP contracts: the 3^3 conv runs K7
 (``conv_raw``) forward and for its input gradient; the fused BN -> conv
 site runs K1 forward with a hand-written backward; every other site runs
 its serving kernel forward and differentiates the plain composition at
-the saved inputs.
+the saved inputs. Under data parallelism every training BN sums its
+moments over the data group (``bn_moments``'s ``group``).
 """
 
 from __future__ import annotations
@@ -45,6 +50,7 @@ from sgnn_tpu_torch.ops.kernels import head as K_head
 from sgnn_tpu_torch.ops.kernels import scatter as K_scatter
 from sgnn_tpu_torch.ops.kernels import surf_head as K_surf
 from sgnn_tpu_torch.ops.kernels import upconv as K_up
+from sgnn_tpu_torch.parallel import comm
 
 LANES = 128
 MAXC = 16  # channel padding of every prepared weight/affine array
@@ -140,6 +146,48 @@ def scatter_sparse(locs: torch.Tensor, feats: torch.Tensor, num_valid: int,
         _xq_for(dims[2], cpad), dtype, K, impl=impl,
     )
     return FGrid(data, dims, cin, cpad), FGrid(mdata, dims, cpad, cpad)
+
+
+def scatter_sparse_sharded(locs: torch.Tensor, feats: torch.Tensor,
+                           num_valid: int, dims: tuple, batch_size: int,
+                           group, cpad: int = 16,
+                           dtype: torch.dtype = torch.bfloat16,
+                           feat_bound: float = 3.0, impl: str | None = None
+                           ) -> tuple[FGrid, FGrid]:
+    """``scatter_sparse`` for a z-sharded slab (:1794-1825): ``dims`` the
+    GLOBAL (Z, Y, X); rows land on the rank of ``group`` that owns their
+    z, moved to its local z, and the rest are dropped; the FGrids are this
+    rank's LOCAL ``[B, Z/n + 2, ...]`` slab (K6 on the local slab)."""
+    Z, Y, X = dims
+    n, i = comm.size(group), comm.index(group)
+    if Z % n:
+        raise ValueError(f"scatter_sparse_sharded: Z {Z} over {n} ranks")
+    zl = Z // n
+    loc = locs[:num_valid].long()
+    z = loc[:, 0] - i * zl
+    ok = (z >= 0) & (z < zl) & (loc[:, 0] >= 0)
+    lloc = torch.stack([z, loc[:, 1], loc[:, 2], loc[:, 3]], -1)[ok]
+    return scatter_sparse(lloc, feats[:num_valid][ok], lloc.shape[0],
+                          (zl, Y, X), batch_size, cpad=cpad, dtype=dtype,
+                          feat_bound=feat_bound, impl=impl)
+
+
+def halo_exchange_z(fg: FGrid, group) -> FGrid:
+    """Fill the z halo ring of a z-sharded FGrid from the neighbours'
+    boundary interior planes (:1772-1791): ring plane 0 from the previous
+    rank's plane Z, ring plane Z + 1 from the next rank's plane 1; the ranks
+    at the ends keep their zero plane, the y and x rings stay zero, and a
+    group of one returns the grid unchanged. Called at each 3^3 conv and
+    upconv consumption site of the serving forward. The planes are
+    written into the grid in place: its producer wrote a zero ring, and
+    only the 3^3 sites, which need exactly these planes, read a ring."""
+    if comm.size(group) == 1:
+        return fg
+    d = fg.data
+    from_prev, from_next = comm.shift(d[:, -2], d[:, 1], group)
+    d[:, 0] = from_prev
+    d[:, -1] = from_next
+    return fg
 
 
 # ------------------------------------------------------------- grid algebra
@@ -547,14 +595,18 @@ def subm_conv_folded_train(groups: list, fm: FGrid, w27: torch.Tensor,
 # ------------------------------------------------------------ batch norm
 
 
-def bn_moments(fg: FGrid, fm: FGrid):
+def bn_moments(fg: FGrid, fm: FGrid, group=None):
     """Masked per-channel batch moments (f32, differentiable): (mean [C],
-    biased var [C], count) in one pass, E[x^2] - E[x]^2 (_bn_moments)."""
+    biased var [C], count) in one pass, E[x^2] - E[x]^2 (_bn_moments).
+    With ``group`` the sums and the count are summed over its ranks first,
+    in one all-reduce (the psum of :579-582: BN over the global batch)."""
     cpad, C = fg.cpad, fg.real_c
     xf = fg.data.float() * fm.data.float()
     s = _sv(xf, cpad).sum((0, 1, 2, 3))
     sq = _sv(xf * xf, cpad).sum((0, 1, 2, 3))
-    cnt = (fm.data.float().sum() / cpad).clamp_min(1.0)
+    cnt, s, sq = comm.all_reduce_each([fm.data.float().sum() / cpad, s, sq],
+                                      group)
+    cnt = cnt.clamp_min(1.0)
     mean = (s / cnt)[:C]
     var = torch.relu((sq / cnt)[:C] - mean * mean)
     return mean, var, cnt
@@ -574,12 +626,13 @@ def _vec(v: torch.Tensor, cpad: int) -> torch.Tensor:
 
 
 def bn_folded_train(params: dict, stats: dict, fg: FGrid, fm: FGrid, *,
-                    training: bool):
+                    training: bool, group=None):
     """Masked BN + ReLU in folded layout (bn_folded:599): batch moments
-    when training (with the updated running stats), running stats else."""
+    (over ``group``'s ranks) when training, with the updated running
+    stats; running stats else."""
     C, cpad = fg.real_c, fg.cpad
     if training:
-        mean, var, cnt = bn_moments(fg, fm)
+        mean, var, cnt = bn_moments(fg, fm, group)
         new_stats = bn_stats_update(stats, mean, var, cnt)
     else:
         mean, var, new_stats = stats["mean"][:C], stats["var"][:C], stats
@@ -591,15 +644,16 @@ def bn_folded_train(params: dict, stats: dict, fg: FGrid, fm: FGrid, *,
 
 
 def train_affine(params: dict, stats: dict, fg: FGrid, fm: FGrid, *,
-                 off: int = 0, training: bool = True):
+                 off: int = 0, training: bool = True, group=None):
     """One group's BN as an affine (a, b [cpad] f32) and its new running
-    stats (_train_affine:1430): batch moments when training, else the
-    running stats (the eval affine, stats unchanged)."""
+    stats (_train_affine:1430): batch moments (over ``group``'s ranks)
+    when training, else the running stats (the eval affine, stats
+    unchanged)."""
     c, cpad = fg.real_c, fg.cpad
     scale, bias = params["scale"][off:off + c], params["bias"][off:off + c]
     st = {k: stats[k][off:off + c] for k in ("mean", "var")}
     if training:
-        mean, var, cnt = bn_moments(fg, fm)
+        mean, var, cnt = bn_moments(fg, fm, group)
         ns = bn_stats_update(st, mean, var, cnt)
     else:
         mean, var, ns = st["mean"], st["var"], st
@@ -666,14 +720,14 @@ class _BnConvCore(torch.autograd.Function):
 
 def bn_conv_folded_train(bn_params: dict, bn_stats: dict, groups: list,
                          fm: FGrid, w27: torch.Tensor, cout: int, *,
-                         training: bool = True):
+                         training: bool = True, group=None):
     """Fused BN(+ReLU) -> 3^3 conv site (bn_conv_folded_train:1341):
     (FGrid, new stats)."""
     g0 = groups[0]
     a_s, b_s, ws, parts, off = [], [], [], [], 0
     for fg in groups:
         a, b, ns = train_affine(bn_params, bn_stats, fg, fm, off=off,
-                                training=training)
+                                training=training, group=group)
         a_s.append(a)
         b_s.append(b)
         parts.append(ns)
@@ -782,9 +836,10 @@ def downconv_folded_train(fg: FGrid, fm: FGrid, w8: torch.Tensor, cout: int,
 def bn_downconv_folded_train(bn_params: dict, bn_stats: dict, fg: FGrid,
                              fm: FGrid, w8: torch.Tensor, cout: int, *,
                              cpad_out: int | None = None,
-                             training: bool = True):
+                             training: bool = True, group=None):
     """BN + ReLU -> stride-2 conv -> coarse mask (:1551)."""
-    a, b, ns = train_affine(bn_params, bn_stats, fg, fm, training=training)
+    a, b, ns = train_affine(bn_params, bn_stats, fg, fm, training=training,
+                            group=group)
     down, down_fm = downconv_folded_train(fg, fm, w8, cout, affine=(a, b),
                                           cpad_out=cpad_out)
     return down, down_fm, ns
@@ -792,7 +847,7 @@ def bn_downconv_folded_train(bn_params: dict, bn_stats: dict, fg: FGrid,
 
 def bn_upconv_folded_train(bn_params: dict, bn_stats: dict, groups: list,
                            cfm: FGrid, ffm: FGrid, w27: torch.Tensor,
-                           cout: int, *, training: bool = True):
+                           cout: int, *, training: bool = True, group=None):
     """Generative upsample site (bn_upconv_folded_train:1566): per group
     [BN + ReLU + coarse mask] -> 2x NN upsample -> 3^3 conv -> fine mask.
     K3 forward; the composition's backward runs K7 (its conv is
@@ -804,7 +859,7 @@ def bn_upconv_folded_train(bn_params: dict, bn_stats: dict, groups: list,
     a_s, b_s, parts, off = [], [], [], 0
     for g in groups:
         a, b, ns = train_affine(bn_params, bn_stats, g, cfm, off=off,
-                                training=training)
+                                training=training, group=group)
         a_s.append(a)
         b_s.append(b)
         parts.append(ns)
@@ -864,13 +919,14 @@ def _linear_plain(u: torch.Tensor, W: torch.Tensor, cpad: int):
 
 def bn_head_site_folded_train(bn_params: dict, bn_stats: dict, up: FGrid,
                               fm: FGrid, W2: torch.Tensor, b2: torch.Tensor,
-                              *, training: bool = True):
+                              *, training: bool = True, group=None):
     """Refinement tail (bn_head_site_folded_train:1636): [n2 BN + ReLU +
     mask] -> occ|sdf heads -> gate -> (masked feats, masked heads, new
     mask, raw f32 heads, new stats). K4 gate mode with the raw output."""
     cpad, dims, cin = up.cpad, up.dims, up.real_c
     cout = W2.shape[1]
-    a, b, ns = train_affine(bn_params, bn_stats, up, fm, training=training)
+    a, b, ns = train_affine(bn_params, bn_stats, up, fm, training=training,
+                            group=group)
 
     def kernel_fn(x, m, a, b, W, bv):
         return K_head.head_gate(
@@ -895,7 +951,7 @@ def bn_head_site_folded_train(bn_params: dict, bn_stats: dict, up: FGrid,
 
 def bn_surf_head_folded_train(bn_params: dict, bn_stats: dict, groups: list,
                               fm: FGrid, W: torch.Tensor, bias: torch.Tensor,
-                              *, training: bool = True):
+                              *, training: bool = True, group=None):
     """Surface tail (bn_surf_head_folded_train:1691): per group [p3 BN +
     ReLU + mask] -> summed linear + bias -> raw f32 SDF grid. K4 summed
     mode forward."""
@@ -906,7 +962,7 @@ def bn_surf_head_folded_train(bn_params: dict, bn_stats: dict, groups: list,
     a_s, b_s, parts, off = [], [], [], 0
     for g in groups:
         a, b, ns = train_affine(bn_params, bn_stats, g, fm, off=off,
-                                training=training)
+                                training=training, group=group)
         a_s.append(a)
         b_s.append(b)
         parts.append(ns)

@@ -12,6 +12,11 @@ and a launch counter that only the kernel launch advances.
 
 from __future__ import annotations
 
+import contextlib
+import functools
+
+import torch
+
 from sgnn_tpu_torch.ops.kernels import (conv3d_cl, conv_raw, conv_site,
                                         downconv, gather_gemm, head, scatter,
                                         surf_head, tile_amax, upconv)
@@ -46,3 +51,38 @@ def launch_counts() -> dict:
 def reset_launch_counts() -> None:
     for m, a in _COUNTERS.values():
         setattr(m, a, 0)
+
+
+# wrapper name -> its module, for plain_versions
+_WRAPPERS = {"conv_site": conv_site, "downconv": downconv, "upconv": upconv,
+             "head_gate": head, "head_sum": head, "surf_head": surf_head,
+             "scatter": scatter, "conv_raw": conv_raw,
+             "gather_gemm": gather_gemm, "gather_gemm_dx": gather_gemm}
+
+
+@contextlib.contextmanager
+def plain_versions():
+    """While active, every kernel wrapper of the exact serving and
+    training paths runs its plain PyTorch version, on the card too (as
+    ``impl="plain"``): a whole step or forward with no hand-written
+    kernel, the yardstick its kernels are held to. A yardstick computes in
+    full f32, so cuDNN's and cuBLAS's TF32 are off meanwhile (cuDNN's is
+    on by default in a fresh process)."""
+    saved = [(m, fn, getattr(m, fn)) for fn, m in _WRAPPERS.items()]
+    tf32 = (torch.backends.cudnn.allow_tf32,
+            torch.backends.cuda.matmul.allow_tf32)
+    for m, fn, orig in saved:
+        setattr(m, fn, functools.partial(_plain_call, orig))
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        yield
+    finally:
+        for m, fn, orig in saved:
+            setattr(m, fn, orig)
+        (torch.backends.cudnn.allow_tf32,
+         torch.backends.cuda.matmul.allow_tf32) = tf32
+
+
+def _plain_call(orig, *args, impl=None, **kw):
+    return orig(*args, impl="plain", **kw)

@@ -1,23 +1,29 @@
-"""Training orchestration on one device: epochs, schedules, logs,
-checkpoints (port of ``sgnn_tpu/train/loop.py`` ``Trainer``, :97-533; the
-reference's train.py:233-453).
+"""Training orchestration: epochs, schedules, logs, checkpoints, on one
+device or data-parallel over ranks (port of ``sgnn_tpu/train/loop.py``
+``Trainer``, :97-533; the reference's train.py:233-453).
 
 Adam with the StepLR halving, the progressive level fade-in, IoU/L1
 metrics every ``log_every`` iterations, ``log.csv`` / ``log_val.csv`` with
 the JAX trainer's headers, a ``.ckpt`` every ``ckpt_every`` iterations and
 after every epoch (with the Adam state, readable by either package), and
 ``retrain`` from a ``.ckpt`` of either package (``"auto"``: the newest in
-the run directory). Batches go to the device through pinned memory, one
-batch ahead of the step. The JAX trainer's per-epoch ``visualize_batch``
-is not ported yet: its own port, with ``utils/vis.py``, is queued (ROADMAP
-Queue 1); the dense-flow eval forward it runs exists (``GenModelDense``).
+the run directory), and the per-epoch prediction dump
+(``visualize_batch``). Batches go to the device through pinned memory,
+one batch ahead of the step.
+
+Data parallelism (``num_devices`` > 1, in a rank of ``parallel.mesh.
+launch`` with its ``Groups``): every rank builds the same global batch
+(one seeded loader) and steps on its own slice (``parallel.mesh.
+device_batch``, as the JAX trainer assigns samples and capacities, :100-
+116), with the per-rank config's batch ``batch_size // num_devices``; the
+step averages over the data group, so the ranks hold the same parameters.
+Rank 0 alone writes the logs, checkpoints and predictions and prints.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import os
-import sys
 import time
 
 import numpy as np
@@ -71,12 +77,26 @@ class TrainOptions:
     save_epoch: int = 1  # prediction dump every N epochs (0 = never)
     execution: str = "folded"
     device: str = "cuda"
+    num_devices: int = 1  # > 1: data parallelism over the ranks
 
 
 class Trainer:
-    def __init__(self, opts: TrainOptions):
+    def __init__(self, opts: TrainOptions, groups=None):
+        """``groups``: this rank's ``parallel.mesh.Groups`` under data
+        parallelism (``opts.num_devices`` ranks; its device is used)."""
         self.opts = opts
-        self.device = torch.device(opts.device)
+        n = max(1, opts.num_devices)
+        if n > 1 and (groups is None or groups.num_data != n):
+            raise ValueError(f"num_devices {n} needs the Groups of a "
+                             f"{n}-rank data group")
+        if opts.batch_size % n:
+            raise ValueError(f"batch {opts.batch_size} not divisible by "
+                             f"{n} devices")
+        self.groups = groups if n > 1 else None
+        self.group = self.groups.data if self.groups else None
+        self.lead = self.groups is None or self.groups.rank == 0
+        self.device = (self.groups.device if self.groups
+                       else torch.device(opts.device))
         self.cfg = SGNNConfig(
             encoder_dim=opts.encoder_dim,
             input_dim=tuple(opts.input_dim),
@@ -89,7 +109,7 @@ class Trainer:
             use_skip_sparse=bool(opts.use_skip_sparse),
             use_skip_dense=bool(opts.use_skip_dense),
             truncation=opts.truncation,
-            batch_size=opts.batch_size,
+            batch_size=opts.batch_size // n,
             input_capacity=opts.input_capacity,
             occupancy_fractions=tuple(opts.occupancy_fractions),
             execution=opts.execution,
@@ -110,7 +130,13 @@ class Trainer:
             self.start_epoch = (opts.start_epoch if opts.start_epoch != 0
                                 else meta["epoch"])
             self.iteration = meta.get("iteration", 0)
-            print(f"loaded checkpoint {retrain} (epoch {self.start_epoch})")
+            self.say(f"loaded checkpoint {retrain} (epoch "
+                     f"{self.start_epoch})")
+
+    def say(self, *a) -> None:
+        """print, on rank 0 only."""
+        if self.lead:
+            print(*a, flush=True)
 
     # ------------------------------------------------------- checkpoint IO
     def load_ckpt(self, path) -> dict:
@@ -142,7 +168,17 @@ class Trainer:
 
     def _prefetch(self, loader):
         """Yield (host batch, device batch), the next batch's copy enqueued
-        before the current one is handed out."""
+        before the current one is handed out (under data parallelism this
+        rank's slice, through ``parallel.mesh.prefetch_to_device``)."""
+        if self.groups is not None:
+            from sgnn_tpu_torch.parallel import mesh as PM
+
+            n = self.groups.num_data
+            yield from PM.prefetch_to_device(
+                ((b, PM.device_batch(b, n)) for b in loader),
+                self.groups.data_index, self.device,
+                transfer_dtype=self.transfer_dtype)
+            return
         pending = None
         for b in loader:
             nxt = (b, TS.to_device(b, self.device, self.transfer_dtype))
@@ -157,14 +193,21 @@ class Trainer:
         """One optimization step on a collated batch."""
         o = self.opts
         lw, (n_active, do_surf), lr = self._schedule()
-        if dev_batch is None:
+        if dev_batch is None and self.groups is not None:
+            from sgnn_tpu_torch.parallel import mesh as PM
+
+            dev_batch = PM.put_device_batch(
+                PM.device_batch(batch, self.groups.num_data),
+                self.groups.data_index, self.device, self.transfer_dtype)
+        elif dev_batch is None:
             dev_batch = TS.to_device(batch, self.device, self.transfer_dtype)
         metrics = TS.train_step(
             self.model, self.opt, dev_batch, lw, lr,
             num_refine_active=n_active, do_surf=do_surf,
             use_log_transform=o.logweight_target_sdf,
             weight_missing_geo=o.weight_missing_geo,
-            use_loss_masking=o.use_loss_masking, with_metrics=with_metrics)
+            use_loss_masking=o.use_loss_masking, with_metrics=with_metrics,
+            group=self.group)
         self.iteration += 1
         return metrics, lw
 
@@ -178,9 +221,10 @@ class Trainer:
         headers += ["train_loss(sdf)", "train_l1-pred", "train_l1-tgt"]
         headers += [f"train_iou({h})" for h in range(L)] + ["time"]
         resume = self.iteration > 0 or self.start_epoch > 0
-        log_f = _open_log(os.path.join(log_dir, "log.csv"), headers, resume)
+        log_f = (_open_log(os.path.join(log_dir, "log.csv"), headers, resume)
+                 if self.lead else open(os.devnull, "w"))
         val_f = None
-        if val_loader is not None:
+        if val_loader is not None and self.lead:
             vh = ["epoch", "iter", "val_loss(total)"]
             vh += [f"val_iou({h})" for h in range(L)]
             vh += ["val_l1-pred", "val_l1-tgt"]
@@ -200,11 +244,11 @@ class Trainer:
                                 and self.iteration % o.log_every == 0)
                 metrics, lw = self.run_step(batch, with_metrics, dev)
                 if batch.get("target_overflow", 0) > 0:
-                    print(f"[capacity] WARNING iter {self.iteration}: "
+                    self.say(f"[capacity] WARNING iter {self.iteration}: "
                           f"{batch['target_overflow']} target/hierarchy rows "
                           f"dropped at collate (raise the capacities)")
                 if metrics["overflow"] > 0:
-                    print(f"[capacity] WARNING iter {self.iteration}: "
+                    self.say(f"[capacity] WARNING iter {self.iteration}: "
                           f"{metrics['overflow']} voxels overflowed a level "
                           f"capacity (raise occupancy_fractions or use "
                           f"--autotune_capacity)")
@@ -216,11 +260,12 @@ class Trainer:
                     row = accum.row(epoch, self.iteration, took)
                     log_f.write(",".join(str(v) for v in row) + "\n")
                     log_f.flush()
-                    print(f"epoch {epoch} iter {self.iteration} loss "
-                          f"{accum.losses[0][-1]:.6f} lw "
-                          f"{np.array2string(lw, precision=2)} ({took:.1f}s)",
-                          file=sys.stdout)
-                if o.ckpt_every and self.iteration % o.ckpt_every == 0:
+                    self.say(f"epoch {epoch} iter {self.iteration} loss "
+                             f"{accum.losses[0][-1]:.6f} lw "
+                             f"{np.array2string(lw, precision=2)} "
+                             f"({took:.1f}s)")
+                if (o.ckpt_every and self.iteration % o.ckpt_every == 0
+                        and self.lead):
                     self.save_ckpt(os.path.join(
                         log_dir,
                         f"model-iter{self.iteration}-epoch{epoch}.ckpt"),
@@ -230,13 +275,16 @@ class Trainer:
                     break
             lw = S.get_loss_weights(self.iteration, L, o.num_iters_per_level,
                                     o.weight_sdf_loss)
-            if vis_batch is not None and S.active_levels(lw) == (L - 1, True):
+            if (vis_batch is not None and self.lead
+                    and S.active_levels(lw) == (L - 1, True)):
                 self.visualize_batch(vis_batch, os.path.join(
                     log_dir, f"iter{self.iteration}-epoch{epoch}", "train"))
             if val_loader is not None and not done:
                 self.validate(val_loader, val_f, epoch)
-            self.save_ckpt(os.path.join(log_dir, f"model-epoch-{epoch}.ckpt"),
-                           epoch + 1)
+            if self.lead:
+                self.save_ckpt(os.path.join(log_dir,
+                                            f"model-epoch-{epoch}.ckpt"),
+                               epoch + 1)
             if done:
                 break
         log_f.close()
@@ -320,7 +368,8 @@ class Trainer:
                              num_refine_active=n_active, do_surf=do_surf,
                              use_log_transform=o.logweight_target_sdf,
                              weight_missing_geo=o.weight_missing_geo,
-                             use_loss_masking=o.use_loss_masking)
+                             use_loss_masking=o.use_loss_masking,
+                             group=self.group)
             losses.append(float(m["loss"]))
             ious.append(m["iou"].cpu().numpy())
             l1p.append(float(m["l1pred"]))
@@ -336,7 +385,7 @@ class Trainer:
                         + ",".join(str(v) for v in result["iou"])
                         + f",{result['l1pred']},{result['l1tgt']}\n")
             val_f.flush()
-        print(f"[val] epoch {epoch}: {result}")
+        self.say(f"[val] epoch {epoch}: {result}")
         return result
 
 

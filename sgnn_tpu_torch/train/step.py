@@ -1,5 +1,5 @@
-"""One training step and one eval step on one device (port of
-``sgnn_tpu/train/step.py``).
+"""One training step and one eval step, on one device or data-parallel
+over a process group (port of ``sgnn_tpu/train/step.py``).
 
 A collated batch goes to the device (``to_device``: pinned, non-blocking
 copies, float arrays in the transfer type), targets are densified there
@@ -8,8 +8,12 @@ model's execution (``cfg.execution``: folded, dense_flow or the coordinate
 lists, sparse) and its loss run (``losses.compute_loss_dense_flow``, or
 ``compute_loss`` at the coordinate lists' rows), autograd gives the
 gradients, Adam updates the parameters and the new BN running stats are
-stored. The JAX step's ``pmean``s over its data axis have no counterpart
-(one device).
+stored. Under data parallelism (``group``, the data group of
+``parallel.mesh``) each rank runs this on its own slice of the batch: every
+BN sums its moments over the group (with a gradient), the gradients, the
+loss and the metrics are averaged over it before the update (the JAX
+step's ``pmean``s, :345-364), so every rank applies the same update and
+holds the same parameters, bit for bit.
 """
 
 from __future__ import annotations
@@ -26,6 +30,7 @@ from sgnn_tpu_torch.models.folded_train import (GenModelFoldedTrain,
 from sgnn_tpu_torch.models.sgnn import (GenModelSparseTrain,
                                         genmodel_apply_train)
 from sgnn_tpu_torch.ops.sparse import make_sparse
+from sgnn_tpu_torch.parallel import comm
 from sgnn_tpu_torch.train.state import set_lr
 
 # the trainable model of each execution (cfg.execution)
@@ -152,9 +157,10 @@ def _input_mask(cfg: SGNNConfig, locs, n: int) -> torch.Tensor:
 
 def _forward_loss(params, stats, cfg, inputs, targets, loss_weights, known,
                   *, num_refine_active, do_surf, use_log_transform,
-                  weight_missing_geo, use_loss_masking, training):
+                  weight_missing_geo, use_loss_masking, training, group=None):
     """The training forward of ``cfg.execution`` and its loss (the JAX
-    step's _forward_loss, train/step.py:135-182)."""
+    step's _forward_loss, train/step.py:135-182); ``group``: the data
+    group every training BN sums its moments over."""
     locs, feats, n = inputs
     kw = dict(num_refine_active=num_refine_active, do_surf=do_surf,
               training=training)
@@ -164,18 +170,19 @@ def _forward_loss(params, stats, cfg, inputs, targets, loss_weights, known,
                use_loss_masking=use_loss_masking, known=known)
     if cfg.execution == "folded":
         out, new_stats = genmodel_apply_folded_train(params, stats, cfg, locs,
-                                                     feats, n, **kw)
+                                                     feats, n, group=group,
+                                                     **kw)
     else:
         st = make_sparse(locs, feats, n, cfg.input_dim, cfg.batch_size)
         if cfg.execution == "sparse":
             out, new_stats = genmodel_apply_train(params, stats, cfg, st,
-                                                  **kw)
+                                                  group=group, **kw)
             total, per_level = L.compute_loss(
                 out, targets, loss_weights, cfg.truncation, input_locs=st.locs,
                 input_num_valid=st.num_valid, **lkw)
             return total, (per_level, out, new_stats)
         out, new_stats = genmodel_apply_dense_train(params, stats, cfg, st,
-                                                    **kw)
+                                                    data=group, **kw)
     total, per_level = L.compute_loss_dense_flow(
         out, targets, loss_weights, cfg.truncation,
         input_mask=_input_mask(cfg, locs, n), **lkw)
@@ -245,6 +252,22 @@ def _metrics(cfg, out, targets, known, *, num_refine_active, do_surf,
     return {"iou": torch.stack(ious), "l1pred": l1pred, "l1tgt": l1tgt}
 
 
+def _mean(tensors: list, group) -> list:
+    """Each tensor averaged over the ranks of ``group`` (the JAX step's
+    pmean: the sum, then divided by the group's size), in one all-reduce;
+    the tensors as they are without a group."""
+    if group is None:
+        return tensors
+    n = comm.size(group)
+    return [(t / n).to(u.dtype) for t, u in zip(comm.all_reduce_each(
+        [u.detach().float() for u in tensors], group), tensors)]
+
+
+def _mean_metrics(metrics: dict, group) -> dict:
+    keys = list(metrics)
+    return dict(zip(keys, _mean([metrics[k] for k in keys], group)))
+
+
 def _prepare(cfg, batch, use_loss_masking):
     locs, feats, n, sdf, known, hierarchy = _unpack_batch(cfg, batch)
     targets = L.compute_targets(sdf, hierarchy, cfg.num_hierarchy_levels,
@@ -257,11 +280,13 @@ def train_step(model, opt, batch: dict, loss_weights, lr: float, *,
                use_log_transform: bool = True,
                weight_missing_geo: float = 5.0,
                use_loss_masking: bool = True,
-               with_metrics: bool = False) -> dict:
+               with_metrics: bool = False, group=None) -> dict:
     """Forward, loss, backward, one Adam update at ``lr`` and the new BN
     running stats, on a device batch (``to_device``). Returns the metrics
     as device tensors: loss, per_level (L + 1 entries, -1 inactive) and,
-    with ``with_metrics``, iou / l1pred / l1tgt."""
+    with ``with_metrics``, iou / l1pred / l1tgt. ``group``: data
+    parallelism over its ranks (module docstring); the batch is this
+    rank's slice and ``model.cfg.batch_size`` its size."""
     cfg = model.cfg
     inputs, targets, known = _prepare(cfg, batch, use_loss_masking)
     lw = [float(w) for w in loss_weights]
@@ -270,7 +295,7 @@ def train_step(model, opt, batch: dict, loss_weights, lr: float, *,
         known, num_refine_active=num_refine_active, do_surf=do_surf,
         use_log_transform=use_log_transform,
         weight_missing_geo=weight_missing_geo,
-        use_loss_masking=use_loss_masking, training=True)
+        use_loss_masking=use_loss_masking, training=True, group=group)
     opt.zero_grad(set_to_none=True)
     total.backward()
     for p in model.weights:
@@ -279,20 +304,25 @@ def train_step(model, opt, batch: dict, loss_weights, lr: float, *,
         # and a level's first moments decay from the step it joins
         if p.grad is None:
             p.grad = torch.zeros_like(p)
+    if group is not None:
+        grads = _mean([p.grad for p in model.weights], group)
+        for p, g in zip(model.weights, grads):
+            p.grad.copy_(g)
     set_lr(opt, lr)
     opt.step()
     model.set_stats(new_stats)
-    metrics = {"loss": total.detach(),
-               "per_level": torch.stack([p.detach() for p in per_level]),
+    total, per = _mean([total.detach(),
+                        torch.stack([p.detach() for p in per_level])], group)
+    metrics = {"loss": total, "per_level": per,
                # rows the coordinate lists' compactions dropped at a
                # capacity (train/step.py:349-356); 0 for a dense output
                "overflow": max(getattr(out, "overflows", None) or [0])}
     if with_metrics:
         with torch.no_grad():
-            metrics.update(_metrics(
+            metrics.update(_mean_metrics(_metrics(
                 cfg, out, targets, known,
                 num_refine_active=num_refine_active, do_surf=do_surf,
-                use_loss_masking=use_loss_masking))
+                use_loss_masking=use_loss_masking), group))
     return metrics
 
 
@@ -300,8 +330,9 @@ def train_step(model, opt, batch: dict, loss_weights, lr: float, *,
 def eval_step(model, batch: dict, loss_weights, *, num_refine_active: int,
               do_surf: bool, use_log_transform: bool = True,
               weight_missing_geo: float = 5.0,
-              use_loss_masking: bool = True) -> dict:
-    """Forward, loss and metrics with BN in inference mode; no update."""
+              use_loss_masking: bool = True, group=None) -> dict:
+    """Forward, loss and metrics with BN in inference mode; no update.
+    ``group``: the loss and the metrics averaged over its ranks."""
     cfg = model.cfg
     inputs, targets, known = _prepare(cfg, batch, use_loss_masking)
     total, (per_level, out, _) = _forward_loss(
@@ -314,4 +345,5 @@ def eval_step(model, batch: dict, loss_weights, *, num_refine_active: int,
     m = _metrics(cfg, out, targets, known,
                  num_refine_active=num_refine_active, do_surf=do_surf,
                  use_loss_masking=use_loss_masking)
-    return {"loss": total, "per_level": torch.stack(per_level), **m}
+    return _mean_metrics({"loss": total, "per_level": torch.stack(per_level),
+                          **m}, group)

@@ -145,7 +145,8 @@ def test_cli_cpu_trains_and_serves(chunks, tmp_path):
     (["--fuse_train_bn", "0"], "fuse_train_bn"),
     (["--ckpt_backend", "orbax"], "orbax"),
     (["--rss_restart_gb", "8"], "rss_restart_gb"),
-    (["--num_devices", "2"], "num_devices"),
+    # data parallelism is ported: a batch (8) that the ranks cannot split
+    (["--num_devices", "3"], "num_devices"),
 ])
 def test_cli_refuses(tmp_path, capsys, extra, msg):
     base = ["--data_path", str(tmp_path), "--train_file_list",
