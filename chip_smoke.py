@@ -88,11 +88,11 @@ where every phase passed prints the two JSON lines at the end):
    batch 8 whose every kernel call is held against its plain version,
    with each kernel's launches per step required, and a profile of it
    (each hand-written kernel's device time); the training CLI,
-   sgnn_tpu_torch.tools.train, in-process for 12 steps on one chunk (the
+   sgnn_tpu_torch.tools.train, in-process for 20 steps on one chunk (the
    reference's overfit mode), whose loss must fall over the full-level
-   steps and whose .ckpt must load into the serving model and serve a
-   room; ms per step with kernels and with plain versions, samples/s and
-   peak device memory;
+   steps, whose log.csv row phase 12 summarizes and whose .ckpt must load
+   into the serving model and serve a room; ms per step with kernels and
+   with plain versions, samples/s and peak device memory;
 8. int8: the phase-4 weights and scenes through the int8 serving
    forward (cfg.quantize_int8: K1q, K2q and K3q at every conv, down and
    upsample site, each after one tile_amax scale pre-pass) via
@@ -109,7 +109,8 @@ where every phase passed prints the two JSON lines at the end):
    on the host (seconds and counts of each stage); 4 bf16 training steps
    at full width and batch 8 on the card through the training CLI; its
    .ckpt to a reference .pth and back through convert_checkpoint (the
-   trees bit-equal); the evaluate CLI on the rooms, folded and
+   trees bit-equal); the evaluate CLI on the rooms, folded (in the
+   level-output form, SceneInferencer's default: LEVELS_EXPECTED) and
    --execution sparse, with the trained weights and with phase 5's
    (which leave a surface): launches and ms per scene, each scene's
    metrics (finite; -1 exactly where a scene has no surface), every
@@ -142,7 +143,24 @@ where every phase passed prints the two JSON lines at the end):
    each rank's launches as train_launches derives them, ms per step and
    the all-reduces' share; data-parallel serving, a phase-5 room a rank
    through SceneInferencer, bit-equal to the room served in this process;
-12. the card's name and power limit again, a JSON line of per-kernel
+12. tools: the level-output form of the folded forward (phase 4's weights
+   and scene, f32 and bf16): its launches (K4's gate only with the raw
+   heads: LEVELS_EXPECTED), its surface against the only-surface form's
+   (bit-equal in f32; bf16 differences counted), in f32 its level outputs
+   against the plain forward's, every kernel call of it against its plain
+   version, and the same for the int8 forward in bf16; then each
+   measuring tool of sgnn_tpu_torch/tools in-process at full width with
+   short counts: trace_forward in both forms and with --int8 (each
+   hand-written kernel's launches per forward in the attribution, the
+   idle share over the same forwards' unprofiled window), trace_train
+   (K7's launches per folded step), roofline --measure (its families'
+   calls as EXPECTED, its floors of phase 3's calls equal to their
+   bounds, the roofline share) and --int8 (its families' calls),
+   summarize_train on phase 7's log, bench_stages (each stage's device
+   time), bench_kernel (K8 against F.conv3d within 2 bf16 ulps),
+   bench_backends (K10's and K8's launches), bench_mesh, bench_e2e
+   pipelined and --serial, and bench_train;
+13. the card's name and power limit again, a JSON line of per-kernel
    results (launches, error, ms against the plain version and against one
    PyTorch call where one computes the same function, and the card's bound
    for the same work), then the status line {"ok": true, "device": {...}}.
@@ -178,6 +196,10 @@ EXPECTED = {"conv_site": 37, "downconv": 11, "upconv": 3, "head_gate": 3,
             "conv_raw": 0, "conv3d_folded": 0, "conv3d": 0,
             "gather_gemm": 0, "gather_gemm_dx": 0, "conv_site_q": 0,
             "downconv_q": 0, "upconv_q": 0, "tile_amax": 0}
+# the level-output form (want_level_outputs=True; SceneInferencer's
+# default, the evaluate CLI's): K3 takes the materialised fine mask and
+# every gated head launch also writes the raw heads
+LEVELS_EXPECTED = dict(EXPECTED, head_gate=0, head_gate_raw=3)
 # the int8 forward (cfg.quantize_int8, phase 8), derived from the JAX
 # forward, which passes quantize=q8 to every conv, down and upsample site
 # (sgnn_tpu/models/folded_flow.py:61-121, 247-271, 320-324): the same 37 /
@@ -186,6 +208,7 @@ EXPECTED = {"conv_site": 37, "downconv": 11, "upconv": 3, "head_gate": 3,
 INT8_EXPECTED = dict(EXPECTED, conv_site=0, downconv=0, upconv=0,
                      conv_site_q=37, downconv_q=11, upconv_q=3,
                      tile_amax=51)
+INT8_LEVELS_EXPECTED = dict(INT8_EXPECTED, head_gate=0, head_gate_raw=3)
 SOURCES = {
     "conv_site": ("sgnn_tpu_torch/csrc/conv_site.cu",
                   "sgnn_tpu/ops/pallas/conv3d_folded.py:593"),
@@ -247,9 +270,9 @@ K8_ALL_LEVELS = 28
 # cascade may open more), so that nothing overflows
 CAP_HEADROOM = 4
 # the card's peaks for the bound of a kernel's timed (bf16) case: NVIDIA's
-# H100 SXM data sheet, dense bf16 tensor rate and HBM3 bandwidth
+# H100 SXM data sheet, dense bf16 tensor rate (HBM3's 3.35 TB/s is in the
+# roofline tool, _rl().PEAK_BYTES)
 PEAK_BF16_FLOPS = 989e12
-PEAK_BYTES = 3.35e12
 # the same data sheet's dense int8 tensor rate (the int8 sites' products)
 # and f32 rate outside the tensor cores (tile_amax's compares)
 PEAK_INT8_OPS = 1979e12
@@ -259,6 +282,9 @@ PEAK_F32_FLOPS = 67e12
 TRAIN_DIMS = (128, 64, 64)
 TRAIN_BATCH = 8
 N_CHUNKS = 24
+# the training CLI's steps in phase 7: the loop logs a log.csv row every
+# 20 iterations (as the JAX trainer), so 20 steps leave one for phase 12
+CLI_STEPS = 20
 # f32 train step, kernels vs plain versions: the loss to 1e-4 relative,
 # the running stats to 1e-4 of their scale; gradients (|a - b| / max |b|
 # per parameter, the largest and the median over parameters) to 5e-3, or
@@ -373,17 +399,14 @@ def _shell(dims, width):
     return torch.from_numpy(np.abs(d - 0.35 * min(dims)) < width)[None]
 
 
-def _time_ms(fn, reps: int = 5) -> float:
-    fn()
-    torch.cuda.synchronize()
-    a = torch.cuda.Event(enable_timing=True)
-    b = torch.cuda.Event(enable_timing=True)
-    a.record()
-    for _ in range(reps):
-        fn()
-    b.record()
-    b.synchronize()
-    return a.elapsed_time(b) / reps
+def _P():
+    """The package's profiling helpers (sgnn_tpu_torch/utils/profiling.py):
+    CUDA-event times (cuda_ms), profiles with their warm-up cycle, lead-in
+    pad, retries and unprofiled window (profile_window), attribution and
+    report."""
+    from sgnn_tpu_torch.utils import profiling
+
+    return profiling
 
 
 def _log_ms(name, label, make, dtypes) -> None:
@@ -391,39 +414,27 @@ def _log_ms(name, label, make, dtypes) -> None:
     beside the one case per kernel that the results keep."""
     for dt in dtypes:
         call = make(dt)
-        tk = _time_ms(lambda: call(None))
-        tp = _time_ms(lambda: call("plain"))
+        tk = _P().cuda_ms(lambda: call(None), "cuda", 5)
+        tp = _P().cuda_ms(lambda: call("plain"), "cuda", 5)
         log(f"[kernels] {name} {label} {str(dt)[6:]}: kernel {tk:.3f} ms, "
             f"plain {tp:.3f} ms")
 
 
-def _device_ms(kernels, call, reps: int = 5, tries: int = 3):
+def _kernels_ms(kernels, call, reps: int = 5):
     """torch.profiler's device time per call of each of ``kernels`` (CUDA
     names, csrc/*.cu) over ``reps`` calls of call(None), where a wrapper's
-    CUDA-event time is host-bound. The profiler now and then records no
-    device events in a session; a timing, not a check, so it tries again,
-    and returns None after ``tries`` sessions without every kernel."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
+    CUDA-event time is host-bound (profile_window and attribution); None
+    when the profile lacks one of them."""
+    from sgnn_tpu_torch.ops.kernels import KERNEL_NAMES
 
-    call(None)
-    torch.cuda.synchronize()
-    for _ in range(tries):
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
-            for _ in range(reps):
-                call(None)
-            torch.cuda.synchronize()
-        got = [0.0] * len(kernels)
-        for e in prof.key_averages():
-            if e.device_type != DeviceType.CUDA:
-                continue
-            for i, k in enumerate(kernels):
-                if f"::{k}<" in e.key:
-                    got[i] += e.self_device_time_total
-        if all(t > 0 for t in got):
-            return [t / 1e3 / reps for t in got]
-    return None
+    P = _P()
+    prof, _ = P.profile_window(lambda: [call(None) for _ in range(reps)],
+                               "cuda", warm=lambda: call(None))
+    cats = P.attribution(prof, reps)["categories"]
+    labels = [KERNEL_NAMES[k] for k in kernels]
+    if cats == P.NOT_MEASURED or not all(lb in cats for lb in labels):
+        return None
+    return [cats[lb]["ms"] for lb in labels]
 
 
 def _ulp_bf16(x: torch.Tensor) -> torch.Tensor:
@@ -461,62 +472,18 @@ def _interior(t):
     return t[:, 1:-1, 1:-1]
 
 
-def _nbytes(*ts) -> int:
-    return sum(t.numel() * t.element_size() for t in ts)
+def _rl():
+    """The roofline tool (sgnn_tpu_torch/tools/roofline.py): its counting
+    helpers (nbytes, voxels, grid_bytes, bound) give phase 3's bounds, and
+    its Recorder prices phase 3's calls as it prices the forward's."""
+    from sgnn_tpu_torch.tools import roofline
 
-
-def _voxels(mask, reach: int = 0) -> torch.Tensor:
-    """[B, Z, Y, X] bool: the voxels of a folded mask grid that are active,
-    or, with ``reach`` 3, within a 3^3 conv's reach of one, with 2, in the
-    2^3 block of one (a stride-2 conv's coarse voxel)."""
-    from torch.nn import functional as nnf
-
-    from sgnn_tpu_torch.ops import folded as FO
-
-    a = FO.unfold(mask)[..., 0] != 0
-    if reach == 3:
-        a = nnf.max_pool3d(a[:, None].float(), 3, 1, 1)[:, 0] > 0
-    elif reach == 2:
-        a = nnf.max_pool3d(a[:, None].float(), 2, 2)[:, 0] > 0
-        a = a.repeat_interleave(2, 1).repeat_interleave(2, 2) \
-            .repeat_interleave(2, 3)
-    return a
-
-
-def _grid_bytes(grids, dt, need=None) -> int:
-    """Bytes of folded grids, held in ``dt``, that a kernel must read: each
-    grid in full or, with ``need`` ([B, Z, Y, X] bool), only the 32-byte
-    sectors (the card's smallest memory access) that hold a real channel
-    of a voxel it marks."""
-    item = torch.empty((), dtype=dt).element_size()
-    if need is None:
-        return sum(g.data.numel() for g in grids) * item
-    total = 0
-    for g in grids:
-        B, Zp, Yp, xq, lanes = g.data.shape
-        slots = torch.zeros(B, Zp - 2, Yp - 2, xq * lanes // g.cpad,
-                            dtype=torch.bool, device=need.device)
-        slots[..., :need.shape[3]] = need
-        real = torch.arange(g.cpad, device=need.device) < g.real_c
-        sectors = (slots[..., None] & real).reshape(
-            B, Zp - 2, Yp - 2, -1, 32 // item).any(-1)
-        total += int(sectors.sum()) * 32
-    return total
+    return roofline
 
 
 def _active(grid, cpad) -> int:
     """Voxels of a folded mask grid whose value is non-zero."""
     return int((_slots(grid, cpad)[..., 0] != 0).sum())
-
-
-def _bound(nbytes: int, flops: float, peak: float = PEAK_BF16_FLOPS) -> dict:
-    """The least time for the work on the card: the larger of the bytes
-    over its memory rate and the operations over the rate of their type
-    (``peak``: bf16 by default)."""
-    t_bytes = nbytes / PEAK_BYTES * 1e3
-    t_ops = flops / peak * 1e3
-    return {"bound_ms": max(t_bytes, t_ops),
-            "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
 
 
 def _library_conv(dense_shape, cout, k, stride=1, padding=0,
@@ -646,7 +613,7 @@ class KernelChecks:
         whose rate is ``peak``), from which the card's bound follows.
         ``exact``: the kernel must give the plain version's bits.
         ``split``: an int8 site; its bf16 case also logs the wrapper's two
-        launches timed apart (_device_ms)."""
+        launches timed apart (_kernels_ms)."""
         for dt in dtypes:
             call = make(dt)
             outs_k, outs_p = call(None), call("plain")
@@ -670,32 +637,37 @@ class KernelChecks:
                                    if step is not None else "") + ")")
             if dt == torch.bfloat16 and "ms" not in rec and work:
                 # alternate plain, kernel, kernel, plain on the same inputs
-                tp1 = _time_ms(lambda: call("plain"))
-                tk1 = _time_ms(lambda: call(None))
-                tk2 = _time_ms(lambda: call(None))
-                tp2 = _time_ms(lambda: call("plain"))
+                tp1 = _P().cuda_ms(lambda: call("plain"), "cuda", 5)
+                tk1 = _P().cuda_ms(lambda: call(None), "cuda", 5)
+                tk2 = _P().cuda_ms(lambda: call(None), "cuda", 5)
+                tp2 = _P().cuda_ms(lambda: call("plain"), "cuda", 5)
                 rec["ms"], rec["plain_ms"] = (tk1 + tk2) / 2, (tp1 + tp2) / 2
                 msg += (f"; kernel {rec['ms']:.3f} ms, plain "
                         f"{rec['plain_ms']:.3f} ms")
                 rec["library_ms"] = None
                 if library is not None:
                     lib = library(dt)
-                    rec["library_ms"] = _time_ms(lib)
+                    rec["library_ms"] = _P().cuda_ms(lib, "cuda", 5)
                     msg += f", one PyTorch call {rec['library_ms']:.3f} ms"
-                outs = call(None)
+                # the roofline tool prices the same call (phase 12 holds
+                # its floor to this bound)
+                with _rl().Recorder() as rl:
+                    outs = call(None)
+                if rl.calls:
+                    rec["roofline_ms"] = sum(c.floor_ms for c in rl.calls)
                 nbytes, flops = work(dt)
-                nbytes += _nbytes(*outs)
+                nbytes += _rl().nbytes(*outs)
                 del outs
-                rec.update(_bound(nbytes, flops, peak))
+                rec.update(_rl().bound(nbytes, flops, peak))
                 msg += (f"; bound {rec['bound_ms']:.4f} ms by "
                         f"{rec['bound_by']} ({nbytes / 1e6:.1f} MB, "
                         f"{flops / 1e9:.2f} G operations at "
                         f"{peak / 1e12:g} T/s)")
             log(f"[kernels] {name} {label} {str(dt)[6:]}: {msg}")
             if split and dt == torch.bfloat16:
-                wrapper = _time_ms(lambda: call(None))
-                apart = _device_ms([f"{name}_kernel", "tile_amax_kernel"],
-                                   call)
+                wrapper = _P().cuda_ms(lambda: call(None), "cuda", 5)
+                apart = _kernels_ms([f"{name}_kernel", "tile_amax_kernel"],
+                                    call)
                 log(f"[kernels] {name} {label} bfloat16 split: wrapper "
                     f"{wrapper:.4f} ms (CUDA events, with its tile_amax); "
                     + ("device times not measured (no device events in "
@@ -728,13 +700,13 @@ class KernelChecks:
             return lambda impl: (FO.subm_conv_fused(
                 grp, m, w, 16, aff=aff, residual=r, impl=impl).data,)
         n16 = _active(fm16.data, 16)
-        act16 = _voxels(fm16)
+        act16 = _rl().voxels(fm16)
 
         def conv16_work(dt):
             # the groups only at active voxels (relu(.) * 0 elsewhere); the
             # mask and the residual in full
-            return (_grid_bytes(g16, dt, act16) + _grid_bytes(
-                [fm16, res16], dt) + _nbytes(w, aff),
+            return (_rl().grid_bytes(g16, dt, act16) + _rl().grid_bytes(
+                [fm16, res16], dt) + _rl().nbytes(w, aff),
                     2 * 27 * sum(widths) * 16 * n16)
         self.run("conv_site", "cpad16 G3 affine+residual", conv16, [0],
                  resid=res16, work=conv16_work,
@@ -770,8 +742,8 @@ class KernelChecks:
         def down_cross_work(dt):
             o, om = down_cross(dt)(None)
             # no affine: the input in every 2^3 block of an active voxel
-            return (_grid_bytes([x8], dt, _voxels(fm8, 2))
-                    + _grid_bytes([fm8], dt) + _nbytes(wd),
+            return (_rl().grid_bytes([x8], dt, _rl().voxels(fm8, 2))
+                    + _rl().grid_bytes([fm8], dt) + _rl().nbytes(wd),
                     2 * 8 * 8 * 8 * _active(om, 16))
         self.run("downconv", "cross cpad8->16", down_cross, [0], masks=[1],
                  work=down_cross_work,
@@ -803,8 +775,8 @@ class KernelChecks:
             return lambda impl: (FO.upconv_fused(
                 grp, m, None, wu, 16, aff=affu, impl=impl).data,)
         def up_work(dt):
-            return (_grid_bytes(cg, dt, _voxels(cfm)) + _grid_bytes(
-                [cfm], dt) + _nbytes(wu, affu),
+            return (_rl().grid_bytes(cg, dt, _rl().voxels(cfm))
+                    + _rl().grid_bytes([cfm], dt) + _rl().nbytes(wu, affu),
                     2 * 8 * 48 * 16 * 8 * _active(cfm.data, 16))
         self.run("upconv", "G3 fmask=None", up, [0], work=up_work,
                  library=_library_conv((1, 48, *cd), 16, 4, stride=2,
@@ -828,13 +800,13 @@ class KernelChecks:
             return call
         # the input only at the fine voxels of active coarse ones, the
         # coarse mask in full (read at every fine voxel)
-        act_up = _voxels(cfm)
+        act_up = _rl().voxels(cfm)
         for ax in (1, 2, 3):
             act_up = act_up.repeat_interleave(2, ax)
 
         def gate_work(dt):
-            return (_grid_bytes([upg], dt, act_up) + _grid_bytes([cfm], dt)
-                    + _nbytes(wh, bh, affh),
+            return (_rl().grid_bytes([upg], dt, act_up)
+                    + _rl().grid_bytes([cfm], dt) + _rl().nbytes(wh, bh, affh),
                     2 * 16 * 2 * 8 * _active(cfm.data, 16))
         self.run("head_gate", "mask_scale 2", gate, [0, 1], gate_cpad=16,
                  work=gate_work)
@@ -852,8 +824,9 @@ class KernelChecks:
                 grp, m, ws, bs, affs, impl=impl).data,)
         def surf_work(dt):
             # the groups only at active voxels, the mask in full
-            return (_grid_bytes([g16[0], res16, upg], dt, act16)
-                    + _grid_bytes([fm16], dt) + _nbytes(ws, bs, affs),
+            return (_rl().grid_bytes([g16[0], res16, upg], dt, act16)
+                    + _rl().grid_bytes([fm16], dt)
+                    + _rl().nbytes(ws, bs, affs),
                     2 * 48 * n16)
         self.run("head_sum", "G3", surf, [0], work=surf_work)
 
@@ -890,18 +863,27 @@ class KernelChecks:
                 # fine one, the fine mask in full
                 from torch.nn import functional as nnf
 
-                act = _voxels(fm)
+                act = _rl().voxels(fm)
                 need = [act] + [nnf.max_pool3d(act[:, None].float(), s, s)[
                     :, 0] > 0 for s in (2, 4)]
-                return (sum(_grid_bytes([g], dt, n)
+                return (sum(_rl().grid_bytes([g], dt, n)
                             for g, n in zip(packed, need))
-                        + _grid_bytes([fm], dt) + _nbytes(ws, bs, affs),
+                        + _rl().grid_bytes([fm], dt)
+                        + _rl().nbytes(ws, bs, affs),
                         2 * 48 * _active(fm.data, 16))
             self.run("surf_head", f"{label} G3 scales 1/2/4", surf_ms, [0],
                      dense=True, work=surf_ms_work)
+            if dims == SCENE:  # the roofline tool prices the same call
+                with _rl().Recorder() as rl:
+                    FO.surf_head_packed(
+                        [(cast(g, torch.bfloat16), s)
+                         for g, s in zip(packed, (1, 2, 4))],
+                        cast(fm, torch.bfloat16), ws, bs, affs)
+                self.results["surf_head"]["roofline_ms"] = \
+                    rl.calls[0].floor_ms
             # the wrapper's checks take about as long as the kernel, so
             # its CUDA-event time is partly the host's
-            dev = _device_ms(["surf_head_kernel"], surf_ms(torch.bfloat16))
+            dev = _kernels_ms(["surf_head_kernel"], surf_ms(torch.bfloat16))
             log(f"[kernels] surf_head {label} G3 scales 1/2/4 bfloat16: "
                 + ("device time not measured (no device events in three "
                    "profiles)" if dev is None else
@@ -924,7 +906,7 @@ class KernelChecks:
                 return fg.data, fm.data
             return call
         self.run("scatter", f"{len(locs)} rows cpad8", scat, [0],
-                 masks=[0, 1], work=lambda dt: (_nbytes(locs, feats), 0))
+                 masks=[0, 1], work=lambda dt: (_rl().nbytes(locs, feats), 0))
         self.int8_cases()
         self.training_cases()
         self.secondary_cases()
@@ -1070,12 +1052,12 @@ class KernelChecks:
                 grp, m, wq, 16, aff=aff16, residual=r, quantize=True, ws=ws,
                 impl=impl).data,)
         n16 = _active(fm16.data, 16)
-        act16 = _voxels(fm16)
+        act16 = _rl().voxels(fm16)
 
         def conv16_work(dt):
             # as K1's: the groups only at active voxels
-            return (_grid_bytes(g16, dt, act16) + _grid_bytes(
-                [fm16, res16], dt) + _nbytes(*cw[dt], aff16),
+            return (_rl().grid_bytes(g16, dt, act16) + _rl().grid_bytes(
+                [fm16, res16], dt) + _rl().nbytes(*cw[dt], aff16),
                     2 * 27 * sum(widths) * 16 * n16)
 
         def conv16_step(dt):
@@ -1139,9 +1121,9 @@ class KernelChecks:
                           call=down):
                 o, om = call(dt)(None)
                 # as K2's: with an affine the input at active voxels only
-                need = _voxels(fm, 2 if aff is None else 0)
-                return (_grid_bytes([x], dt, need) + _grid_bytes([fm], dt)
-                        + _nbytes(*dw[dt]),
+                need = _rl().voxels(fm, 2 if aff is None else 0)
+                return (_rl().grid_bytes([x], dt, need)
+                        + _rl().grid_bytes([fm], dt) + _rl().nbytes(*dw[dt]),
                         2 * 8 * cin * cin * _active(om, 16))
 
             def down_step(dt, x=x, fm=fm, aff=aff, dw=dw, cpad=cpad):
@@ -1171,8 +1153,9 @@ class KernelChecks:
                 ws=uw[dt][1], impl=impl).data,)
 
         def up_work(dt):
-            return (_grid_bytes(cg, dt, _voxels(cfm)) + _grid_bytes(
-                [cfm], dt) + _nbytes(*uw[dt], affu),
+            return (_rl().grid_bytes(cg, dt, _rl().voxels(cfm))
+                    + _rl().grid_bytes([cfm], dt)
+                    + _rl().nbytes(*uw[dt], affu),
                     2 * 8 * 48 * 16 * 8 * _active(cfm.data, 16))
 
         def up_step(dt):
@@ -1203,18 +1186,20 @@ class KernelChecks:
                 # also *, +, relu, * and only the real channels of active
                 # voxels (relu(.) * 0 elsewhere), plus the mask
                 if aff is None:
-                    return _grid_bytes(xs, dt), 2 * sum(
+                    return _rl().grid_bytes(xs, dt), 2 * sum(
                         g.data.numel() for g in xs)
-                act = _voxels(fm)
-                return (_grid_bytes(xs, dt, act) + _grid_bytes([fm], dt),
+                act = _rl().voxels(fm)
+                return (_rl().grid_bytes(xs, dt, act)
+                        + _rl().grid_bytes([fm], dt),
                         6 * int(act.sum()) * sum(g.real_c for g in xs))
             self.run("tile_amax", label, amax, [], masks=[0], dense=True,
                      work=amax_work, peak=PEAK_F32_FLOPS)
             if aff is None:  # the full-grid pass, timed beside the one kept
                 call = amax(torch.bfloat16)
-                tk = _time_ms(lambda: call(None))
+                tk = _P().cuda_ms(lambda: call(None), "cuda", 5)
                 nbytes, ops = amax_work(torch.bfloat16)
-                b = _bound(nbytes + _nbytes(*call(None)), ops, PEAK_F32_FLOPS)
+                b = _rl().bound(nbytes + _rl().nbytes(*call(None)), ops,
+                                PEAK_F32_FLOPS)
                 log(f"[kernels] tile_amax {label} bfloat16: kernel {tk:.3f} "
                     f"ms; bound {b['bound_ms']:.4f} ms by {b['bound_by']} "
                     f"({nbytes / 1e6:.1f} MB)")
@@ -1532,7 +1517,7 @@ class KernelChecks:
         def conv_work(x, w):
             def work(dt):
                 nz = int((x != 0).any(-1).sum())
-                return (_nbytes(x.to(dt), w),
+                return (_rl().nbytes(x.to(dt), w),
                         2 * 27 * w.shape[1] * w.shape[2] * nz)
             return work
 
@@ -1648,7 +1633,7 @@ class KernelChecks:
                                                       impl=impl),)
 
             def work(dt):
-                return (_nbytes(f.to(dt), nbr, w),
+                return (_rl().nbytes(f.to(dt), nbr, w),
                         2 * cin * cout * int((nbr > 0).sum()))
             self.run("gather_gemm", label, make, [] if masks else [0],
                      masks=masks, dense=True, dtypes=dtypes,
@@ -1734,20 +1719,21 @@ class KernelChecks:
         inverse entry at the bf16 rate)."""
         dt = torch.bfloat16
         call = make(dt)
-        tp1 = _time_ms(lambda: call("plain"))
-        tk1 = _time_ms(lambda: call(None))
-        tk2 = _time_ms(lambda: call(None))
-        tp2 = _time_ms(lambda: call("plain"))
+        tp1 = _P().cuda_ms(lambda: call("plain"), "cuda", 5)
+        tk1 = _P().cuda_ms(lambda: call(None), "cuda", 5)
+        tk2 = _P().cuda_ms(lambda: call(None), "cuda", 5)
+        tp2 = _P().cuda_ms(lambda: call("plain"), "cuda", 5)
         K, cin, cout = w.shape
         rows = nl.rows[:nl.num_out].long().reshape(-1)
         gd = g[:nl.num_out].to(dt)
         contrib = torch.einsum("nc,kic->nki", gd.float(), w.to(dt).float()
                                ).to(dt).reshape(-1, cin)
         out = torch.zeros(g.shape[0] + 1, cin, dtype=dt, device=self.dev)
-        lib = _time_ms(lambda: out.index_add_(0, rows, contrib))
+        lib = _P().cuda_ms(lambda: out.index_add_(0, rows, contrib),
+                           "cuda", 5)
         inv = nl.inverse()
-        nbytes = _nbytes(g.to(dt), inv, w) + g.shape[0] * cin * 2
-        bound = _bound(nbytes, 2 * cin * cout * int((inv > 0).sum()))
+        nbytes = _rl().nbytes(g.to(dt), inv, w) + g.shape[0] * cin * 2
+        bound = _rl().bound(nbytes, 2 * cin * cout * int((inv > 0).sum()))
         log(f"[kernels] gather_gemm {label} bfloat16: kernel "
             f"{(tk1 + tk2) / 2:.3f} ms, plain {(tp1 + tp2) / 2:.3f} ms, one "
             f"index_add_ of the tap products {lib:.3f} ms; bound "
@@ -2139,7 +2125,7 @@ class KernelChecks:
 
             def work(dt):
                 nz = int((_slots(x, cpad)[..., :cin] != 0).any(-1).sum())
-                return _nbytes(x.to(dt), w), 2 * 27 * cin * cout * nz
+                return _rl().nbytes(x.to(dt), w), 2 * 27 * cin * cout * nz
             self.run("conv_raw", label, make, [0], dense=True, dtypes=dtypes,
                      work=work if timed else None,
                      library=_library_conv((B, cin, *dims), cout, 3,
@@ -2175,8 +2161,8 @@ class KernelChecks:
 
         def raw_work(dt):
             # the input only at active voxels, the mask in full
-            return (_grid_bytes([FO.FGrid(up, full, 16, 16)], dt, m)
-                    + _nbytes(fm.to(dt), wh, bh, affh),
+            return (_rl().grid_bytes([FO.FGrid(up, full, 16, 16)], dt, m)
+                    + _rl().nbytes(fm.to(dt), wh, bh, affh),
                     2 * 16 * 2 * _active(fm, 16))
         self.run("head_gate_raw", "B8 128x64x64 mask_scale 1", raw,
                  [0, 1, 3], gate_cpad=16, work=raw_work)
@@ -2487,7 +2473,8 @@ def phase_forward(results: dict) -> tuple:
         f"{cfg.encoder_dim} nf={cfg.nf} nf_coarse={cfg.nf_coarse} "
         f"{cfg.compute_dtype}; scene {SCENE}, "
         f"{len(scenes[0]['input_locs'])} active input voxels")
-    infer = SceneInferencer(model)
+    # the only-surface form, as bench.py and the scene CLI serve
+    infer = SceneInferencer(model, want_levels=False)
     for seed in range(4):  # a seed whose random weights open the gates
         weights = init_params(cfg, seed)
         load_jax_params(model, *weights)
@@ -2534,7 +2521,8 @@ def phase_forward(results: dict) -> tuple:
     s0 = scenes[0]
     locs, feats = _rows(s0)
     for impl in (None, "plain", None, "plain"):
-        ms = _time_ms(lambda: model(locs, feats, SCENE, impl=impl), reps=3)
+        ms = _P().cuda_ms(lambda: model(locs, feats, SCENE, impl=impl),
+                          "cuda", 3)
         log(f"[forward] forward {'kernels' if impl is None else 'plain'}: "
             f"{ms:.2f} ms (CUDA events, mean of 3)")
 
@@ -2556,8 +2544,10 @@ def phase_forward(results: dict) -> tuple:
     hook = model32.trunk.register_forward_pre_hook(
         lambda mod, args: trunk_in.setdefault("x", args[0].clone()))
     iou, diff, scale = _agreement("float32", "kernels", "plain",
-                                  SceneInferencer(model32)(s0),
-                                  SceneInferencer(model32, impl="plain")(s0))
+                                  SceneInferencer(model32,
+                                                  want_levels=False)(s0),
+                                  SceneInferencer(model32, impl="plain",
+                                                  want_levels=False)(s0))
     hook.remove()
     require(iou >= MIN_IOU_F32, f"f32 surface IoU {iou}")
     require(diff.max() <= MAX_SDF_REL_F32 * scale,
@@ -2565,11 +2555,14 @@ def phase_forward(results: dict) -> tuple:
     host = GenModelFolded(cfg)
     load_jax_params(host, *weights)
     t0 = time.perf_counter()
-    runs = {"kernels": SceneInferencer(model)(s0),
-            "plain": SceneInferencer(model, impl="plain")(s0),
-            "plain again": SceneInferencer(model, impl="plain")(s0)}
+    runs = {"kernels": SceneInferencer(model, want_levels=False)(s0),
+            "plain": SceneInferencer(model, impl="plain",
+                                     want_levels=False)(s0),
+            "plain again": SceneInferencer(model, impl="plain",
+                                           want_levels=False)(s0)}
     t1 = time.perf_counter()
-    runs["plain on the host CPU"] = SceneInferencer(host)(s0)
+    runs["plain on the host CPU"] = SceneInferencer(
+        host, want_levels=False)(s0)
     log(f"[forward] bfloat16 plain forward on the host CPU: "
         f"{time.perf_counter() - t1:.1f} s ({torch.get_num_threads()} "
         f"threads; the three runs on the card {t1 - t0:.1f} s)")
@@ -2591,9 +2584,9 @@ def phase_forward(results: dict) -> tuple:
 
 def _rows(scene):
     """A scene sample's input rows as the forward takes them, on the card."""
-    locs = torch.zeros(len(scene["input_locs"]), 4, dtype=torch.int64)
-    locs[:, :3] = torch.from_numpy(scene["input_locs"].astype(np.int64))
-    return locs.cuda(), torch.from_numpy(scene["input_sdf"])[:, None].cuda()
+    from sgnn_tpu_torch.tools._common import rows
+
+    return rows(scene, "cuda")
 
 
 def _summed_branch(cfg, weights, scene, packed, packed_model) -> int:
@@ -2610,7 +2603,7 @@ def _summed_branch(cfg, weights, scene, packed, packed_model) -> int:
     model = GenModelFolded(cfg, surf_pack=False).cuda()
     load_jax_params(model, *weights)
     K.reset_launch_counts()
-    summed = SceneInferencer(model)(scene)
+    summed = SceneInferencer(model, want_levels=False)(scene)
     torch.cuda.synchronize()
     counts = K.launch_counts()
     log(f"[summed] launches with surf_pack=False: {counts}")
@@ -2636,7 +2629,8 @@ def _summed_branch(cfg, weights, scene, packed, packed_model) -> int:
                      ("summed", model), ("packed (K5)", packed_model)):
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
-        ms = _time_ms(lambda: m(locs, feats, SCENE), reps=3)
+        ms = _P().cuda_ms(lambda: m(locs, feats, SCENE), "cuda",
+                          3)
         log(f"[summed] forward with the {label} surface head: {ms:.2f} ms "
             f"(CUDA events, mean of 3); peak device memory "
             f"{torch.cuda.max_memory_allocated() / 2**20:.1f} MiB")
@@ -2655,7 +2649,8 @@ def _trunk_repair(model, model32, x32, scene) -> None:
     saved = (b.allow_tf32, b.deterministic, b.benchmark)
     b.allow_tf32, b.deterministic, b.benchmark = True, False, True
     try:
-        a, c = SceneInferencer(model)(scene), SceneInferencer(model)(scene)
+        infer = SceneInferencer(model, want_levels=False)
+        a, c = infer(scene), infer(scene)
         same = (np.array_equal(a["surf_locs"], c["surf_locs"])
                 and np.array_equal(a["surf_sdf"], c["surf_sdf"]))
         log(f"[repair] bfloat16 kernels, two runs of {scene['name']}: "
@@ -2689,7 +2684,8 @@ def _trunk_repair(model, model32, x32, scene) -> None:
                       "PyTorch's defaults", "repaired"):
             dense._CUDNN = flags[label]
             try:
-                ms = _time_ms(lambda: model.trunk(xb), reps=20)
+                ms = _P().cuda_ms(lambda: model.trunk(xb), "cuda",
+                                  20)
             finally:
                 dense._CUDNN = repaired
             log(f"[repair] bfloat16 trunk, {label} flags: {ms:.3f} ms "
@@ -2738,7 +2734,7 @@ def phase_int8(results: dict, weights) -> None:
     exact = build(dataclasses.replace(cfg, quantize_int8=False))
     scenes = [synthetic_scene(SCENE, seed=s, truncation=cfg.truncation)
               for s in range(N_SCENES)]
-    infer = SceneInferencer(model)
+    infer = SceneInferencer(model, want_levels=False)
     infer(scenes[0])  # warm-up
 
     # the main path: three scenes, counted and timed
@@ -2779,15 +2775,18 @@ def phase_int8(results: dict, weights) -> None:
                      ("int8", model)):
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
-        ms = _time_ms(lambda: m(locs, feats, SCENE), reps=3)
+        ms = _P().cuda_ms(lambda: m(locs, feats, SCENE), "cuda",
+                          3)
         log(f"[int8] bfloat16 forward, {label} sites: {ms:.2f} ms (CUDA "
             f"events, mean of 3); peak device memory "
             f"{torch.cuda.max_memory_allocated() / 2**20:.1f} MiB")
     # the device's busy time against the host clock: the forward is
     # launched from Python, so the CUDA-event times include host gaps
     for label, m in (("int8", model), ("exact", exact)):
-        _profile("int8", f"one bfloat16 forward, {label} sites",
-                 lambda m=m: m(locs, feats, SCENE))
+        prof, window = _P().profile_window(
+            lambda m=m: m(locs, feats, SCENE), "cuda")
+        _P().report(prof, window, 1, 14, f"profile of one bfloat16 forward, "
+                    f"{label} sites", tag="int8")
 
     # every kernel call of one forward against its plain version there
     with MainPathCheck() as chk:
@@ -2807,14 +2806,15 @@ def phase_int8(results: dict, weights) -> None:
     # the exact forward (the gate cascade of random weights, PERF.md)
     m32 = build(dataclasses.replace(cfg, compute_dtype="float32"))
     iou, diff, scale = _agreement("float32 int8", "kernels", "plain",
-                                  SceneInferencer(m32)(s0),
-                                  SceneInferencer(m32, impl="plain")(s0))
+                                  SceneInferencer(m32, want_levels=False)(s0),
+                                  SceneInferencer(m32, impl="plain",
+                                                  want_levels=False)(s0))
     require(iou >= MIN_IOU_F32, f"int8 f32 surface IoU {iou}")
     require(diff.mean() <= MAX_SDF_REL_F32 * scale,
             f"int8 f32 mean sdf diff {diff.mean()}")
     del m32
-    plain = SceneInferencer(model, impl="plain")(s0)
-    ex = SceneInferencer(exact)(s0)
+    plain = SceneInferencer(model, impl="plain", want_levels=False)(s0)
+    ex = SceneInferencer(exact, want_levels=False)(s0)
     require(len(plain["surf_locs"]) > 0, "int8 plain: empty surface")
     _agreement("bfloat16 int8", "kernels", "plain", outs[0], plain)
     _agreement("bfloat16", "int8 kernels", "exact kernels", outs[0], ex)
@@ -2928,7 +2928,8 @@ def phase_serve(model, weights) -> tuple:
             if seed is not None:
                 weights = init_params(cfg, seed)
                 load_jax_params(model, *weights)
-            if len(SceneInferencer(model)(sample)["surf_locs"]):
+            if len(SceneInferencer(model, want_levels=False)(sample)[
+                    "surf_locs"]):
                 break
         ckpt = os.path.join(tmp, "model.ckpt")
         save_checkpoint(ckpt, *weights, epoch=0, iteration=0)
@@ -2997,7 +2998,7 @@ def phase_serve(model, weights) -> tuple:
         # the host)
         ds = SceneDataset(files, cfg.truncation, cfg.num_hierarchy_levels,
                           max_input_height=128, target_path=tgt)
-        infer = SceneInferencer(model)
+        infer = SceneInferencer(model, want_levels=False)
         for i in range(len(ds)):
             t0 = time.perf_counter()
             sample = ds[i]
@@ -3061,8 +3062,9 @@ def phase_secondary(results: dict, weights) -> None:
 
     # capacities: the folded forward's active voxels per level (f32 and
     # bf16) times CAP_HEADROOM; the finest also holds every input row
-    active = [SceneInferencer(build(GenModelFolded, with_dtype(base, dt)))(
-        s0)["level_active"] for dt in ("float32", "bfloat16")]
+    active = [SceneInferencer(build(GenModelFolded, with_dtype(base, dt)),
+                              want_levels=False)(s0)["level_active"]
+              for dt in ("float32", "bfloat16")]
     L = base.num_hierarchy_levels
     fr = []
     for h in range(L):
@@ -3154,8 +3156,8 @@ def phase_secondary(results: dict, weights) -> None:
                 f"{name}: {st['calls']} checked calls, expected {want}")
 
     # f32: the four executions' surfaces on the card
-    ref = SceneInferencer(build(GenModelFolded, with_dtype(base,
-                                                           "float32")))(s0)
+    ref = SceneInferencer(build(GenModelFolded, with_dtype(base, "float32")),
+                          want_levels=False)(s0)
     execs32 = {
         "dense flow (K8)": (GenModelDense, with_dtype(dense16, "float32")),
         "coordinate lists, gather (K10)": (GenModelSparse,
@@ -3228,15 +3230,18 @@ def phase_secondary(results: dict, weights) -> None:
                                                   sparse16,
                                                   conv_backend="dense"))}
     for label, model in timed.items():
-        infer = SceneInferencer(model)
+        infer = SceneInferencer(model, want_levels=False)
         if label != "folded":
-            _profile("secondary", f"one bfloat16 forward, {label}",
-                     lambda: infer.dispatch(s0), top=8)
+            prof, window = _P().profile_window(lambda: infer.dispatch(s0),
+                                               "cuda")
+            _P().report(prof, window, 1, 8, f"profile of one bfloat16 "
+                        f"forward, {label}", tag="secondary")
         for impl in (None, "plain", "plain", None):
             infer.impl = impl
             torch.cuda.synchronize()
             torch.cuda.reset_peak_memory_stats()
-            ms = _time_ms(lambda: infer.dispatch(s0), reps=3)
+            ms = _P().cuda_ms(lambda: infer.dispatch(s0), "cuda",
+                              3)
             log(f"[secondary] bfloat16 forward, {label}, "
                 f"{'kernels' if impl is None else 'plain'}: {ms:.2f} ms "
                 f"(CUDA events, mean of 3, dispatch of one scene); peak "
@@ -3330,55 +3335,6 @@ def _step(model, batch, lw, plain=False):
     if batch["input_locs"].is_cuda:
         torch.cuda.synchronize()
     return m, [p.grad.clone() for p in model.weights]
-
-
-# the hand-written kernels by their CUDA names (csrc/*.cu)
-KERNEL_NAMES = {"conv_site_kernel": "K1", "conv_site_q_kernel": "K1q",
-                "downconv_kernel": "K2", "downconv_q_kernel": "K2q",
-                "upconv_kernel": "K3", "upconv_q_kernel": "K3q",
-                "head_gate_kernel": "K4 gate and raw",
-                "head_sum_kernel": "K4 summed", "surf_head_kernel": "K5",
-                "scatter_kernel": "K6", "conv_raw_kernel": "K7",
-                "conv3d_brick_kernel": "K8", "conv3d_any_brick_kernel": "K9",
-                "gather_gemm_kernel": "K10", "tile_amax_kernel": "tile_amax"}
-
-
-def _profile(tag: str, what: str, fn, top: int = 14) -> None:
-    """Where one call's device time goes: torch.profiler's CUDA time per
-    kernel name (the hand-written kernels and PyTorch's own), the largest
-    first, beside the call's host-clock time (ends in a synchronize); then
-    each hand-written kernel's rows summed (KERNEL_NAMES)."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
-    acts = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
-    with profile(activities=acts) as prof:
-        t0 = time.perf_counter()
-        fn()
-        torch.cuda.synchronize()
-        wall = (time.perf_counter() - t0) * 1e3
-    # the device's own events (kernels, copies), not the host ops above
-    rows = [(e.self_device_time_total / 1e3, e.count, e.key)
-            for e in prof.key_averages()
-            if e.device_type == DeviceType.CUDA
-            and e.self_device_time_total > 0]
-    rows.sort(reverse=True)
-    total = sum(r[0] for r in rows)
-    ours = sum(r[0] for r in rows if "sgnn::" in r[2])
-    log(f"[{tag}] profile of {what}: {total:.1f} ms of device time "
-        f"(torch.profiler), {ours:.1f} ms of it in the hand-written "
-        f"kernels, in {wall:.1f} ms on the host clock (profiled); the "
-        f"largest:")
-    for t, n, key in rows[:top]:
-        log(f"[{tag}]   {t:9.2f} ms {n:5d} x {key[:90]}")
-    for name, label in KERNEL_NAMES.items():
-        mine = [r for r in rows if f"::{name}<" in r[2]]
-        if mine:
-            log(f"[{tag}] {label} ({name}) in {what}: "
-                f"{sum(r[0] for r in mine):.3f} ms of device time in "
-                f"{sum(r[1] for r in mine)} launches (" + "; ".join(
-                    f"{t:.3f} ms {n} x {key[:60]}" for t, n, key in mine)
-                + ")")
 
 
 def _train_batch(tag: str, tmp: str, cfg) -> tuple:
@@ -3481,7 +3437,8 @@ def _step_ms(tag: str, what: str, model, dev: dict, lw, peak: int,
             b.record()
             b.synchronize()
             times[label].append(a.elapsed_time(b))
-    _profile(tag, what, lambda: _step(model, dev, lw))
+    prof, window = _P().profile_window(lambda: _step(model, dev, lw), "cuda")
+    _P().report(prof, window, 1, 14, f"profile of {what}", tag=tag)
     ms = {k: float(np.median(v)) for k, v in times.items() if v}
     each = {k: " ".join(f"{t:.1f}" for t in v) for k, v in times.items()}
     B = model.cfg.batch_size
@@ -3494,8 +3451,8 @@ def _step_ms(tag: str, what: str, model, dev: dict, lw, peak: int,
     return ms
 
 
-def phase_train(results: dict) -> None:
-    """Phase 7."""
+def phase_train(results: dict) -> str:
+    """Phase 7; returns the training CLI's log.csv (for phase 12)."""
     import dataclasses
 
     from sgnn_tpu_torch.config import SGNNConfig
@@ -3563,19 +3520,21 @@ def phase_train(results: dict) -> None:
             "--data_path", tmp, "--train_file_list", lst, "--save", save,
             "--execution", "folded", "--compute_dtype", "bfloat16",
             "--batch_size", str(B), "--num_iters_per_level", "1",
-            "--max_steps", "12"])
+            "--max_steps", str(CLI_STEPS)])
         wall = time.perf_counter() - t0
         losses = [loss for _, loss in trainer.loss_history]
         log(f"[train] CLI: {len(losses)} steps in {wall:.1f} s; losses "
             f"{' '.join(f'{v:.4f}' for v in losses)}; launches "
             f"{K.launch_counts()}")
-        require(len(losses) == 12 and np.isfinite(losses).all(),
+        require(len(losses) == CLI_STEPS and np.isfinite(losses).all(),
                 f"CLI losses {losses}")
         require(losses[11] < losses[4], f"the full-level loss did not fall: "
                 f"step 4 {losses[4]}, step 11 {losses[11]}")
         ckpt = os.path.join(save, "model-epoch-0.ckpt")
         require(os.path.exists(os.path.join(save, "log.csv"))
                 and os.path.exists(ckpt), f"no log.csv or .ckpt in {save}")
+        with open(os.path.join(save, "log.csv")) as fh:
+            train_log = fh.read()
 
         # the checkpoint serves a room
         from sgnn_tpu_torch.tools.test_scene import load_params
@@ -3585,7 +3544,7 @@ def phase_train(results: dict) -> None:
         served = GenModelFolded(serve_cfg).cuda()
         load_jax_params(served, *load_params(ckpt, serve_cfg))
         _, _, i_locs, i_sdf = _room(dims, seed=7)
-        r = SceneInferencer(served)({
+        r = SceneInferencer(served, want_levels=False)({
             "name": "room7", "sdf": np.zeros(dims, np.float32),
             "input_locs": i_locs, "input_sdf": i_sdf,
             "orig_dims": np.asarray(dims), "world2grid": np.eye(4)})
@@ -3595,6 +3554,7 @@ def phase_train(results: dict) -> None:
         log(f"[train] the CLI's checkpoint served a {dims} room: active per "
             f"level {r['level_active']}, surface {len(r['surf_locs'])} "
             f"voxels")
+    return train_log
 
 
 # ----------------------------------------------------------------- phase 10
@@ -3720,7 +3680,7 @@ def phase_train_secondary(results: dict) -> None:
             load_jax_params(served, *load_params(
                 os.path.join(save, ckpts[-1]), serve_cfg))
             _, _, i_locs, i_sdf = _room(dims, seed=7)
-            r = SceneInferencer(served)({
+            r = SceneInferencer(served, want_levels=False)({
                 "name": "room7", "sdf": np.zeros(dims, np.float32),
                 "input_locs": i_locs, "input_sdf": i_sdf,
                 "orig_dims": np.asarray(dims), "world2grid": np.eye(4)})
@@ -3940,8 +3900,9 @@ def phase_drive(card: str, serve_weights) -> None:
                             and counts["conv_site"] > 0,
                             f"evaluate {weights} folded: launches {counts}")
                 if weights == "serve" and ex == "folded":
+                    # the CLI serves the level-output form
                     for name, c in counts.items():
-                        require((c > 0) == (EXPECTED[name] > 0),
+                        require((c > 0) == (LEVELS_EXPECTED[name] > 0),
                                 f"evaluate serve folded: {name} launched "
                                 f"{c} times")
                 if weights == "serve":
@@ -3956,7 +3917,7 @@ def phase_drive(card: str, serve_weights) -> None:
             log(f"[drive] evaluate inputs, {name}: {st['calls']} calls, max "
                 f"|kernel - plain| {st['err']:.3e} (at most "
                 f"{st['ratio']:.2f} of tol), gate flips {st['flips']}")
-            if EXPECTED[name] or name == "gather_gemm":
+            if LEVELS_EXPECTED[name] or name == "gather_gemm":
                 require(st["calls"] > 0, f"{name} unchecked in evaluate")
 
         # 5. f32: the card against the host CPU, same surface and metrics
@@ -3998,9 +3959,6 @@ def phase_drive(card: str, serve_weights) -> None:
                     f"f32 {k}: card {rc[k]} host {rh[k]}")
     log(f"[drive] the phase took {time.perf_counter() - t_phase:.1f} s; "
         f"{card}")
-
-
-# --------------------------------------------------------------------- main
 
 
 # ----------------------------------------------------------------- phase 11
@@ -4090,8 +4048,8 @@ def phase_multi(weights, serve_weights) -> None:
     refs = {}
     for dt, model in models.items():
         out = model(locs, feats, MULTI_SCENE)
-        ms = _time_ms(lambda: model(locs, feats, MULTI_SCENE),
-                      reps=MULTI_REPS)
+        ms = _P().cuda_ms(lambda: model(locs, feats, MULTI_SCENE),
+                          "cuda", MULTI_REPS)
         refs[dt] = (out.surf_mask.cpu().numpy(), out.surf_sdf.cpu().numpy(),
                     out.coarse_out.cpu().numpy(), ms)
         log(f"[multi] unsharded folded {dt}: active per level "
@@ -4111,7 +4069,7 @@ def phase_multi(weights, serve_weights) -> None:
     st = make_sparse(torch.from_numpy(dl).cuda(),
                      torch.from_numpy(df).cuda(), k, MULTI_SCENE, 1)
     out = dense(st)
-    dms = _time_ms(lambda: dense(st), reps=1)
+    dms = _P().cuda_ms(lambda: dense(st), "cuda", 1)
     dref = (out.surf_mask.cpu().numpy(), out.surf_sdf.cpu().numpy())
     require(dref[0].any(), "the dense flow's surface is empty")
     log(f"[multi] unsharded dense flow float32: surface "
@@ -4142,7 +4100,8 @@ def phase_multi(weights, serve_weights) -> None:
                       compute_dtype="bfloat16")
     served = GenModelFolded(scfg).cuda()
     load_jax_params(served, *serve_weights)
-    room_refs = [SceneInferencer(served)(r) for r in rooms]
+    infer = SceneInferencer(served, want_levels=False)
+    room_refs = [infer(r) for r in rooms]
     del served
     torch.cuda.synchronize()
     torch.cuda.empty_cache()
@@ -4290,6 +4249,263 @@ def phase_multi(weights, serve_weights) -> None:
             f"{ {k: v for k, v in got['launches'].items() if v} }")
 
 
+# ----------------------------------------------------------------- phase 12
+#
+# the level-output form and the measuring tools (sgnn_tpu_torch/tools), each
+# tool's main in-process at full width with short counts
+
+TOOL_REPS = 2  # traced or timed forwards and steps a tool
+TOOL_SCENES = 3  # bench_e2e's and bench_mesh's scenes
+TOOL_STEPS, TOOL_WARMUP = 4, 2  # bench_train: timed steps after warm-up
+TOOL_CHUNKS = 6 * TRAIN_BATCH  # one epoch holds every bench_train step
+# the hand-written kernels of one serving forward by their profiler labels
+# (ops.kernels.KERNEL_NAMES), launches as EXPECTED
+FORWARD_LABELS = {"K1": 37, "K2": 11, "K3": 3, "K4 gate and raw": 3,
+                  "K5": 1, "K6": 1}
+INT8_LABELS = {"K1q": 37, "K2q": 11, "K3q": 3, "K4 gate and raw": 3,
+               "K5": 1, "K6": 1, "tile_amax": 51}
+# the roofline tool's families and the kernel each prices (K1-K6), the
+# first six: their per-call floors are held to phase 3's bounds
+ROOFLINE_KERNELS = {"conv-site": "conv_site", "downconv": "downconv",
+                    "upconv": "upconv", "head-site": "head_gate",
+                    "surf-head-ms": "surf_head", "input-scatter": "scatter"}
+ROOFLINE_TOL_MS = 1e-4
+
+
+def _levels_agreement(a, b) -> tuple:
+    """(smallest IoU of a level's unfiltered sites, largest |raw head
+    diff| on the common sites over the heads' scale) of two level-output
+    forwards."""
+    iou, rel = 1.0, 0.0
+    for ga, ma, gb, mb in zip(a.refine_outs, a.refine_masks_unfilt,
+                              b.refine_outs, b.refine_masks_unfilt):
+        both = ma & mb
+        iou = min(iou, int(both.sum()) / max(int((ma | mb).sum()), 1))
+        scale = float(gb[mb].abs().max()) if mb.any() else 1.0
+        diff = float((ga[both] - gb[both]).abs().max()) if both.any() else 0
+        rel = max(rel, diff / max(scale, 1e-12))
+    return iou, rel
+
+
+def _level_form(weights, card: str) -> None:
+    """The level-output form against the only-surface form and the plain
+    versions, on phase 4's scene and weights: exact in f32 and bf16, and
+    the int8 forward (which the inferencer's default serves in this form
+    too) in bf16."""
+    import dataclasses
+
+    from sgnn_tpu_torch.config import SGNNConfig
+    from sgnn_tpu_torch.infer import synthetic_scene
+    from sgnn_tpu_torch.models.folded_flow import GenModelFolded
+    from sgnn_tpu_torch.ops import kernels as K
+    from sgnn_tpu_torch.params import load_jax_params
+
+    cfg = SGNNConfig(input_dim=SCENE, batch_size=1,
+                     occupancy_fractions=FRACTIONS, compute_dtype="bfloat16")
+    s0 = synthetic_scene(SCENE, seed=0, truncation=cfg.truncation)
+    locs, feats = _rows(s0)
+    for dt, q8 in (("float32", False), ("bfloat16", False),
+                   ("bfloat16", True)):
+        want = INT8_LEVELS_EXPECTED if q8 else LEVELS_EXPECTED
+        tag = f"{'int8 ' if q8 else ''}{dt}"
+        model = GenModelFolded(dataclasses.replace(
+            cfg, compute_dtype=dt, quantize_int8=q8))
+        load_jax_params(model, *weights)
+        model.cuda()
+        surf = model(locs, feats, SCENE)
+        torch.cuda.synchronize()
+        K.reset_launch_counts()
+        lv = model(locs, feats, SCENE, want_level_outputs=True)
+        torch.cuda.synchronize()
+        counts = K.launch_counts()
+        require(counts == want, f"level-output form {tag}: launches "
+                                f"{counts}, expected {want}")
+        differ = int((surf.surf_mask != lv.surf_mask).sum()
+                     + ((surf.surf_sdf != lv.surf_sdf)
+                        & surf.surf_mask & lv.surf_mask).sum())
+        sizes = [int(m.sum()) for m in lv.refine_masks_unfilt]
+        log(f"[tools] level-output form {tag}: launches per forward "
+            f"{ {k: v for k, v in counts.items() if v} }; unfiltered sites "
+            f"per level {sizes}; surface {int(lv.surf_mask.sum())} voxels, "
+            f"{differ} differing from the only-surface form's "
+            f"({int(surf.surf_mask.sum())})")
+        if dt == "float32":
+            require(differ == 0 and torch.equal(surf.coarse_out,
+                                                lv.coarse_out),
+                    f"f32: the level-output form's surface differs in "
+                    f"{differ} voxels")
+            plain = model(locs, feats, SCENE, impl="plain",
+                          want_level_outputs=True)
+            iou, rel = _levels_agreement(lv, plain)
+            log(f"[tools] level-output form f32, kernels vs plain: "
+                f"smallest level IoU {iou:.5f}, largest |raw head diff| "
+                f"{rel:.3e} of the heads' scale (phase 4's forward bars: "
+                f"{MIN_IOU_F32}, {MAX_SDF_REL_F32})")
+            require(iou >= MIN_IOU_F32 and rel <= MAX_SDF_REL_F32,
+                    f"f32 level outputs vs plain: IoU {iou}, rel {rel}")
+        with MainPathCheck() as chk:
+            model(locs, feats, SCENE, want_level_outputs=True)
+        for name, st in chk.stats.items():
+            if st["calls"]:
+                log(f"[tools] level-output form {tag}, {name}: "
+                    f"{st['calls']} calls, max |kernel - plain| "
+                    f"{st['err']:.3e} (at most {st['ratio']:.2f} of tol), "
+                    f"gate flips {st['flips']}")
+            require((st["calls"] > 0) == (want[name] > 0),
+                    f"level-output form {tag}: {name} checked "
+                    f"{st['calls']} times")
+        del model
+    log(f"[tools] {card}")
+
+
+def _per_forward(res: dict, labels: dict, what: str) -> None:
+    """Requires a trace's attribution to show each hand-written kernel of
+    ``labels`` at its launches per forward or step."""
+    cats = res["categories"]
+    require(cats != "not measured", f"{what}: no device events recorded")
+    require(0 <= res["idle_share"] < 1 and res["device_ms"]
+            <= res["window_ms"], f"{what}: {res['device_ms']} ms of device "
+            f"time in a {res['window_ms']} ms window, idle share "
+            f"{res['idle_share']}")
+    for label, n in labels.items():
+        got = cats.get(label, {}).get("launches", 0)
+        require(got == n, f"{what}: {label} {got} launches, expected {n}")
+    log(f"[tools] {what}: device {res['device_ms']:.3f} ms, idle share "
+        f"{res['idle_share']:.4f}, window {res['window_ms']:.3f} ms "
+        f"(host clock, unprofiled; {res['profiled_window_ms']:.3f} ms "
+        f"profiled); hand-written kernels "
+        + "; ".join(f"{k} {v['ms']:.3f} ms {v['launches']:g} launches"
+                    for k, v in cats.items() if k[0] == "K" or k ==
+                    "tile_amax"))
+
+
+def phase_tools(results: dict, weights, card: str, train_log: str) -> None:
+    """Phase 12: the level-output form, then each measuring tool's main."""
+    from sgnn_tpu_torch.config import SGNNConfig
+    from sgnn_tpu_torch.tools import (bench_backends, bench_e2e, bench_kernel,
+                                      bench_mesh, bench_stages, bench_train,
+                                      roofline, summarize_train,
+                                      trace_forward, trace_train)
+
+    t_phase = time.perf_counter()
+    _level_form(weights, card)
+
+    with tempfile.TemporaryDirectory() as tmp:
+        # the forward's trace, in both forms, and the int8 forward's
+        reps = ["--reps", str(TOOL_REPS)]
+        for argv, want, labels in (
+                (reps, EXPECTED, FORWARD_LABELS),
+                (reps + ["--full_outputs"], LEVELS_EXPECTED, FORWARD_LABELS),
+                (reps + ["--int8"], INT8_EXPECTED, INT8_LABELS)):
+            res = trace_forward.main([*argv, "--out",
+                                      os.path.join(tmp, "fwd")])
+            _per_forward(res, labels, f"trace_forward {argv[2:]}")
+            got = {k: res["launches"].get(k, 0) for k in want}
+            require(got == want, f"trace_forward {argv[2:]}: wrapper "
+                                 f"launches {got}, expected {want}")
+
+        # the folded train step's trace: K7 77 launches a step
+        res = trace_train.main(["--reps", "1", "--with_metrics", "--out",
+                                os.path.join(tmp, "train")])
+        want = train_launches(SGNNConfig(input_dim=TRAIN_DIMS,
+                                         batch_size=TRAIN_BATCH))
+        _per_forward(res, {"K7": want["conv_raw"]}, "trace_train folded")
+        require(res["launches"].get("conv_raw") == want["conv_raw"],
+                f"trace_train: K7 {res['launches']}")
+
+        # the roofline: its families' calls, its floors against phase 3's
+        res = roofline.main(["--measure", "--reps", str(TOOL_REPS), "--out",
+                             os.path.join(tmp, "roofline")])
+        fams = res["families"]
+        for fam, name in ROOFLINE_KERNELS.items():
+            require(fams[fam]["calls"] == EXPECTED[name],
+                    f"roofline: {fam} {fams[fam]['calls']} calls, "
+                    f"expected {EXPECTED[name]}")
+            r = results[name]
+            log(f"[tools] roofline {fam}: phase 3's {name} call priced "
+                f"{r['roofline_ms']:.4f} ms, its bound {r['bound_ms']:.4f} "
+                f"ms")
+            require(abs(r["roofline_ms"] - r["bound_ms"]) <= ROOFLINE_TOL_MS,
+                    f"roofline {fam}: {r['roofline_ms']} ms against phase "
+                    f"3's bound {r['bound_ms']} ms")
+        require(isinstance(res["roofline_share"], float)
+                and 0 < res["roofline_share"] <= 1,
+                f"roofline: share {res['roofline_share']} of the forward's "
+                f"device time")
+        log(f"[tools] roofline: sum of floors {res['floor_ms']:.4f} ms, "
+            f"forward {res['forward_device_ms']:.3f} ms of device time, "
+            f"roofline share {res['roofline_share']:.4f}, idle share "
+            f"{res['idle_share']:.4f} (a trace without the tool's ranges, "
+            f"the window unprofiled)")
+        res = roofline.main(["--int8"])
+        fams = res["families"]
+        for fam, name in ROOFLINE_KERNELS.items():
+            require(fams[fam]["calls"] == EXPECTED[name],
+                    f"roofline --int8: {fam} {fams[fam]['calls']} calls, "
+                    f"expected {EXPECTED[name]}")
+        log(f"[tools] roofline --int8: sum of floors {res['floor_ms']:.4f} "
+            f"ms")
+
+        # phase 7's training log
+        run = os.path.join(tmp, "run")
+        os.makedirs(run)
+        with open(os.path.join(run, "log.csv"), "w") as fh:
+            fh.write(train_log)
+        res = summarize_train.main([run])
+        require(len(res["rows"]) > 0, "summarize_train: no rows")
+
+        res = bench_stages.main(["--reps", str(TOOL_REPS)])
+        names = [r["stage"] for r in res["stages"]]
+        require(names == ["encoder+trunk", "+refine0", "+refine1",
+                          "+refine2", "+surface"], f"stages {names}")
+        require(all(isinstance(r["cum_ms"], float) for r in res["stages"]),
+                "bench_stages: a stage was not timed")
+        log("[tools] bench_stages, device time per forward (torch.profiler)"
+            " and CUDA-event wall time: " + "; ".join(
+                f"{r['stage']} cum {r['cum_ms']:.3f} ms delta "
+                f"{r['delta_ms']:.3f} ms wall {r['wall_ms']:.3f} ms idle "
+                f"{r['idle_share']:.4f}" for r in res["stages"]))
+
+        res = bench_kernel.main(["--reps", str(TOOL_REPS)])
+        tol = float(BF16_ULPS * _ulp_bf16(torch.tensor(res["scale"])))
+        require(res["max_abs_err"] <= tol,
+                f"bench_kernel: K8 vs F.conv3d {res['max_abs_err']} > {tol}")
+        log(f"[tools] bench_kernel: max |K8 - F.conv3d| "
+            f"{res['max_abs_err']:.3e} (tolerance {tol:.3e}); K8 "
+            f"{res['kernel_ms']:.4f} ms, F.conv3d {res['library_ms']:.4f} ms")
+
+        res = bench_backends.main(["--backends", "gather", "dense",
+                                   "dense_flow", "--reps",
+                                   str(TOOL_REPS)])
+        b = res["backends"]
+        require(b["gather"]["launches"].get("gather_gemm")
+                == SECONDARY["gather_gemm"]
+                and b["dense_flow"]["launches"].get("conv3d_folded")
+                == SECONDARY["conv3d_folded"],
+                f"bench_backends launches {b}")
+
+        res = bench_mesh.main(["--scenes", str(TOOL_SCENES), "--workers",
+                               "1", "2"])
+        require(all(r["ply_files"] == 2 * TOOL_SCENES for r in res["runs"]),
+                f"bench_mesh: {res['runs']}")
+
+        for serial in ([], ["--serial"]):
+            res = bench_e2e.main(["--scenes", str(TOOL_SCENES), *serial])
+            require(res["pred_mesh_files"] == TOOL_SCENES,
+                    f"bench_e2e {res}")
+
+        res = bench_train.main(["--steps", str(TOOL_STEPS), "--warmup",
+                                str(TOOL_WARMUP), "--num_chunks",
+                                str(TOOL_CHUNKS)])
+        require(res["steps"] > 0 and np.isfinite(res["loss"]),
+                f"bench_train {res}")
+    log(f"[tools] the phase took {time.perf_counter() - t_phase:.1f} s; "
+        f"{card}")
+
+
+# --------------------------------------------------------------------- main
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
@@ -4308,10 +4524,11 @@ def main() -> int:
         phase_int8(results, weights)
         serve_weights = phase_serve(model, weights)
         phase_secondary(results, weights)
-        phase_train(results)
+        train_log = phase_train(results)
         phase_train_secondary(results)
         phase_drive(device["card"], serve_weights)
         phase_multi(weights, serve_weights)
+        phase_tools(results, weights, device["card"], train_log)
     except SmokeError as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1

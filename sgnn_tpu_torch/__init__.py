@@ -13,7 +13,9 @@ names mirror the JAX package so each module's counterpart is easy to find:
                          upsampled conv, max pool and masked row BN
   ops/coords.py, ops/sparse.py, ops/conv.py, nn/blocks.py
                          coordinate lists, SparseTensor, sparse convs
-  models/folded_flow.py  GenModelFolded, the only-surface serving forward
+  models/folded_flow.py  GenModelFolded, the folded serving forward (only
+                         the surface, or every level's outputs too;
+                         partial forwards)
   models/dense_flow.py   the dense trunk; GenModelDense (dense flow)
   models/sgnn.py         GenModelSparse (coordinate lists, the oracle)
   infer.py               SceneInferencer
@@ -26,9 +28,15 @@ names mirror the JAX package so each module's counterpart is easy to find:
                          process groups and per-rank batches, the
                          collectives with their gradients, z-sharded
                          grids, the per-rank programs
+  utils/profiling.py     trace, StepTimer, device memory, and where a
+                         profile's device time goes (idle share)
   tools/                 the CLIs: test_scene, evaluate, train,
                          convert_checkpoint, make_synthetic_scenes,
-                         generate_scans, make_chunks, dryrun_multichip
+                         generate_scans, make_chunks, dryrun_multichip;
+                         the measuring tools: trace_forward, trace_train,
+                         roofline, summarize_train, bench_stages,
+                         bench_kernel, bench_backends, bench_mesh,
+                         bench_e2e, bench_train
 
 This package imports torch and numpy only: never jax, never sgnn_tpu.
 """

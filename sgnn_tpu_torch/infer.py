@@ -11,19 +11,25 @@ i+1's forward with scene i's meshing (``tools/test_scene.py``).
 
 Every forward sees the scene's first ``cfg.input_cap`` input rows in
 file order, sorted, as the JAX inferencer cuts them. Three forwards serve:
-- ``GenModelFolded``, the only-surface folded forward. The JAX
-  inferencer's capacity refit and overflow refetch exist only because XLA
-  shapes are static; PyTorch extracts the surface with a dynamic
-  ``nonzero``, so neither is needed, and only the real rows are passed
-  (no padding rows).
+- ``GenModelFolded``, the folded forward: with ``want_levels`` (the
+  default, as in the JAX inferencer) its level-output form, whose results
+  carry every refinement level's ``locs`` (the unfiltered sites,
+  uncropped) and ``out`` (the raw f32 occ logit and sdf there), as the JAX
+  inferencer's ``_compact_dense_output`` / ``_postprocess_compact`` give
+  them; without, the only-surface form, whose ``levels`` hold the coarse
+  output alone. The JAX inferencer's capacity refit and overflow refetch
+  exist only because XLA shapes are static; PyTorch extracts the surface
+  with a dynamic ``nonzero``, so neither is needed, and only the real rows
+  are passed (no padding rows).
 - ``GenModelSparse`` (the coordinate-list execution) and
   ``GenModelDense`` (the dense-flow execution): the rows are padded to
   ``input_cap``, and the results carry what the JAX inferencer's
   ``_postprocess_sparse`` /
   ``_postprocess_dense`` give: every refinement level's ``locs`` and
   ``out`` (occ logit, sdf) besides the surface (the coordinate lists
-  cropped to ``orig_dims``, the dense levels not), and for the sparse
-  execution each level's compaction ``overflows``.
+  cropped to ``orig_dims``, the dense levels not), whatever
+  ``want_levels`` says, and for the sparse execution each level's
+  compaction ``overflows``.
 
 ``measured_fractions`` is the JAX inferencer's calibration record
 (``sgnn_tpu/infer.py:327-337``): per padded scene shape, the most sites
@@ -83,12 +89,15 @@ class SceneInferencer:
 
     ``impl="plain"`` runs every kernel's plain PyTorch version (on the
     card too); the default launches the CUDA kernels for a model on the
-    card and the plain versions for a model on the CPU."""
+    card and the plain versions for a model on the CPU. ``want_levels``
+    picks the folded forward's form (module docstring)."""
 
     def __init__(self, model: GenModelFolded | GenModelSparse
-                 | GenModelDense, impl: str | None = None):
+                 | GenModelDense, impl: str | None = None,
+                 want_levels: bool = True):
         self.model = model
         self.impl = impl
+        self.want_levels = want_levels
         self._side = None  # the card's stream for collect()
         # padded dims -> {level: the most sites seen}
         self.observed_counts = {}
@@ -116,7 +125,8 @@ class SceneInferencer:
         feats[:len(locs3), 0] = torch.from_numpy(in_sdf)
         locs, feats = locs.to(device), feats.to(device)
         if folded:
-            out = self.model(locs, feats, dims, batch_size=1, impl=self.impl)
+            out = self.model(locs, feats, dims, batch_size=1, impl=self.impl,
+                             want_level_outputs=self.want_levels)
         else:
             out = self.model(make_sparse(locs, feats, len(locs3), dims, 1),
                              impl=self.impl)
@@ -196,8 +206,7 @@ class SceneInferencer:
             sm[:, :, int(orig[2]):] = False
             surf_locs = torch.nonzero(sm).to(torch.int32).cpu().numpy()
             surf_sdf = out.surf_sdf[0][sm].cpu().numpy()
-            for grid, mask in zip(getattr(out, "refine_outs", ()),
-                                  getattr(out, "refine_masks_unfilt", ())):
+            for grid, mask in zip(out.refine_outs, out.refine_masks_unfilt):
                 m = mask[0]
                 levels.append({
                     "locs": torch.nonzero(m).to(torch.int32).cpu().numpy(),

@@ -1,15 +1,30 @@
-"""Folded execution of GenModel: the only-surface serving forward.
+"""Folded execution of GenModel: the serving forward.
 
 Port of ``sgnn_tpu/models/folded_flow.py`` ``genmodel_apply_folded``
-(:126) in its serving form: ``want_level_outputs=False`` (no per-level
-raw head grids), every refinement level and the surface head active; on
-one device or z-sharded over a process group (``space``: the halo
-exchange at each 3^3 site, ``ops/folded.py:halo_exchange_z``). The
-surface head is the multi-scale packed head (``surf_head_packed``, K5)
-over the surface U-Net's groups at their native resolutions; ``GenModelFolded(cfg, surf_pack=False)`` builds the
-counterpart of the JAX package's ``SGNN_NO_SURFPACK`` branch instead:
-the groups upsampled to full resolution and the summed head site
-(``surf_head_fused``, K4 summed mode).
+(:126), on one device or z-sharded over a process group (``space``: the
+halo exchange at each 3^3 site, ``ops/folded.py:halo_exchange_z``). Two
+forms, as there:
+
+- the only-surface form (``want_level_outputs=False``, the default here:
+  the model serves the surface): the unfiltered fine mask of each
+  refinement level is never materialised, K3 and K4's gate expand it from
+  the coarse mask in-register, and no raw head grid is written;
+- the level-output form (``want_level_outputs=True``, :254-310): each
+  level's unfiltered fine mask is ``upsample2_folded`` of the coarse one,
+  K3 takes it as given, K4's gate reads it at scale 1 and also writes the
+  raw f32 head grid, and ``FoldedOutput`` carries each active level's raw
+  heads and mask (not under ``space``).
+
+``num_refine_active`` < all levels or ``do_surf=False`` gives a partial
+forward (:314): it stops after that many refinement levels, and the
+surface grids come back as zeros.
+
+The surface head is the multi-scale packed head (``surf_head_packed``,
+K5) over the surface U-Net's groups at their native resolutions;
+``GenModelFolded(cfg, surf_pack=False)`` builds the counterpart of the
+JAX package's ``SGNN_NO_SURFPACK`` branch instead: the groups upsampled
+to full resolution and the summed head site (``surf_head_fused``, K4
+summed mode).
 
 ``cfg.quantize_int8`` serves every conv, down and upsample site in its
 int8 mode (K1-K3 with ``quantize=True``: int8 weights with per-column
@@ -118,7 +133,8 @@ class DownSite(_WeightedSite):
 
 class UpSite(_WeightedSite):
     """BN + ReLU + mask, 2x upsample and a 3^3 conv from coarse groups
-    (kernel K3); the fine mask is expanded from the coarse one."""
+    (kernel K3); the fine mask ``ffm``, or with None the expansion of the
+    coarse one."""
 
     def __init__(self, widths, cout: int, quantize: bool = False):
         super().__init__()
@@ -132,17 +148,19 @@ class UpSite(_WeightedSite):
                   Q.quantize_upconv_weights)
         self.aff.copy_(FO.prep_affines(*bn, self.widths))
 
-    def forward(self, groups: list, cfm: FGrid, impl: str | None = None
-                ) -> FGrid:
+    def forward(self, groups: list, cfm: FGrid, ffm: FGrid | None = None,
+                impl: str | None = None) -> FGrid:
         _check_widths(groups, self.widths, "up site")
-        return FO.upconv_fused(groups, cfm, None, self.w, self.cout,
+        return FO.upconv_fused(groups, cfm, ffm, self.w, self.cout,
                                aff=self.aff, quantize=self.quantize,
                                ws=self.ws, impl=impl)
 
 
 class HeadSite(nn.Module):
     """n2 BN + ReLU + mask, occ|sdf heads and the occupancy gate (kernel
-    K4, gate mode)."""
+    K4, gate mode): the level mask is the coarse level's, expanded in
+    place, or with ``raw`` the fine one, and the raw f32 heads come out
+    too."""
 
     def __init__(self, nf: int):
         super().__init__()
@@ -159,10 +177,12 @@ class HeadSite(nn.Module):
         self.bias.copy_(FO.prep_bias(b2))
         self.aff.copy_(FO.prep_affines(p["n2"], s["n2"], [self.nf])[0])
 
-    def forward(self, up: FGrid, cfm: FGrid, impl: str | None = None):
+    def forward(self, up: FGrid, fm: FGrid, impl: str | None = None,
+                raw: bool = False):
         _check_widths([up], (self.nf,), "head site")
-        return FO.head_site_fused(up, cfm, self.w, self.bias, self.aff, 2,
-                                  fm_scale=2, impl=impl)
+        return FO.head_site_fused(up, fm, self.w, self.bias, self.aff, 2,
+                                  fm_scale=1 if raw else 2, emit_raw=raw,
+                                  impl=impl)
 
 
 class SurfHead(nn.Module):
@@ -306,7 +326,9 @@ class EncoderLayer(nn.Module):
 
 class Refinement(nn.Module):
     """One generative level: conv -> U-Net -> upsample-conv -> heads and
-    the occupancy gate, at twice the input resolution."""
+    the occupancy gate, at twice the input resolution. Returns (masked
+    feats, masked heads, new mask, raw f32 heads, unfiltered fine mask),
+    the last two None unless ``levels`` (the level-output form)."""
 
     def __init__(self, widths_in, nf: int, q: bool = False):
         super().__init__()
@@ -322,14 +344,17 @@ class Refinement(nn.Module):
         self.head.load(p, s, dtype)
 
     def forward(self, cur: list, cur_fm: FGrid, impl: str | None = None,
-                ex=_same):
+                ex=_same, levels: bool = False):
         z = self.p1([ex(g) for g in cur], cur_fm, impl=impl)
         zg = self.p2(z, cur_fm, impl=impl, ex=ex)
         # the unfiltered fine mask is the NN-dup of cur_fm: the upconv and
-        # the head site expand it from the coarse grid
-        up = self.up([ex(g) for g in zg], cur_fm, impl=impl)
-        upm, o2m, new_fm = self.head(up, cur_fm, impl=impl)
-        return upm, o2m, ex(new_fm)
+        # the head site expand it from the coarse grid, unless the
+        # level-output form materialises it
+        ffm = FO.upsample2_folded(cur_fm) if levels else None
+        up = self.up([ex(g) for g in zg], cur_fm, ffm, impl=impl)
+        upm, o2m, new_fm, *raw = self.head(up, ffm if levels else cur_fm,
+                                           impl=impl, raw=levels)
+        return upm, o2m, ex(new_fm), raw[0] if levels else None, ffm
 
 
 class SurfacePred(nn.Module):
@@ -357,13 +382,21 @@ class SurfacePred(nn.Module):
 @dataclasses.dataclass
 class FoldedOutput:
     """coarse_out [B, Z8, Y8, X8, 2] f32 (occ logit, sdf); surf_sdf
-    [B, Z, Y, X] f32; surf_mask [B, Z, Y, X] bool; level_active: active
-    voxels per level, coarse to fine (0-d tensors; the last is the
-    surface's)."""
+    [B, Z, Y, X] f32; surf_mask [B, Z, Y, X] bool (zeros in a partial
+    forward); level_active: active voxels per level, coarse to fine, one
+    for the coarse grid and one for each active refinement level (0-d
+    tensors; the last of a whole forward is the surface's); in the
+    level-output form, per active refinement level h, refine_outs
+    [B, z, y, x, 2] f32, the raw (occ logit, sdf) heads at every voxel,
+    and refine_masks_unfilt [B, z, y, x] bool, the unfiltered sites (the
+    children of the previous level's kept voxels); empty lists in the
+    only-surface form."""
     coarse_out: torch.Tensor
     surf_sdf: torch.Tensor
     surf_mask: torch.Tensor
     level_active: list
+    refine_outs: list = dataclasses.field(default_factory=list)
+    refine_masks_unfilt: list = dataclasses.field(default_factory=list)
 
 
 def refine_widths(cfg: SGNNConfig) -> tuple[list, list]:
@@ -388,7 +421,8 @@ def refine_widths(cfg: SGNNConfig) -> tuple[list, list]:
 class GenModelFolded(nn.Module):
     """The serving forward. Weights enter through params.load_jax_params.
     ``surf_pack=False`` takes the summed surface head; ``cfg.quantize_int8``
-    the int8 sites (module docstring).
+    the int8 sites; the forward's arguments pick the form (module
+    docstring).
     """
 
     def __init__(self, cfg: SGNNConfig, surf_pack: bool = True):
@@ -420,10 +454,15 @@ class GenModelFolded(nn.Module):
 
     @torch.no_grad()
     def forward(self, locs: torch.Tensor, feats: torch.Tensor, dims: tuple,
-                batch_size: int = 1, impl: str | None = None, space=None
-                ) -> FoldedOutput:
+                batch_size: int = 1, impl: str | None = None, space=None,
+                num_refine_active: int | None = None, do_surf: bool = True,
+                want_level_outputs: bool = False) -> FoldedOutput:
         """``locs [N, 4]`` (z, y, x, b) rows and ``feats [N, 1]`` TSDF
         values of the active input voxels of a ``dims`` scene.
+
+        ``num_refine_active``: the refinement levels to run (all by
+        default); the surface head runs with ``do_surf`` once all do.
+        ``want_level_outputs``: the level-output form (module docstring).
 
         ``space``: a process group to shard the scene's z over
         (folded_flow.py:126-330, ``sp_axis``): every rank passes the whole
@@ -433,9 +472,19 @@ class GenModelFolded(nn.Module):
         so does every mask a site reads; the trunk runs replicated
         (``sharded_trunk``); every other op is slab-local, and the outputs
         are this rank's z-slabs. Z must divide by 32 times the group's
-        size; the int8 forward is refused (its per-tile scales would be
-        picked on the slab, not on the scene)."""
+        size; the int8 forward and the level outputs are refused (the
+        int8 per-tile scales would be picked on the slab, not on the
+        scene)."""
         cfg, dt = self.cfg, self.dtype
+        L_ref = cfg.num_refine_levels
+        n_active = L_ref if num_refine_active is None else num_refine_active
+        if not 0 <= n_active <= L_ref:
+            raise ValueError(f"num_refine_active {n_active} of {L_ref} "
+                             f"refinement levels")
+        if space is not None and want_level_outputs:
+            raise NotImplementedError(
+                "spatial folded: the level outputs are not sharded; pass "
+                "want_level_outputs=False")
         X = dims[2]
         # level 0 runs at cpad 8 when its widths allow: 16 voxels per row
         cpad0 = 8 if (cfg.input_nf <= 8 and cfg.nf_per_level[0] <= 8
@@ -488,19 +537,31 @@ class GenModelFolded(nn.Module):
         active = [cur_mask.sum()]
 
         # ---- refinement levels
-        L_ref = cfg.num_refine_levels
-        for h, ref in enumerate(self.refinement):
+        out = FoldedOutput(coarse_out, None, None, active)
+        for h, ref in enumerate(self.refinement[:n_active]):
             if cfg.use_skip_sparse:
                 sk = skips[L_ref - h][0]
                 cur = [*cur, sk.with_data(sk.data * cur_fm.data)]
-            upm, o2m, cur_fm = ref(cur, cur_fm, impl=impl, ex=ex)
+            upm, o2m, cur_fm, raw, fm_unfilt = ref(
+                cur, cur_fm, impl=impl, ex=ex, levels=want_level_outputs)
             cur = [upm] * cfg.pass_feats + [o2m] * cfg.pass_occ
             # inside the slab: under sharding the ring holds a neighbour's
             active.append((cur_fm.data[:, 1:-1, ..., ::CPAD] > 0).sum())
+            if want_level_outputs:
+                out.refine_outs.append(FO.unfold(raw).float())
+                out.refine_masks_unfilt.append(
+                    FO.unfold(fm_unfilt)[..., 0] > 0.5)
 
         # ---- surface prediction
-        if cfg.use_skip_sparse:
-            sk = skips[0][0]
-            cur = [*cur, sk.with_data(sk.data * cur_fm.data)]
-        surf, surf_mask = self.surface(cur, cur_fm, impl=impl, ex=ex)
-        return FoldedOutput(coarse_out, surf, surf_mask, active)
+        if do_surf and n_active == L_ref:
+            if cfg.use_skip_sparse:
+                sk = skips[0][0]
+                cur = [*cur, sk.with_data(sk.data * cur_fm.data)]
+            out.surf_sdf, out.surf_mask = self.surface(cur, cur_fm,
+                                                       impl=impl, ex=ex)
+        else:  # the JAX forward's zeros (folded_flow.py:365-367)
+            shape = (batch_size, *skips[0][1].dims)
+            out.surf_sdf = torch.zeros(shape, device=coarse_out.device)
+            out.surf_mask = torch.zeros(shape, dtype=torch.bool,
+                                        device=coarse_out.device)
+        return out

@@ -415,17 +415,22 @@ def upconv_fused(groups: list, cfm: FGrid, ffm: FGrid | None,
 
 def head_site_fused(up: FGrid, fm: FGrid, w: torch.Tensor,
                     bias: torch.Tensor, aff: torch.Tensor, cout: int, *,
-                    fm_scale: int = 1, impl: str | None = None
-                    ) -> tuple[FGrid, FGrid, FGrid]:
+                    fm_scale: int = 1, emit_raw: bool = False,
+                    impl: str | None = None) -> tuple:
     """Refinement tail: [eval-BN + ReLU + mask] -> occ|sdf heads ->
     occupancy gate -> (masked post-BN feats, masked heads, new mask) (K4
-    gate mode; the per-level raw head grid is not produced)."""
+    gate mode), and with ``emit_raw`` the per-level raw f32 head grid
+    (ring unspecified) as a fourth FGrid."""
     if fm.cpad != up.cpad:
         raise ValueError("head_site_fused: mask and grid lane budgets differ")
-    upm, o2m, fmn = K_head.head_gate(up.data, fm.data, w, bias, aff,
-                                     up.cpad, mask_scale=fm_scale, impl=impl)
-    return (up.with_data(upm), FGrid(o2m, up.dims, cout, up.cpad),
-            FGrid(fmn, up.dims, up.cpad, up.cpad))
+    outs = K_head.head_gate(up.data, fm.data, w, bias, aff, up.cpad,
+                            mask_scale=fm_scale, emit_raw=emit_raw,
+                            impl=impl)
+    res = (up.with_data(outs[0]), FGrid(outs[1], up.dims, cout, up.cpad),
+           FGrid(outs[2], up.dims, up.cpad, up.cpad))
+    if emit_raw:
+        res += (FGrid(outs[3], up.dims, cout, up.cpad),)
+    return res
 
 
 def surf_head_fused(groups: list, fm: FGrid, w: torch.Tensor,

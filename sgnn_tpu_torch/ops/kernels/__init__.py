@@ -43,6 +43,49 @@ _COUNTERS = {
 }
 
 
+# the hand-written kernels by their CUDA names (csrc/*.cu; a profiler row
+# of one reads "sgnn::<name><...>"); K4's gate mode with and without the
+# raw heads is one kernel, told apart by the wrappers' counters
+KERNEL_NAMES = {"conv_site_kernel": "K1", "conv_site_q_kernel": "K1q",
+                "downconv_kernel": "K2", "downconv_q_kernel": "K2q",
+                "upconv_kernel": "K3", "upconv_q_kernel": "K3q",
+                "head_gate_kernel": "K4 gate and raw",
+                "head_sum_kernel": "K4 summed", "surf_head_kernel": "K5",
+                "scatter_kernel": "K6", "conv_raw_kernel": "K7",
+                "conv3d_brick_kernel": "K8", "conv3d_any_brick_kernel": "K9",
+                "gather_gemm_kernel": "K10", "tile_amax_kernel": "tile_amax"}
+
+
+# counter name -> the KERNEL_NAMES label of the kernel it counts (each
+# launch it counts is one launch of that kernel)
+COUNTER_LABELS = {
+    "conv_site": "K1", "downconv": "K2", "upconv": "K3",
+    "head_gate": "K4 gate and raw", "head_gate_raw": "K4 gate and raw",
+    "head_sum": "K4 summed", "surf_head": "K5", "scatter": "K6",
+    "conv_raw": "K7", "conv3d_folded": "K8", "conv3d": "K9",
+    "gather_gemm": "K10", "gather_gemm_dx": "K10", "conv_site_q": "K1q",
+    "downconv_q": "K2q", "upconv_q": "K3q", "tile_amax": "tile_amax"}
+
+
+def launches_by_label(counts: dict) -> dict:
+    """Launch counts per counter (launch_counts()) summed per kernel
+    label; labels with no launch left out."""
+    out = {}
+    for k, n in counts.items():
+        if n:
+            out[COUNTER_LABELS[k]] = out.get(COUNTER_LABELS[k], 0) + n
+    return out
+
+
+def kernel_label(name: str) -> str | None:
+    """The KERNEL_NAMES label of a profiler row's CUDA kernel name, or None
+    for a kernel that is not hand-written here."""
+    for k, label in KERNEL_NAMES.items():
+        if f"::{k}<" in name:
+            return label
+    return None
+
+
 def launch_counts() -> dict:
     """Kernel launches per wrapper since the last reset."""
     return {k: getattr(m, a) for k, (m, a) in _COUNTERS.items()}

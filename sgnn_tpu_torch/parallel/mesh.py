@@ -55,8 +55,8 @@ class Groups:
         return self.rank % self.num_space
 
 
-def init_groups(num_data: int, num_space: int = 1,
-                device: str | torch.device | None = None) -> Groups:
+def init_groups(num_data: int, num_space: int,
+                device: str | torch.device) -> Groups:
     """The data and space groups of an initialised process group of
     ``num_data * num_space`` ranks. ``device``: "cpu", "cuda" (one card a
     rank: cuda:rank modulo the cards), or a device every rank shares
@@ -80,11 +80,8 @@ def init_groups(num_data: int, num_space: int = 1,
                                backend=backend)
             if rank // num_space == d:
                 space = g
-    if device is None or str(device) == "cuda":
-        dev = (torch.device("cuda", rank % torch.cuda.device_count())
-               if device is not None else torch.device("cpu"))
-    else:
-        dev = torch.device(device)
+    dev = (torch.device("cuda", rank % torch.cuda.device_count())
+           if str(device) == "cuda" else torch.device(device))
     if dev.type == "cuda":
         torch.cuda.set_device(dev)
     return Groups(data, space, rank, world, dev, num_data, num_space)

@@ -78,7 +78,7 @@ def _timed(fn, dev: torch.device, reps: int) -> tuple[float, float]:
 
 
 def serve_folded(cfg_kw: dict, weights: tuple, locs: np.ndarray,
-                 feats: np.ndarray, dims: tuple, device: str = "cpu",
+                 feats: np.ndarray, dims: tuple, device: str,
                  reps: int = 0, num_space: int | None = None) -> dict:
     """One scene (``locs [N, 4]``, ``feats [N, 1]`` of the GLOBAL
     ``dims``) through ``GenModelFolded`` z-sharded over ``num_space``
@@ -115,7 +115,7 @@ def serve_folded(cfg_kw: dict, weights: tuple, locs: np.ndarray,
 
 def serve_dense(cfg_kw: dict, weights: tuple, locs: np.ndarray,
                 feats: np.ndarray, num_valid: int, num_data: int = 1,
-                training: bool = False, device: str = "cpu",
+                training: bool = False, *, device: str,
                 reps: int = 0) -> dict:
     """One scene's dense-flow forward (``st`` of the GLOBAL dims), z-
     sharded over the space axis of a ``num_data`` x (world / num_data)
@@ -170,7 +170,7 @@ def serve_dense(cfg_kw: dict, weights: tuple, locs: np.ndarray,
 
 
 def serve_scenes(cfg_kw: dict, weights: tuple, scenes: list,
-                 device: str = "cpu") -> dict:
+                 device: str) -> dict:
     """Data-parallel serving: rank r serves ``scenes[r]`` (a scene sample
     dict) through ``SceneInferencer(GenModelFolded)``, with no exchange
     between ranks; returns its surface voxels and values."""
@@ -184,14 +184,14 @@ def serve_scenes(cfg_kw: dict, weights: tuple, scenes: list,
     load_jax_params(model, *weights)
     model.to(g.device)
     K.reset_launch_counts()
-    res = SceneInferencer(model)(scenes[g.rank])
+    res = SceneInferencer(model, want_levels=False)(scenes[g.rank])
     return {"rank": g.rank, "name": res["name"],
             "surf_locs": res["surf_locs"], "surf_sdf": res["surf_sdf"],
             "launches": K.launch_counts()}
 
 
 def train_dp(cfg_kw: dict, weights: tuple, batches: list, lw, lr: float,
-             *, num_refine_active: int, do_surf: bool, device: str = "cpu",
+             *, num_refine_active: int, do_surf: bool, device: str,
              with_metrics: bool = False, reps: int = 0, plain: bool = False,
              noise: float = 0.0) -> dict:
     """``len(batches)`` data-parallel steps, one global collated batch
@@ -255,7 +255,7 @@ def train_dp(cfg_kw: dict, weights: tuple, batches: list, lw, lr: float,
     return res
 
 
-def collectives(case: dict, device: str = "cpu") -> dict:
+def collectives(case: dict, device: str) -> dict:
     """The slice's collectives on one rank of a group spanning every rank,
     on the GLOBAL inputs of ``case`` (numpy), each rank taking its part:
 

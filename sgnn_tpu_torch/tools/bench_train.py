@@ -1,0 +1,190 @@
+"""Training-throughput benchmark on synthetic chunks (port of the JAX
+package's ``tools/bench_train.py``).
+
+Measures whole optimization steps (forward, backward, Adam, the metrics
+cadence) at the reference's training configuration (batch 8, chunks
+128x64x64 at 2 cm, L=4; the reference's train.py:40-64) through the
+port's ``Trainer``: the chunk files, ``SceneDataset``, ``BatchLoader``
+with its worker threads and the trainer's device prefetch, so a loader or
+pipeline change shows here, not only a kernel's. Every level and the
+surface are active from the first step; targets travel as sparse rows in
+f32, and the metrics step comes every 20 iterations (the trainer's
+defaults). Each step is timed on the host clock from the previous step's
+end to its own, each end a fetch of the loss (a synchronize), so a step
+after an epoch's end holds the loader's restart; ``step_ms`` is their
+median and ``chunks_per_sec`` all timed chunks over all timed seconds.
+
+    python -m sgnn_tpu_torch.tools.bench_train [--steps 30]
+        [--batch_size 8] [--execution folded|sparse|dense_flow] [--cpu]
+
+Prints one JSON line {"step_ms": ..., "chunks_per_sec": ..., ...}. Runs on
+the card; ``--cpu`` runs the plain versions on the host. The default
+execution is the port's training CLI's (folded); the JAX tool's is the
+dense flow.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import os
+import tempfile
+import time
+
+import numpy as np
+
+from sgnn_tpu_torch.tools import _common as C
+from sgnn_tpu_torch.utils import profiling as P
+
+NUM_LEVELS = 4
+
+
+def make_chunk(rng, dims=(128, 64, 64), vs=0.02, n_surface=8000):
+    """A synthetic training chunk: ``n_surface`` random input voxels with
+    their target values, a random known grid and ~8% occupied voxels per
+    hierarchy level (real scan chunks' sparsity: a 12-voxel band around
+    room surfaces), the JAX tool's generator draw for draw."""
+    from sgnn_tpu_torch.data import formats as F
+
+    Z, Y, X = dims
+    flat = rng.choice(Z * Y * X, size=n_surface, replace=False)
+    z, rem = flat // (Y * X), flat % (Y * X)
+    y, x = rem // X, rem % X
+    in_locs = np.stack([z, y, x], -1).astype(np.int32)
+    in_sdf = rng.randn(n_surface).astype(np.float32)
+    target = np.full(dims, -np.inf, np.float32)
+    target[z, y, x] = in_sdf
+    known = (rng.rand(*dims) * 3).astype(np.uint8)
+    hier = []
+    for f in (8, 4, 2):
+        hd = (Z // f, Y // f, X // f)
+        g = np.full(hd, -np.inf, np.float32)
+        m = rng.rand(*hd) > 0.92
+        g[m] = rng.randn(int(m.sum())).astype(np.float32)
+        hier.append(g)
+    return F.TrainChunk(in_locs, in_sdf, target, dims, vs,
+                        np.eye(4, dtype=np.float32), known, hier)
+
+
+def write_chunks(root: str, n: int, dims: tuple, seed: int = 0) -> list:
+    """``n`` make_chunk chunks of ``dims`` as .sdfs files under ``root``;
+    chunks smaller than 128x64x64 keep its 8000 input voxels' density."""
+    from sgnn_tpu_torch.data import formats as F
+
+    rng = np.random.RandomState(seed)
+    n_surface = min(8000, int(np.prod(dims)) // 64)
+    files = []
+    for i in range(n):
+        p = os.path.join(root, f"c{i}.sdfs")
+        F.save_train_file(p, make_chunk(rng, dims, n_surface=n_surface))
+        files.append(p)
+    return files
+
+
+def full_level_trainer(files: list, save: str, device, *, dims,
+                       batch_size: int, execution: str, compute_dtype: str):
+    """(Trainer with every level and the surface active, its BatchLoader
+    over ``files``): the JAX tools' training configuration (L=4, full
+    width, lr 1e-3, no checkpoints or prediction dumps)."""
+    from sgnn_tpu_torch import schedules as S
+    from sgnn_tpu_torch.data.capacity import estimate_row_capacities
+    from sgnn_tpu_torch.data.dataset import BatchLoader, SceneDataset
+    from sgnn_tpu_torch.train.loop import TrainOptions, Trainer
+
+    opts = TrainOptions(
+        input_dim=tuple(dims), num_hierarchy_levels=NUM_LEVELS,
+        num_iters_per_level=1, batch_size=batch_size, max_epoch=1000,
+        lr=1e-3, execution=execution, compute_dtype=compute_dtype,
+        ckpt_every=0, save_epoch=0, save=save, device=str(device))
+    trainer = Trainer(opts)
+    trainer.iteration = 10 * NUM_LEVELS  # past the fade-in: all active
+    lw = S.get_loss_weights(trainer.iteration, NUM_LEVELS, 1,
+                            opts.weight_sdf_loss)
+    if S.active_levels(lw) != (NUM_LEVELS - 1, True):
+        raise RuntimeError(f"levels not all active: {S.active_levels(lw)}")
+    ds = SceneDataset(files, 3.0, NUM_LEVELS, sparse_targets=True)
+    target_cap, hier_caps = estimate_row_capacities(files, NUM_LEVELS, 3.0,
+                                                    batch_size)
+    loader = BatchLoader(ds, batch_size, trainer.cfg.input_cap,
+                         shuffle=True, seed=0, target_capacity=target_cap,
+                         hier_capacities=hier_caps)
+    return trainer, loader
+
+
+def parse_args(argv=None):
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--steps", type=int, default=30)
+    ap.add_argument("--warmup", type=int, default=5)
+    ap.add_argument("--batch_size", type=int, default=8)
+    ap.add_argument("--num_chunks", type=int, default=64)
+    ap.add_argument("--execution", default="folded",
+                    choices=["folded", "sparse", "dense_flow"])
+    ap.add_argument("--compute_dtype", default="bfloat16",
+                    choices=["float32", "bfloat16"])
+    ap.add_argument("--no_fuse_train_bn", action="store_true",
+                    help="refused: the composed BN -> op ablation is not "
+                         "ported")
+    ap.add_argument("--dims", type=int, nargs=3, default=[128, 64, 64],
+                    help="chunk dims")
+    C.device_arg(ap)
+    args = ap.parse_args(argv)
+    if args.no_fuse_train_bn:  # the training CLI's refusal
+        ap.error("--fuse_train_bn 0 (the composed BN -> op ablation) is not "
+                 "ported")
+    return args
+
+
+def _timed_steps(args, device, tmp: str) -> tuple:
+    """(seconds of each step after ``--warmup``, the last step's metrics)
+    of ``--warmup`` + ``--steps`` steps on chunks written under ``tmp``."""
+    files = write_chunks(tmp, args.num_chunks, tuple(args.dims))
+    trainer, loader = full_level_trainer(
+        files, os.path.join(tmp, "logs"), device, dims=args.dims,
+        batch_size=args.batch_size, execution=args.execution,
+        compute_dtype=args.compute_dtype)
+    times, metrics = [], None
+    total = args.steps + args.warmup
+    t_prev = time.perf_counter()
+    while len(times) < total:
+        before = len(times)
+        for batch, dev in trainer._prefetch(loader):
+            with_metrics = trainer.iteration % trainer.opts.log_every == 0
+            metrics, _ = trainer.run_step(batch, with_metrics, dev)
+            float(metrics["loss"])
+            t = time.perf_counter()
+            times.append(t - t_prev)
+            t_prev = t
+            if len(times) >= total:
+                break
+        if len(times) == before:
+            raise SystemExit("bench_train: an epoch gave no batch; raise "
+                             "--num_chunks")
+    return times[args.warmup:], metrics
+
+
+def main(argv=None) -> dict:
+    args = parse_args(argv)
+    device = C.device_of(args, "bench_train")
+    with tempfile.TemporaryDirectory(prefix="bench_train_") as tmp:
+        times, metrics = _timed_steps(args, device, tmp)
+    if not times:
+        raise SystemExit("bench_train: no step was timed; raise --steps")
+    steady = np.array(times)
+    res = {
+        "step_ms": float(np.median(steady) * 1e3),
+        "chunks_per_sec": args.batch_size * len(steady) / steady.sum(),
+        "mean_step_ms": float(steady.mean() * 1e3),
+        "p90_step_ms": float(np.percentile(steady, 90) * 1e3),
+        "steps": len(steady),
+        "loss": float(metrics["loss"]),
+        "times_ms": [float(t * 1e3) for t in steady],
+        "execution": args.execution,
+        "peak_memory": P.device_memory_stats(),
+        "device": P.device_entry(device),
+    }
+    print(json.dumps(res))
+    return res
+
+
+if __name__ == "__main__":
+    main()

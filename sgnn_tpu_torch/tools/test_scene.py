@@ -181,8 +181,10 @@ def main(argv=None) -> dict:
                    else tuple(args.dim_round)),
     )
     os.makedirs(args.output, exist_ok=True)
-    stats = run_pipeline(SceneInferencer(model), ds, args.output,
-                         args.truncation, mesh_workers=args.mesh_workers)
+    # the CLI saves the surface alone (tools/test_scene.py:157)
+    stats = run_pipeline(SceneInferencer(model, want_levels=False), ds,
+                         args.output, args.truncation,
+                         mesh_workers=args.mesh_workers)
     times = stats["scene_times"]
     if len(times) > 1:
         print(f"\ndone; mean scene->mesh time {np.mean(times[1:]):.3f}s "

@@ -660,22 +660,17 @@ def test_kernel_entry_points_match_their_bindings():
 
 
 def test_profile_names_are_kernels():
-    """chip_smoke.py sums each hand-written kernel's device time in the
-    profiles by its CUDA name (KERNEL_NAMES): every name there is a
-    __global__ kernel of csrc, each label names one TPU kernel's port (K8
-    and K9 apart), and no kernel of csrc is left out."""
-    import ast
+    """chip_smoke.py's profiles and the tools' attribution sum each
+    hand-written kernel's device time by its CUDA name
+    (ops.kernels.KERNEL_NAMES): every name there is a __global__ kernel of
+    csrc, each label names one TPU kernel's port (K8 and K9 apart), and no
+    kernel of csrc is left out."""
     import re
-    from pathlib import Path
 
+    from sgnn_tpu_torch.ops.kernels import KERNEL_NAMES as names
     from sgnn_tpu_torch.ops.kernels import build
 
     src = "".join(p.read_text() for p in build.sources())
-    tree = ast.parse((Path(__file__).resolve().parents[1]
-                      / "chip_smoke.py").read_text())
-    names = next(ast.literal_eval(n.value) for n in tree.body
-                 if isinstance(n, ast.Assign)
-                 and getattr(n.targets[0], "id", "") == "KERNEL_NAMES")
     kernels = set(re.findall(r"__global__[^;{]*?\b(\w+_kernel)\(", src))
     assert set(names) == kernels
     assert len(set(names.values())) == len(names)

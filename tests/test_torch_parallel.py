@@ -155,7 +155,7 @@ def port(dense_weights, dp_batch, chunks, tmp_path_factory):  # noqa: F811
     d, _ = chunks
     save = tmp_path_factory.mktemp("dp") / "logs"
     return {"ranks4": _POOL.submit(PM.launch, PG.collectives, 4, "gloo",
-                                   (_collective_case(),)),
+                                   (_collective_case(), "cpu")),
             "ranks2": _ranks2(dense_weights, dp_batch),
             "cli": (save, _POOL.submit(train_cli.main, [
                 "--data_path", str(d), "--train_file_list",
@@ -185,19 +185,20 @@ def _ranks2(dense_weights, dp_batch):
     dp_cfg = dict(CFG, execution="dense_flow")
     fold_w = init_params(SGNNConfig(**FOLD_CFG), seed=FOLD_SEED)
     flocs, ffeats = _fold_scene()
-    step = dict(num_refine_active=2, do_surf=True, with_metrics=True)
+    step = dict(num_refine_active=2, do_surf=True, with_metrics=True,
+                device="cpu")
     jobs = [
         ("serve_dense", (DENSE_CFG, dense_weights, locs, feats, n),
-         dict(training=False)),
+         dict(training=False, device="cpu")),
         ("serve_dense", (DENSE_CFG, dense_weights, locs, feats, n),
-         dict(training=True)),
+         dict(training=True, device="cpu")),
         ("train_dp", (dp_cfg, init_params(SGNNConfig(**dp_cfg), seed=3),
                       [dp_batch], LW, LR), step),
         ("train_dp", (dict(CFG, execution="folded"),
                       init_params(SGNNConfig(**CFG), seed=3),
                       [dp_batch, dp_batch], LW, LR), step),
         ("serve_folded", (FOLD_CFG, fold_w, flocs, ffeats,
-                          FOLD_CFG["input_dim"]), {}),
+                          FOLD_CFG["input_dim"], "cpu"), {}),
     ]
     return _POOL.submit(PM.launch, PG.sequence, 2, "gloo", (jobs,))
 
@@ -205,6 +206,7 @@ def _ranks2(dense_weights, dp_batch):
 def _dryrun():
     """The dry run's plan (host forwards) and its jobs on 2 ranks."""
     jobs, info = dryrun_multichip.plan(2)
+    jobs = [(name, a, dict(kw, device="cpu")) for name, a, kw in jobs]
     return PM.launch(PG.sequence, 2, "gloo", (jobs,)), info
 
 
