@@ -143,6 +143,9 @@ where every phase passed prints the two JSON lines at the end):
    each rank's launches as train_launches derives them, ms per step and
    the all-reduces' share; data-parallel serving, a phase-5 room a rank
    through SceneInferencer, bit-equal to the room served in this process;
+   the level-output form z-sharded in f32 (LEVELS_EXPECTED launches a
+   rank), each level's slabs joined against the unsharded level outputs
+   (masks bit-equal, raw heads within 2e-4);
 12. tools: the level-output form of the folded forward (phase 4's weights
    and scene, f32 and bf16): its launches (K4's gate only with the raw
    heads: LEVELS_EXPECTED), its surface against the only-surface form's
@@ -160,7 +163,25 @@ where every phase passed prints the two JSON lines at the end):
    time), bench_kernel (K8 against F.conv3d within 2 bf16 ulps),
    bench_backends (K10's and K8's launches), bench_mesh, bench_e2e
    pipelined and --serial, and bench_train;
-13. the card's name and power limit again, a JSON line of per-kernel
+13. composed: the folded execution's composed BN -> op forms. Serving:
+   each ablation (GenModelFolded's options for the JAX package's
+   SGNN_NO_MASKFUSE, SGNN_NO_UPCONV, SGNN_NO_HEADK, and the last two
+   together) through SceneInferencer on phase 4's weights and first
+   scene, its launches required (ABLATION_EXPECTED), every kernel call of
+   one forward held against its plain version (K1's three-group n1 site
+   over the upsampled grid, K4 at scale 1), its f32 surface against the
+   fused form's (IoU >= 0.999) and its bf16 one against phase 4's bar;
+   device ms per forward of each form beside the fused form's; the int8
+   forward under no_upconv (INT8_NO_UPCONV_EXPECTED, its n1 sites exact).
+   Training at phase 7's configuration with fuse_train_bn off: an f32
+   composed step with kernels against the plain step under phase 7's
+   rule, a bf16 step with its launches required (composed_launches: K7
+   and K6 only) and every K7 call held to its plain version, ms per step
+   and peak memory beside the fused step's; the eval step (training=False,
+   the composed branch) with its launches required and its ms; the
+   training CLI with --fuse_train_bn 0 (finite losses, the epoch's
+   prediction dump);
+14. the card's name and power limit again, a JSON line of per-kernel
    results (launches, error, ms against the plain version and against one
    PyTorch call where one computes the same function, and the card's bound
    for the same work), then the status line {"ok": true, "device": {...}}.
@@ -4056,6 +4077,12 @@ def phase_multi(weights, serve_weights) -> None:
             f"{[int(a) for a in out.level_active]}, {ms:.2f} ms per forward "
             f"(CUDA events, mean of {MULTI_REPS})")
         del out
+    # the level-output form's unsharded reference (f32)
+    out = models["float32"](locs, feats, MULTI_SCENE,
+                            want_level_outputs=True)
+    level_ref = [(o.cpu().numpy(), m.cpu().numpy())
+                 for o, m in zip(out.refine_outs, out.refine_masks_unfilt)]
+    del out
     del models, model
     dcfg = SGNNConfig(compute_dtype="float32", execution="dense_flow",
                       **serve_kw)
@@ -4132,6 +4159,9 @@ def phase_multi(weights, serve_weights) -> None:
         ("serve_scenes", (dict(batch_size=1, occupancy_fractions=FRACTIONS,
                                compute_dtype="bfloat16"), serve_weights,
                           rooms), dict(device="cuda:0")),
+        ("serve_folded", (dict(fkw, compute_dtype="float32"), weights, hl, hf,
+                          MULTI_SCENE), dict(device="cuda:0",
+                                             want_level_outputs=True)),
     ]
     t0 = time.perf_counter()
     res = PM.launch(PG.sequence, n, "gloo", args=(jobs,), timeout_s=600)
@@ -4177,6 +4207,26 @@ def phase_multi(weights, serve_weights) -> None:
         log(f"[multi] z-sharded folded {dt} vs unsharded ({rms:.2f} ms): "
             f"surface {int(mask.sum())} voxels, {msg}; "
             f"{'bit-equal' if bits else 'not bit-equal'}")
+
+    # the level-output form z-sharded: each level's slabs joined against
+    # the unsharded level outputs
+    ranks = [r[8] for r in res]
+    for r in ranks:
+        got = {k: r["launches"][k] for k in FOLDED_PATH + ("head_gate_raw",)}
+        require(all(got[k] == LEVELS_EXPECTED[k] for k in got)
+                and sum(r["launches"].values()) == sum(got.values()),
+                f"sharded level-output forward, rank {r['rank']}: launches "
+                f"{r['launches']}, expected {LEVELS_EXPECTED}")
+    for h, (ro, rm) in enumerate(level_ref):
+        m = np.concatenate([r["refine_masks_unfilt"][h] for r in ranks], 1)
+        o = np.concatenate([r["refine_outs"][h] for r in ranks], 1)
+        require(np.array_equal(m, rm), f"sharded level {h}: the unfiltered "
+                f"mask differs in {int((m != rm).sum())} voxels")
+        require(m.any(), f"level {h} has no sites")
+        err = _multi_close(f"sharded level {h} raw heads", o[m], ro[m])
+        log(f"[multi] z-sharded level-output form float32, level {h}: "
+            f"{int(m.sum())} unfiltered sites bit-equal to the unsharded "
+            f"form's, max |head diff| there {err:.3e}")
 
     # z-sharded dense-flow serving
     ranks = [r[2] for r in res]
@@ -4503,6 +4553,251 @@ def phase_tools(results: dict, weights, card: str, train_log: str) -> None:
         f"{card}")
 
 
+# ----------------------------------------------------------------- phase 13
+#
+# the folded execution's composed BN -> op forms: the serving ablations
+# (GenModelFolded's options for the JAX package's SGNN_NO_MASKFUSE,
+# SGNN_NO_UPCONV and SGNN_NO_HEADK, sgnn_tpu/models/folded_flow.py:254-350)
+# and the training forward's composed branch (fuse_train_bn=False, and
+# every training=False forward: the eval step, the epoch's prediction dump)
+
+ABLATION_FORMS = {"no_maskfuse": dict(mask_fuse=False),
+                  "no_upconv": dict(upconv=False),
+                  "no_headk": dict(head_kernel=False),
+                  "no_upconv+no_headk": dict(upconv=False,
+                                             head_kernel=False)}
+# launches per forward, derived from the code as EXPECTED: any ablation
+# materialises the fine mask (K3 takes it, K4's gate reads it at scale 1);
+# no_upconv adds one K1 site a level over the three upsampled groups
+# (37 + 3) and drops K3; no_headk drops the gated head (K4) and the
+# multi-scale surface head (K5) for composed ones
+_NO_UPCONV = dict(conv_site=EXPECTED["conv_site"] + 3, upconv=0)
+_NO_HEADK = dict(head_gate=0, surf_head=0)
+ABLATION_EXPECTED = {"no_maskfuse": EXPECTED,
+                     "no_upconv": dict(EXPECTED, **_NO_UPCONV),
+                     "no_headk": dict(EXPECTED, **_NO_HEADK),
+                     "no_upconv+no_headk": dict(EXPECTED, **_NO_UPCONV,
+                                                **_NO_HEADK)}
+# no_upconv under int8: the n1 sites run exact (the JAX forward passes them
+# no quantize, folded_flow.py:265-266), the other 37 / 11 sites int8, each
+# after one tile_amax (37 + 11 = 48), and no upsample site
+INT8_NO_UPCONV_EXPECTED = dict(INT8_EXPECTED, conv_site=3, upconv_q=0,
+                               tile_amax=INT8_EXPECTED["tile_amax"] - 3)
+
+
+def composed_launches(cfg, training: bool = True) -> dict:
+    """Kernel launches of one full-level step of the composed training
+    forward (or with ``training`` False of one eval step), from the code
+    (models/folded_train.py): K6 scatters the input; every 3^3 conv is one
+    K7 forward launch per input group: the encoder's p1 and two residual
+    convs a level, each refinement level's p1 groups, its U-Net (two
+    convs at each of 3 levels) and its n1 over the three upsampled groups,
+    the surface's p1 groups and U-Net; in the backward one input-gradient
+    launch each but the encoder's first p1, whose input is the scatter's
+    grid; nothing else."""
+    from sgnn_tpu_torch.models.folded_flow import refine_widths
+
+    L = cfg.num_hierarchy_levels
+    ref_w, surf_w = refine_widths(cfg)
+    unet = 2 * 3
+    fwd = (3 * (L - 1) + sum(len(w) + unet + 3 for w in ref_w)
+           + len(surf_w) + unet)
+    want = dict.fromkeys(EXPECTED, 0)
+    want.update(scatter=1, conv_raw=fwd + (fwd - 1 if training else 0))
+    return want
+
+
+def _check_path(tag: str, what: str, run, want: dict) -> None:
+    """``run()`` once counted, its launches required to be ``want``; then
+    once under MainPathCheck, every kernel call held to its plain
+    version."""
+    from sgnn_tpu_torch.ops import kernels as K
+
+    K.reset_launch_counts()
+    run()
+    counts = K.launch_counts()
+    log(f"[{tag}] {what}: launches { {k: v for k, v in counts.items() if v} }"
+        f" (expected { {k: v for k, v in want.items() if v} })")
+    require(counts == want, f"{what}: launches {counts}, expected {want}")
+    with MainPathCheck() as chk:
+        run()
+    for name, st in chk.stats.items():
+        if st["calls"] or want[name]:
+            log(f"[{tag}] {what}, {name}: {st['calls']} calls held to the "
+                f"plain version, max |kernel - plain| {st['err']:.3e} (at "
+                f"most {st['ratio']:.2f} of tol), gate flips {st['flips']}")
+        require(st["calls"] == want[name],
+                f"{what}: {name} {st['calls']} checked calls, expected "
+                f"{want[name]}")
+
+
+def phase_composed(weights) -> None:
+    """Phase 13 (module docstring)."""
+    import dataclasses
+
+    from sgnn_tpu_torch.config import SGNNConfig
+    from sgnn_tpu_torch.infer import SceneInferencer, synthetic_scene
+    from sgnn_tpu_torch.models.folded_flow import GenModelFolded
+    from sgnn_tpu_torch.models.folded_train import GenModelFoldedTrain
+    from sgnn_tpu_torch.params import init_params, load_jax_params
+    from sgnn_tpu_torch.tools import train as train_cli
+    from sgnn_tpu_torch.train import step as TS
+
+    t_phase = time.perf_counter()
+    cfg = SGNNConfig(input_dim=SCENE, batch_size=1,
+                     occupancy_fractions=FRACTIONS, compute_dtype="bfloat16")
+    cfgs = {"bfloat16": cfg,
+            "float32": dataclasses.replace(cfg, compute_dtype="float32")}
+    s0 = synthetic_scene(SCENE, seed=0, truncation=cfg.truncation)
+    locs, feats = _rows(s0)
+
+    def build(c, **opts):
+        m = GenModelFolded(c, **opts).cuda()
+        load_jax_params(m, *weights)
+        return m
+
+    # the serving ablations on phase 4's weights and first scene
+    fused = {dt: build(c) for dt, c in cfgs.items()}
+    ref = {dt: SceneInferencer(m, want_levels=False)(s0)
+           for dt, m in fused.items()}
+    models = {"fused": fused["bfloat16"]}
+    for name, opts in ABLATION_FORMS.items():
+        m = models[name] = build(cfg, **opts)
+        infer = SceneInferencer(m, want_levels=False)
+        _check_path("composed", f"serving {name} bfloat16 forward",
+                    lambda: infer(s0), ABLATION_EXPECTED[name])
+        got = {"bfloat16": infer(s0),
+               "float32": SceneInferencer(build(cfgs["float32"], **opts),
+                                          want_levels=False)(s0)}
+        iou, diff, scale = _surface_agreement(got["float32"], ref["float32"])
+        log(f"[composed] serving {name} float32 vs the fused form: IoU "
+            f"{iou:.5f}, max |sdf diff| on the common surface "
+            f"{diff.max():.3e} (scale {scale:.3e})")
+        require(iou >= MIN_IOU_F32 and diff.max() <= MAX_SDF_REL_F32 * scale,
+                f"{name}: f32 surface IoU {iou}, sdf diff {diff.max()}")
+        iou16, _, _ = _surface_agreement(got["bfloat16"], ref["bfloat16"])
+        log(f"[composed] serving {name} bfloat16 vs the fused form: surface "
+            f"{len(got['bfloat16']['surf_locs'])} vs "
+            f"{len(ref['bfloat16']['surf_locs'])} voxels, IoU {iou16:.5f}")
+        require(iou16 >= MIN_IOU_BF16,
+                f"{name}: bf16 surface IoU {iou16} < {MIN_IOU_BF16}")
+    del fused
+    # each form's device time per forward (torch.profiler: the forward's
+    # host pace sets its CUDA-event time) and its CUDA-event time, in
+    # turns: what K4's in-register fine mask, K3, and K4's gate with K5
+    # each save on this card
+    dev, wall = {}, {}
+    for name in ["fused", *ABLATION_FORMS, "fused"]:
+        m = models[name]
+
+        def fwd():
+            return m(locs, feats, SCENE)
+        prof, _ = _P().profile_window(fwd, "cuda")
+        d = _P().attribution(prof)["device_ms"]
+        require(isinstance(d, float), f"{name}: no device events profiled")
+        dev.setdefault(name, []).append(d)
+        wall.setdefault(name, []).append(_P().cuda_ms(fwd, "cuda", 3))
+    mean = {k: float(np.mean(v)) for k, v in dev.items()}
+    for k in dev:
+        log(f"[composed] bfloat16 forward, {k}: device time "
+            f"{' '.join(f'{t:.3f}' for t in dev[k])} ms (torch.profiler); "
+            f"CUDA events {' '.join(f'{t:.2f}' for t in wall[k])} ms "
+            f"(mean of 3)")
+    log(f"[composed] device time saved per forward on this card: K4's "
+        f"in-register fine mask {mean['no_maskfuse'] - mean['fused']:.3f} "
+        f"ms, K3 {mean['no_upconv'] - mean['no_maskfuse']:.3f} ms, K4's "
+        f"gate and K5 {mean['no_headk'] - mean['no_maskfuse']:.3f} ms")
+    del models
+    q = build(dataclasses.replace(cfg, quantize_int8=True), upconv=False)
+    qi = SceneInferencer(q, want_levels=False)
+    _check_path("composed", "serving int8 no_upconv bfloat16 forward",
+                lambda: qi(s0), INT8_NO_UPCONV_EXPECTED)
+    del q, qi
+
+    # the composed training forward at phase 7's configuration
+    cfg32 = SGNNConfig(input_dim=TRAIN_DIMS, batch_size=TRAIN_BATCH,
+                       compute_dtype="float32", fuse_train_bn=False)
+    cfg16 = dataclasses.replace(cfg32, compute_dtype="bfloat16")
+    L, B = cfg32.num_hierarchy_levels, TRAIN_BATCH
+    with tempfile.TemporaryDirectory() as tmp:
+        files, batch = _train_batch("composed", tmp, cfg32)
+        dev = TS.to_device(batch, "cuda")
+        tw = init_params(cfg32, seed=0)
+        lw = np.ones(L + 1, np.float32)
+        _f32_steps("composed", lambda: GenModelFoldedTrain(cfg32), tw, dev,
+                   lw)
+        step_ms, peaks = {}, {}
+        for label, fuse in (("composed", False), ("fused", True)):
+            model = GenModelFoldedTrain(dataclasses.replace(
+                cfg16, fuse_train_bn=fuse)).cuda()
+            load_jax_params(model, *tw)
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            if fuse:
+                _step(model, dev, lw)
+            else:
+                _check_path("composed", "bfloat16 composed train step",
+                            lambda: _step(model, dev, lw),
+                            composed_launches(cfg16))
+            peaks[label] = torch.cuda.max_memory_allocated()
+            step_ms[label] = _step_ms("composed", f"one bfloat16 {label} "
+                                      f"step", model, dev, lw, peaks[label],
+                                      plain=False)["kernels"]
+            del model
+        log(f"[composed] bfloat16 step at batch {B}: composed "
+            f"{step_ms['composed']:.1f} ms, peak "
+            f"{peaks['composed'] / 2**20:.1f} MiB; fused "
+            f"{step_ms['fused']:.1f} ms, peak "
+            f"{peaks['fused'] / 2**20:.1f} MiB")
+
+        # the eval form: the default (fused) model's eval step
+        model = GenModelFoldedTrain(dataclasses.replace(
+            cfg16, fuse_train_bn=True)).cuda()
+        load_jax_params(model, *tw)
+
+        def ev():
+            m = TS.eval_step(model, dev, lw, num_refine_active=L - 1,
+                             do_surf=True)
+            torch.cuda.synchronize()
+            return m
+        _check_path("composed", "bfloat16 eval step (training=False)", ev,
+                    composed_launches(cfg16, training=False))
+        m = ev()
+        require(np.isfinite(float(m["loss"])), f"eval loss {m['loss']}")
+        ev_ms = _P().cuda_ms(ev, "cuda", 3)
+        log(f"[composed] bfloat16 eval step: loss {float(m['loss']):.5f}, "
+            f"{ev_ms:.1f} ms (CUDA events, mean of 3) beside the fused "
+            f"train step's {step_ms['fused']:.1f} ms")
+        del model
+
+        # the training CLI with --fuse_train_bn 0: two epochs, the second
+        # ending at full level, so that its prediction dump (the eval
+        # form) runs
+        lst = os.path.join(tmp, "all.txt")
+        with open(lst, "w") as fh:
+            fh.write("\n".join(os.path.basename(f) for f in files) + "\n")
+        save = os.path.join(tmp, "logs_composed")
+        t0 = time.perf_counter()
+        trainer = train_cli.main([
+            "--data_path", tmp, "--train_file_list", lst, "--save", save,
+            "--compute_dtype", "bfloat16", "--batch_size", str(B),
+            "--num_iters_per_level", "1", "--fuse_train_bn", "0",
+            "--max_steps", str(SECONDARY_TRAIN_STEPS)])
+        losses = [loss for _, loss in trainer.loss_history]
+        meshes = sorted(os.path.relpath(os.path.join(d, f), save)
+                        for d, _, fs in os.walk(save) for f in fs
+                        if f.endswith(".ply"))
+        log(f"[composed] CLI --fuse_train_bn 0: {len(losses)} steps in "
+            f"{time.perf_counter() - t0:.1f} s; losses "
+            f"{' '.join(f'{v:.4f}' for v in losses)}; {len(meshes)} "
+            f"prediction PLYs ({meshes[:3]} ...)")
+        require(not trainer.cfg.fuse_train_bn, "the CLI trained fused")
+        require(len(losses) == SECONDARY_TRAIN_STEPS
+                and np.isfinite(losses).all(), f"losses {losses}")
+        require(len(meshes) > 0, "the composed CLI wrote no predictions")
+    log(f"[composed] the phase took {time.perf_counter() - t_phase:.1f} s")
+
+
 # --------------------------------------------------------------------- main
 
 
@@ -4529,6 +4824,7 @@ def main() -> int:
         phase_drive(device["card"], serve_weights)
         phase_multi(weights, serve_weights)
         phase_tools(results, weights, device["card"], train_log)
+        phase_composed(weights)
     except SmokeError as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1

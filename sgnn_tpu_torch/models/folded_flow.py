@@ -13,7 +13,7 @@ forms, as there:
   level's unfiltered fine mask is ``upsample2_folded`` of the coarse one,
   K3 takes it as given, K4's gate reads it at scale 1 and also writes the
   raw f32 head grid, and ``FoldedOutput`` carries each active level's raw
-  heads and mask (not under ``space``).
+  heads and mask (under ``space``, this rank's z-slab of them).
 
 ``num_refine_active`` < all levels or ``do_surf=False`` gives a partial
 forward (:314): it stops after that many refinement levels, and the
@@ -21,10 +21,11 @@ surface grids come back as zeros.
 
 The surface head is the multi-scale packed head (``surf_head_packed``,
 K5) over the surface U-Net's groups at their native resolutions;
-``GenModelFolded(cfg, surf_pack=False)`` builds the counterpart of the
-JAX package's ``SGNN_NO_SURFPACK`` branch instead: the groups upsampled
-to full resolution and the summed head site (``surf_head_fused``, K4
-summed mode).
+``GenModelFolded``'s ablation options build the counterparts of the JAX
+package's ``SGNN_NO_SURFPACK``, ``SGNN_NO_UPCONV``, ``SGNN_NO_HEADK`` and
+``SGNN_NO_MASKFUSE`` branches (its docstring; ``ablations_from_env`` reads
+the variables for the CLIs): each takes a fused kernel out and puts the
+composed ops back.
 
 ``cfg.quantize_int8`` serves every conv, down and upsample site in its
 int8 mode (K1-K3 with ``quantize=True``: int8 weights with per-column
@@ -40,6 +41,7 @@ JAX package's record/replay weight stream has no counterpart here.
 from __future__ import annotations
 
 import dataclasses
+import os
 
 import numpy as np
 import torch
@@ -53,6 +55,10 @@ from sgnn_tpu_torch.ops.folded import MAXC, FGrid
 from sgnn_tpu_torch.parallel import comm
 
 CPAD = 16  # lane budget of every level but the encoder's first
+
+
+def _same(g: FGrid) -> FGrid:
+    return g
 
 
 def _check_widths(groups: list, widths: tuple, site: str) -> None:
@@ -149,18 +155,18 @@ class UpSite(_WeightedSite):
         self.aff.copy_(FO.prep_affines(*bn, self.widths))
 
     def forward(self, groups: list, cfm: FGrid, ffm: FGrid | None = None,
-                impl: str | None = None) -> FGrid:
+                impl: str | None = None, ex=_same) -> FGrid:
         _check_widths(groups, self.widths, "up site")
-        return FO.upconv_fused(groups, cfm, ffm, self.w, self.cout,
-                               aff=self.aff, quantize=self.quantize,
-                               ws=self.ws, impl=impl)
+        return FO.upconv_fused([ex(g) for g in groups], cfm, ffm,
+                               self.w, self.cout, aff=self.aff,
+                               quantize=self.quantize, ws=self.ws, impl=impl)
 
 
 class HeadSite(nn.Module):
     """n2 BN + ReLU + mask, occ|sdf heads and the occupancy gate (kernel
     K4, gate mode): the level mask is the coarse level's, expanded in
-    place, or with ``raw`` the fine one, and the raw f32 heads come out
-    too."""
+    place (``fm_scale`` 2), or the fine one (1); with ``raw`` the raw f32
+    heads come out too (else None)."""
 
     def __init__(self, nf: int):
         super().__init__()
@@ -177,12 +183,12 @@ class HeadSite(nn.Module):
         self.bias.copy_(FO.prep_bias(b2))
         self.aff.copy_(FO.prep_affines(p["n2"], s["n2"], [self.nf])[0])
 
-    def forward(self, up: FGrid, fm: FGrid, impl: str | None = None,
-                raw: bool = False):
+    def forward(self, up: FGrid, fm: FGrid, fm_scale: int, raw: bool,
+                impl: str | None = None) -> tuple:
         _check_widths([up], (self.nf,), "head site")
-        return FO.head_site_fused(up, fm, self.w, self.bias, self.aff, 2,
-                                  fm_scale=1 if raw else 2, emit_raw=raw,
-                                  impl=impl)
+        outs = FO.head_site_fused(up, fm, self.w, self.bias, self.aff, 2,
+                                  fm_scale=fm_scale, emit_raw=raw, impl=impl)
+        return outs if raw else (*outs, None)
 
 
 class SurfHead(nn.Module):
@@ -224,18 +230,83 @@ class BNFolded(nn.Module):
         for name in ("mean", "inv", "bias"):
             self.register_buffer(name, torch.zeros(c))
 
-    def load(self, params: dict, stats: dict) -> None:
+    def load(self, params: dict, stats: dict, off: int = 0) -> None:
         c = self.mean.shape[0]
         for buf, v in zip((self.mean, self.inv, self.bias),
-                          FO.bn_eval_constants(params, stats, c)):
+                          FO.bn_eval_constants(params, stats, c, off)):
             buf.copy_(v)
 
     def forward(self, fg: FGrid, fm: FGrid) -> FGrid:
         return FO.bn_folded(fg, fm, self.mean, self.inv, self.bias)
 
 
-def _same(g: FGrid) -> FGrid:
-    return g
+class BNGroups(nn.Module):
+    """Eval-mode BN + ReLU over grouped grids, each group with its slice
+    of the BN's channels (_bn_groups, folded_flow.py:47)."""
+
+    def __init__(self, widths):
+        super().__init__()
+        self.widths = tuple(widths)
+        self.bns = nn.ModuleList(BNFolded(c) for c in self.widths)
+
+    def load(self, params: dict, stats: dict) -> None:
+        off = 0
+        for bn, c in zip(self.bns, self.widths):
+            bn.load(params, stats, off)
+            off += c
+
+    def forward(self, groups: list, fm: FGrid) -> list:
+        _check_widths(groups, self.widths, "BN groups")
+        return [bn(g, fm) for bn, g in zip(self.bns, groups)]
+
+
+class UpComposed(nn.Module):
+    """SGNN_NO_UPCONV's generative upsample (folded_flow.py:262-266): p3 BN
+    per coarse group, each group upsampled 2x, then one conv site (K1)
+    over the upsampled groups on the given fine mask, without an affine
+    and exact under int8 too (the JAX forward passes it no quantize)."""
+
+    def __init__(self, widths, cout: int):
+        super().__init__()
+        self.bn = BNGroups(widths)
+        self.conv = ConvSite(widths, cout)
+
+    def load(self, w27, bn: tuple, dtype: torch.dtype) -> None:
+        self.bn.load(*bn)
+        self.conv.load(w27, dtype)
+
+    def forward(self, groups: list, cfm: FGrid, ffm: FGrid,
+                impl: str | None = None, ex=_same) -> FGrid:
+        ups = [ex(FO.upsample2_folded(g))
+               for g in self.bn(groups, cfm)]
+        return self.conv(ups, ffm, impl=impl)
+
+
+class HeadComposed(nn.Module):
+    """SGNN_NO_HEADK's refinement tail (folded_flow.py:276-282): n2 BN, the
+    occ|sdf heads as one lane GEMM in f32, the occupancy gate times the
+    fine mask, and the masked outputs; the raw heads are that GEMM's."""
+
+    def __init__(self, nf: int):
+        super().__init__()
+        self.bn = BNFolded(nf)
+        self.register_buffer("w", torch.zeros(nf, 2))
+        self.register_buffer("bias", torch.zeros(MAXC))
+
+    def load(self, p: dict, s: dict, dtype: torch.dtype) -> None:
+        self.bn.load(p["n2"], s["n2"])
+        self.w.copy_(FO.prep_linear(np.concatenate(
+            [p["linear"]["weight"], p["linearsdf"]["weight"]], 1), dtype))
+        self.bias.copy_(FO.prep_bias(np.concatenate(
+            [p["linear"]["bias"], p["linearsdf"]["bias"]])))
+
+    def forward(self, up: FGrid, fm: FGrid, fm_scale: int, raw: bool,
+                impl: str | None = None) -> tuple:
+        if fm_scale != 1:
+            raise ValueError("composed head: needs the fine mask")
+        upm, o2m, new_fm, out2 = FO.head_gate_composed(
+            self.bn(up, fm), fm, self.w, self.bias)
+        return upm, o2m, new_fm, out2 if raw else None
 
 
 class ResBlock(nn.Module):
@@ -328,14 +399,21 @@ class Refinement(nn.Module):
     """One generative level: conv -> U-Net -> upsample-conv -> heads and
     the occupancy gate, at twice the input resolution. Returns (masked
     feats, masked heads, new mask, raw f32 heads, unfiltered fine mask),
-    the last two None unless ``levels`` (the level-output form)."""
+    the last two None unless ``levels`` (the level-output form).
+    ``upconv`` / ``head_kernel`` False: the composed sites of the JAX
+    package's SGNN_NO_UPCONV / SGNN_NO_HEADK; any of those or
+    ``mask_fuse`` False (SGNN_NO_MASKFUSE) materialises the fine mask."""
 
-    def __init__(self, widths_in, nf: int, q: bool = False):
+    def __init__(self, widths_in, nf: int, q: bool = False,
+                 upconv: bool = True, head_kernel: bool = True,
+                 mask_fuse: bool = True):
         super().__init__()
         self.p1 = ConvSite(widths_in, nf, quantize=q)
         self.p2 = UNet(nf, q=q)
-        self.up = UpSite([nf] * 3, nf, quantize=q)
-        self.head = HeadSite(nf)
+        self.up = (UpSite([nf] * 3, nf, quantize=q) if upconv
+                   else UpComposed([nf] * 3, nf))
+        self.head = HeadSite(nf) if head_kernel else HeadComposed(nf)
+        self.fuse_mask = upconv and head_kernel and mask_fuse
 
     def load(self, p: dict, s: dict, dtype: torch.dtype) -> None:
         self.p1.load(p["p1"], dtype)
@@ -348,23 +426,31 @@ class Refinement(nn.Module):
         z = self.p1([ex(g) for g in cur], cur_fm, impl=impl)
         zg = self.p2(z, cur_fm, impl=impl, ex=ex)
         # the unfiltered fine mask is the NN-dup of cur_fm: the upconv and
-        # the head site expand it from the coarse grid, unless the
-        # level-output form materialises it
-        ffm = FO.upsample2_folded(cur_fm) if levels else None
-        up = self.up([ex(g) for g in zg], cur_fm, ffm, impl=impl)
-        upm, o2m, new_fm, *raw = self.head(up, ffm if levels else cur_fm,
-                                           impl=impl, raw=levels)
-        return upm, o2m, ex(new_fm), raw[0] if levels else None, ffm
+        # the head site expand it from the coarse grid, unless the level
+        # outputs or an ablation materialise it (folded_flow.py:254-260)
+        fuse = self.fuse_mask and not levels
+        ffm = None if fuse else ex(FO.upsample2_folded(cur_fm))
+        up = self.up(zg, cur_fm, ffm, impl=impl, ex=ex)
+        upm, o2m, new_fm, raw = self.head(up, cur_fm if fuse else ffm,
+                                          2 if fuse else 1, levels,
+                                          impl=impl)
+        return upm, o2m, ex(new_fm), raw, ffm
 
 
 class SurfacePred(nn.Module):
-    """conv -> U-Net -> surface head; returns (sdf, mask) [B, Z, Y, X]."""
+    """conv -> U-Net -> surface head; returns (sdf, mask) [B, Z, Y, X].
+    The head is the multi-scale one (``pack``), the summed one, or with
+    ``head_kernel`` False (SGNN_NO_HEADK) the composed one, which the
+    JAX package takes over the packed one too (folded_flow.py:322)."""
 
-    def __init__(self, widths_in, nf: int, pack: bool, q: bool = False):
+    def __init__(self, widths_in, nf: int, pack: bool, q: bool = False,
+                 head_kernel: bool = True):
         super().__init__()
         self.p1 = ConvSite(widths_in, nf, quantize=q)
         self.p2 = UNet(nf, q=q)
-        self.head = SurfHead([nf] * 3, pack)
+        self.head = (SurfHead([nf] * 3, pack) if head_kernel
+                     else SurfHeadComposed([nf] * 3))
+        self.defer = pack and head_kernel
 
     def load(self, p: dict, s: dict, dtype: torch.dtype) -> None:
         self.p1.load(p["p1"], dtype)
@@ -374,9 +460,30 @@ class SurfacePred(nn.Module):
     def forward(self, cur: list, cur_fm: FGrid, impl: str | None = None,
                 ex=_same):
         z = self.p1([ex(g) for g in cur], cur_fm, impl=impl)
-        groups = self.p2(z, cur_fm, impl=impl, defer=self.head.pack, ex=ex)
+        groups = self.p2(z, cur_fm, impl=impl, defer=self.defer, ex=ex)
         # the heads read inside the slab only (folded_flow.py:90)
         return self.head(groups, cur_fm, impl=impl)
+
+
+class SurfHeadComposed(nn.Module):
+    """SGNN_NO_HEADK's surface tail (folded_flow.py:334-350): p3 BN per
+    full-resolution group, each group's rows of the linear head as a lane
+    GEMM in f32, summed in group order, plus the bias -> (sdf, mask)."""
+
+    def __init__(self, widths):
+        super().__init__()
+        self.bn = BNGroups(widths)
+        self.register_buffer("w", torch.zeros(sum(widths), 1))
+        self.register_buffer("bias", torch.zeros(MAXC))
+
+    def load(self, p: dict, s: dict, dtype: torch.dtype) -> None:
+        self.bn.load(p["p3"], s["p3"])
+        self.w.copy_(FO.prep_linear(p["linear"]["weight"], dtype))
+        self.bias.copy_(FO.prep_bias(p["linear"]["bias"]))
+
+    def forward(self, groups: list, fm: FGrid, impl: str | None = None):
+        out = FO.linear_sum_folded(self.bn(groups, fm), self.w, self.bias)
+        return FO.unfold(out)[..., 0], FO.unfold(fm)[..., 0] > 0.5
 
 
 @dataclasses.dataclass
@@ -418,14 +525,41 @@ def refine_widths(cfg: SGNNConfig) -> tuple[list, list]:
     return levels[:-1], levels[-1]
 
 
+# the JAX package's serving ablations, read from the environment where it
+# builds the folded forward, and the GenModelFolded option each turns off
+ABLATIONS = {"SGNN_NO_SURFPACK": "surf_pack", "SGNN_NO_UPCONV": "upconv",
+             "SGNN_NO_HEADK": "head_kernel", "SGNN_NO_MASKFUSE": "mask_fuse"}
+
+
+def ablations_from_env(environ=None) -> dict:
+    """GenModelFolded's ablation options from ``environ`` (os.environ by
+    default): an option is off where its variable is set non-empty."""
+    env = os.environ if environ is None else environ
+    return {opt: not env.get(var) for var, opt in ABLATIONS.items()}
+
+
 class GenModelFolded(nn.Module):
     """The serving forward. Weights enter through params.load_jax_params.
-    ``surf_pack=False`` takes the summed surface head; ``cfg.quantize_int8``
-    the int8 sites; the forward's arguments pick the form (module
-    docstring).
+    ``cfg.quantize_int8`` serves the int8 sites; the forward's arguments
+    pick the form (module docstring). The ablations take one fused kernel
+    out and put the JAX package's composed ops back (ABLATIONS,
+    folded_flow.py:254-350):
+
+    - ``surf_pack=False``: the summed surface head (K4) over the surface
+      U-Net's groups upsampled to full resolution, instead of K5;
+    - ``mask_fuse=False``: the fine mask of each level materialised, K3
+      given it, K4's gate reading it at scale 1;
+    - ``upconv=False``: that, and the p3 BN per group, each group
+      upsampled, one K1 site over the three upsampled groups (exact under
+      int8) instead of K3;
+    - ``head_kernel=False``: that fine mask, the n2 BN, heads and gate
+      composed instead of K4, and the composed surface head (per-group BN
+      and linear heads over full-resolution groups) instead of K5 or K4.
     """
 
-    def __init__(self, cfg: SGNNConfig, surf_pack: bool = True):
+    def __init__(self, cfg: SGNNConfig, surf_pack: bool = True,
+                 upconv: bool = True, head_kernel: bool = True,
+                 mask_fuse: bool = True):
         super().__init__()
         self.cfg = cfg
         self.dtype = getattr(torch, cfg.compute_dtype)
@@ -437,9 +571,11 @@ class GenModelFolded(nn.Module):
         )
         self.trunk = DenseTrunk(cfg)
         ref_w, surf_w = refine_widths(cfg)
-        self.refinement = nn.ModuleList(Refinement(w, cfg.nf, q8)
-                                        for w in ref_w)
-        self.surface = SurfacePred(surf_w, cfg.nf, surf_pack, q8)
+        self.refinement = nn.ModuleList(
+            Refinement(w, cfg.nf, q8, upconv, head_kernel, mask_fuse)
+            for w in ref_w)
+        self.surface = SurfacePred(surf_w, cfg.nf, surf_pack, q8,
+                                   head_kernel)
 
     def load(self, params: dict, stats: dict) -> None:
         dt = self.dtype
@@ -471,20 +607,16 @@ class GenModelFolded(nn.Module):
         its inputs' z ring from the neighbours (``halo_exchange_z``), and
         so does every mask a site reads; the trunk runs replicated
         (``sharded_trunk``); every other op is slab-local, and the outputs
-        are this rank's z-slabs. Z must divide by 32 times the group's
-        size; the int8 forward and the level outputs are refused (the
-        int8 per-tile scales would be picked on the slab, not on the
-        scene)."""
+        are this rank's z-slabs, the level outputs too (each level's raw
+        heads and unfiltered mask inside the slab). Z must divide by 32
+        times the group's size; the int8 forward is refused (its per-tile
+        scales would be picked on the slab, not on the scene)."""
         cfg, dt = self.cfg, self.dtype
         L_ref = cfg.num_refine_levels
         n_active = L_ref if num_refine_active is None else num_refine_active
         if not 0 <= n_active <= L_ref:
             raise ValueError(f"num_refine_active {n_active} of {L_ref} "
                              f"refinement levels")
-        if space is not None and want_level_outputs:
-            raise NotImplementedError(
-                "spatial folded: the level outputs are not sharded; pass "
-                "want_level_outputs=False")
         X = dims[2]
         # level 0 runs at cpad 8 when its widths allow: 16 voxels per row
         cpad0 = 8 if (cfg.input_nf <= 8 and cfg.nf_per_level[0] <= 8

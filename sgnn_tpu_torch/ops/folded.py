@@ -334,6 +334,12 @@ def prep_bias(b) -> torch.Tensor:
     return nnf.pad(_f32(b), (0, MAXC - len(b)))
 
 
+def prep_linear(W, dtype: torch.dtype) -> torch.Tensor:
+    """A linear head [cin, cout] as f32 holding values rounded to dtype:
+    the composed heads' operand (``linear_folded``)."""
+    return _rounded(_f32(W), dtype)
+
+
 def prep_affines(params: dict, stats: dict, widths: list) -> torch.Tensor:
     """Per-group eval-BN affines of a BN over concat(groups) -> [G, 2, 16]."""
     out = torch.zeros(len(widths), 2, MAXC)
@@ -649,24 +655,20 @@ def bn_folded_train(params: dict, stats: dict, fg: FGrid, fm: FGrid, *,
 
 
 def train_affine(params: dict, stats: dict, fg: FGrid, fm: FGrid, *,
-                 off: int = 0, training: bool = True, group=None):
-    """One group's BN as an affine (a, b [cpad] f32) and its new running
-    stats (_train_affine:1430): batch moments (over ``group``'s ranks)
-    when training, else the running stats (the eval affine, stats
-    unchanged)."""
+                 off: int = 0, group=None):
+    """One group's batch-stats BN as an affine (a, b [cpad] f32) and its
+    new running stats (_train_affine:1430), the moments over ``group``'s
+    ranks."""
     c, cpad = fg.real_c, fg.cpad
     scale, bias = params["scale"][off:off + c], params["bias"][off:off + c]
     st = {k: stats[k][off:off + c] for k in ("mean", "var")}
-    if training:
-        mean, var, cnt = bn_moments(fg, fm, group)
-        ns = bn_stats_update(st, mean, var, cnt)
-    else:
-        mean, var, ns = st["mean"], st["var"], st
+    mean, var, cnt = bn_moments(fg, fm, group)
+    ns = bn_stats_update(st, mean, var, cnt)
     inv = torch.rsqrt(var + BN_EPS) * scale
     return _vec(inv, cpad), _vec(bias - mean * inv, cpad), ns
 
 
-def _cat_stats(parts: list) -> dict:
+def cat_stats(parts: list) -> dict:
     return {k: torch.cat([p[k] for p in parts]) for k in ("mean", "var")}
 
 
@@ -725,14 +727,14 @@ class _BnConvCore(torch.autograd.Function):
 
 def bn_conv_folded_train(bn_params: dict, bn_stats: dict, groups: list,
                          fm: FGrid, w27: torch.Tensor, cout: int, *,
-                         training: bool = True, group=None):
+                         group=None):
     """Fused BN(+ReLU) -> 3^3 conv site (bn_conv_folded_train:1341):
     (FGrid, new stats)."""
     g0 = groups[0]
     a_s, b_s, ws, parts, off = [], [], [], [], 0
     for fg in groups:
         a, b, ns = train_affine(bn_params, bn_stats, fg, fm, off=off,
-                                training=training, group=group)
+                                group=group)
         a_s.append(a)
         b_s.append(b)
         parts.append(ns)
@@ -742,7 +744,7 @@ def bn_conv_folded_train(bn_params: dict, bn_stats: dict, groups: list,
         raise ValueError(f"conv weight {tuple(w27.shape)} vs groups {off}")
     out = _BnConvCore.apply(g0.cpad, cout, fm.data,
                             *[g.data for g in groups], *a_s, *b_s, *ws)
-    return FGrid(out, g0.dims, cout, g0.cpad), _cat_stats(parts)
+    return FGrid(out, g0.dims, cout, g0.cpad), cat_stats(parts)
 
 
 # --------------------------- the other sites: kernel forward, composed VJP
@@ -782,29 +784,59 @@ def _site(kernel_fn, plain_fn, masks: tuple, *arrs):
     return _Site.apply(kernel_fn, plain_fn, masks, *arrs)
 
 
-def _strided_plain(u: torch.Tensor, m: torch.Tensor, w8: torch.Tensor,
-                   cin: int, cpad: int, cpad_out: int, xqc: int):
-    """The stride-2 2^3 conv of a halo'd grid and maxpool2 of its mask,
-    composed (strided_conv_folded:423 + mask_down_folded:463, and with
-    cpad_out = 2 * cpad strided_conv_cross_folded:1451): f32 sums rounded
-    to u's type, times the coarse mask; (coarse grid, coarse mask) halo'd
-    at cpad_out with xqc x blocks."""
-    dt = u.dtype
-    B, Zp, Yp, xq, _ = u.shape
-    Zc, Yc, Xh = (Zp - 2) // 2, (Yp - 2) // 2, xq * (LANES // cpad) // 2
-    t = _sv(u, cpad)[:, 1:-1, 1:-1, :, :cin].float()
-    t = t.reshape(B, Zc, 2, Yc, 2, Xh, 2, cin).permute(0, 1, 3, 5, 2, 4, 6, 7)
-    y = t.reshape(B, Zc, Yc, Xh, 8 * cin) @ _rounded(
-        w8, dt).reshape(8 * cin, -1)
+def _strided_sum(xs: list, cins: list, w8: torch.Tensor, cpad: int
+                 ) -> torch.Tensor:
+    """The stride-2 2^3 conv of halo'd grids ``xs`` (the groups of an
+    input of widths ``cins``; w8 [8, sum(cins), cout] in (dz, dy, dx)
+    order, rounded to their type): each group's products in one f32
+    matmul, the groups summed in f32 -> [B, Zc, Yc, Xh, cout] f32, Xh half
+    the fine slots."""
+    acc, off = None, 0
+    for u, cin in zip(xs, cins):
+        B, Zp, Yp, xq, _ = u.shape
+        Zc, Yc, Xh = (Zp - 2) // 2, (Yp - 2) // 2, xq * (LANES // cpad) // 2
+        t = _sv(u, cpad)[:, 1:-1, 1:-1, :, :cin].float()
+        t = t.reshape(B, Zc, 2, Yc, 2, Xh, 2, cin).permute(
+            0, 1, 3, 5, 2, 4, 6, 7)
+        y = t.reshape(B, Zc, Yc, Xh, 8 * cin) @ _rounded(
+            w8[:, off:off + cin], u.dtype).reshape(8 * cin, -1)
+        acc = y if acc is None else acc + y
+        off += cin
+    if off != w8.shape[1]:
+        raise ValueError(f"stride-2 weight {tuple(w8.shape)} vs groups {off}")
+    return acc
+
+
+def _mask_down(m: torch.Tensor, cpad: int) -> torch.Tensor:
+    """maxpool2 of a halo'd 0/1 mask grid -> [B, Zc, Yc, Xh, 1] f32."""
     mf = _sv(m, cpad)[:, 1:-1, 1:-1, :, 0].float()
-    mc = nnf.max_pool3d(mf[:, None], 2)[:, 0][..., None]
-    Xsc = xqc * (LANES // cpad_out)
-    n = min(Xh, Xsc)
-    res = _pad_to((y * mc).to(dt)[:, :, :, :n], (B, Zc, Yc, n, cpad_out))
-    mco = mc[:, :, :, :n].expand(B, Zc, Yc, n, cpad_out).to(dt)
-    shape = (B, Zc + 2, Yc + 2, xqc, LANES)
-    return tuple(nnf.pad(r, (0, 0, 0, Xsc - n, 1, 1, 1, 1)).reshape(shape)
-                 for r in (res, mco))
+    return nnf.max_pool3d(mf[:, None], 2)[:, 0][..., None]
+
+
+def _coarse_grid(t: torch.Tensor, cpad: int, xq: int) -> torch.Tensor:
+    """Coarse slots [B, Zc, Yc, n, c <= cpad] -> a halo'd grid at lane
+    budget ``cpad`` with ``xq`` x blocks (slots cropped or zero-padded)."""
+    B, Zc, Yc, n, _ = t.shape
+    xs = xq * (LANES // cpad)
+    n = min(n, xs)
+    t = _pad_to(t[:, :, :, :n], (B, Zc, Yc, n, cpad))
+    return nnf.pad(t, (0, 0, 0, xs - n, 1, 1, 1, 1)).reshape(
+        B, Zc + 2, Yc + 2, xq, LANES)
+
+
+def _strided_plain(xs: list, m: torch.Tensor, w8: torch.Tensor, cins: list,
+                   cpad: int, cpad_out: int, xqc: int):
+    """The stride-2 2^3 conv of halo'd groups and maxpool2 of their mask,
+    composed (strided_conv_folded:423 + mask_down_folded:463, and with
+    cpad_out = 2 * cpad the cross site, folded_train.py:104): f32 sums
+    rounded to the groups' type, times the coarse mask; (coarse grid,
+    coarse mask) halo'd at cpad_out with xqc x blocks."""
+    dt = xs[0].dtype
+    y = _strided_sum(xs, cins, w8, cpad)
+    mc = _mask_down(m, cpad)
+    return (_coarse_grid((y * mc).to(dt), cpad_out, xqc),
+            _coarse_grid(mc.expand(*mc.shape[:4], cpad_out).to(dt),
+                         cpad_out, xqc))
 
 
 def downconv_folded_train(fg: FGrid, fm: FGrid, w8: torch.Tensor, cout: int,
@@ -830,7 +862,7 @@ def downconv_folded_train(fg: FGrid, fm: FGrid, w8: torch.Tensor, cout: int,
     def plain_fn(*arrs):
         x, m, a, b, w = split(arrs)
         u = _affine_relu(x, m, a, b, cpad) if has_aff else x
-        return _strided_plain(u, m, w, cin, cpad, co, xqc)
+        return _strided_plain([u], m, w, [cin], cpad, co, xqc)
 
     arrs = (fg.data, fm.data, *(affine if has_aff else ()), w8)
     out, mout = _site(kernel_fn, plain_fn, (1,), *arrs)
@@ -840,11 +872,9 @@ def downconv_folded_train(fg: FGrid, fm: FGrid, w8: torch.Tensor, cout: int,
 
 def bn_downconv_folded_train(bn_params: dict, bn_stats: dict, fg: FGrid,
                              fm: FGrid, w8: torch.Tensor, cout: int, *,
-                             cpad_out: int | None = None,
-                             training: bool = True, group=None):
+                             cpad_out: int | None = None, group=None):
     """BN + ReLU -> stride-2 conv -> coarse mask (:1551)."""
-    a, b, ns = train_affine(bn_params, bn_stats, fg, fm, training=training,
-                            group=group)
+    a, b, ns = train_affine(bn_params, bn_stats, fg, fm, group=group)
     down, down_fm = downconv_folded_train(fg, fm, w8, cout, affine=(a, b),
                                           cpad_out=cpad_out)
     return down, down_fm, ns
@@ -852,7 +882,7 @@ def bn_downconv_folded_train(bn_params: dict, bn_stats: dict, fg: FGrid,
 
 def bn_upconv_folded_train(bn_params: dict, bn_stats: dict, groups: list,
                            cfm: FGrid, ffm: FGrid, w27: torch.Tensor,
-                           cout: int, *, training: bool = True, group=None):
+                           cout: int, *, group=None):
     """Generative upsample site (bn_upconv_folded_train:1566): per group
     [BN + ReLU + coarse mask] -> 2x NN upsample -> 3^3 conv -> fine mask.
     K3 forward; the composition's backward runs K7 (its conv is
@@ -864,7 +894,7 @@ def bn_upconv_folded_train(bn_params: dict, bn_stats: dict, groups: list,
     a_s, b_s, parts, off = [], [], [], 0
     for g in groups:
         a, b, ns = train_affine(bn_params, bn_stats, g, cfm, off=off,
-                                training=training, group=group)
+                                group=group)
         a_s.append(a)
         b_s.append(b)
         parts.append(ns)
@@ -895,7 +925,7 @@ def bn_upconv_folded_train(bn_params: dict, bn_stats: dict, groups: list,
     out = _site(kernel_fn, plain_fn, (), *[g.data for g in groups], cfm.data,
                 ffm.data, *a_s, *b_s, w27)
     return (FGrid(out[0], tuple(2 * d for d in dims_c), cout, cpad),
-            _cat_stats(parts))
+            cat_stats(parts))
 
 
 def _upconv_taps(w27: torch.Tensor, widths: list, dtype: torch.dtype
@@ -924,14 +954,13 @@ def _linear_plain(u: torch.Tensor, W: torch.Tensor, cpad: int):
 
 def bn_head_site_folded_train(bn_params: dict, bn_stats: dict, up: FGrid,
                               fm: FGrid, W2: torch.Tensor, b2: torch.Tensor,
-                              *, training: bool = True, group=None):
+                              *, group=None):
     """Refinement tail (bn_head_site_folded_train:1636): [n2 BN + ReLU +
     mask] -> occ|sdf heads -> gate -> (masked feats, masked heads, new
     mask, raw f32 heads, new stats). K4 gate mode with the raw output."""
     cpad, dims, cin = up.cpad, up.dims, up.real_c
     cout = W2.shape[1]
-    a, b, ns = train_affine(bn_params, bn_stats, up, fm, training=training,
-                            group=group)
+    a, b, ns = train_affine(bn_params, bn_stats, up, fm, group=group)
 
     def kernel_fn(x, m, a, b, W, bv):
         return K_head.head_gate(
@@ -956,7 +985,7 @@ def bn_head_site_folded_train(bn_params: dict, bn_stats: dict, up: FGrid,
 
 def bn_surf_head_folded_train(bn_params: dict, bn_stats: dict, groups: list,
                               fm: FGrid, W: torch.Tensor, bias: torch.Tensor,
-                              *, training: bool = True, group=None):
+                              *, group=None):
     """Surface tail (bn_surf_head_folded_train:1691): per group [p3 BN +
     ReLU + mask] -> summed linear + bias -> raw f32 SDF grid. K4 summed
     mode forward."""
@@ -967,7 +996,7 @@ def bn_surf_head_folded_train(bn_params: dict, bn_stats: dict, groups: list,
     a_s, b_s, parts, off = [], [], [], 0
     for g in groups:
         a, b, ns = train_affine(bn_params, bn_stats, g, fm, off=off,
-                                training=training, group=group)
+                                group=group)
         a_s.append(a)
         b_s.append(b)
         parts.append(ns)
@@ -1004,4 +1033,111 @@ def bn_surf_head_folded_train(bn_params: dict, bn_stats: dict, groups: list,
 
     out = _site(kernel_fn, plain_fn, (), *[g.data for g in groups], fm.data,
                 *a_s, *b_s, W, bias)
-    return FGrid(out[0], dims, 1, cpad), _cat_stats(parts)
+    return FGrid(out[0], dims, 1, cpad), cat_stats(parts)
+
+
+# ------------------------------------------- the composed BN -> op forms
+#
+# Port of the lane-GEMM helpers the JAX package composes outside any Pallas
+# kernel (ops/folded.py:419-565, 826-863; models/folded_train.py:98-144):
+# the training forward's composed branch (fuse_train_bn off, or
+# training=False) and the serving forward's SGNN_NO_UPCONV / NO_HEADK
+# branches run them. Plain differentiable tensor ops on the slot view.
+# Masks are 0/1 comparisons, bit-equal to JAX's GEMM-and-clamp. Where JAX
+# sums the four (dz, dy) partial GEMMs of a stride-2 conv in f32, this sums
+# each group's 8 taps in one f32 matmul (then the groups in order): another
+# f32 order, within 1e-5 of JAX's in f32 and 2 ulps in bf16 after the one
+# rounding both make.
+
+
+def mask_and(a: FGrid, b: FGrid) -> FGrid:
+    return a.with_data(a.data * b.data)
+
+
+def strided_conv_folded(groups: list, w8: torch.Tensor, cout: int) -> FGrid:
+    """Stride-2 2^3 conv of grouped FGrids, summed over the groups in f32
+    and rounded to their type -> coarse FGrid, unmasked (:423)."""
+    g0 = groups[0]
+    dims = tuple(d // 2 for d in g0.dims)
+    y = _strided_sum([g.data for g in groups], [g.real_c for g in groups],
+                     w8, g0.cpad)
+    return FGrid(_coarse_grid(y.to(g0.data.dtype), g0.cpad,
+                              _xq_for(dims[2], g0.cpad)), dims, cout, g0.cpad)
+
+
+def mask_down_folded(fm: FGrid) -> FGrid:
+    """maxpool2 of a 0/1 mask FGrid: a parent is active when a child is
+    (:463)."""
+    dims = tuple(d // 2 for d in fm.dims)
+    mc = _mask_down(fm.data, fm.cpad)
+    m = mc.expand(*mc.shape[:4], fm.cpad).to(fm.data.dtype)
+    return FGrid(_coarse_grid(m, fm.cpad, _xq_for(dims[2], fm.cpad)), dims,
+                 fm.cpad, fm.cpad)
+
+
+def strided_site_folded(groups: list, fm: FGrid, w8: torch.Tensor,
+                        cout: int, cpad_out: int | None = None
+                        ) -> tuple[FGrid, FGrid]:
+    """The composed stride-2 site: strided conv times the maxpool2 mask ->
+    (coarse FGrid, coarse mask) (folded_train.py:_strided_site_f:98); with
+    ``cpad_out`` = 2 * cpad the cross site, which widens the lane budget
+    across the stride (_strided_site_cross_f:104)."""
+    g0 = groups[0]
+    co = cpad_out or g0.cpad
+    if co not in (g0.cpad, 2 * g0.cpad):
+        raise ValueError(f"strided site: cpad {g0.cpad} -> {co}")
+    dims = tuple(d // 2 for d in g0.dims)
+    out, mout = _strided_plain([g.data for g in groups], fm.data, w8,
+                               [g.real_c for g in groups], g0.cpad, co,
+                               _xq_for(dims[2], co))
+    return FGrid(out, dims, cout, co), FGrid(mout, dims, co, co)
+
+
+def linear_folded(fg: FGrid, W: torch.Tensor, b: torch.Tensor | None = None,
+                  out_dtype: torch.dtype = torch.float32) -> FGrid:
+    """Per-voxel channel mix W [real_c, cout] (rounded to the grid's type,
+    f32 sums) -> FGrid of ``out_dtype``; the bias lands on every voxel slot,
+    the ring and the x tail too, so the caller masks the result (:511)."""
+    y = _linear_plain(fg.data, W, fg.cpad).to(out_dtype)
+    if b is not None:
+        y = y + _vec(b, fg.cpad).to(out_dtype)
+    return FGrid(y.reshape(fg.data.shape), fg.dims, W.shape[1], fg.cpad)
+
+
+def linear_sum_folded(groups: list, W: torch.Tensor, bias: torch.Tensor
+                      ) -> FGrid:
+    """Each group's rows of W [sum(widths), cout] as a linear_folded, summed
+    in f32 in group order, plus the bias on every voxel slot: the composed
+    surface head (folded_train.py:376-391, folded_flow.py:336-350)."""
+    acc, off = None, 0
+    for g in groups:
+        y = _linear_plain(g.data, W[off:off + g.real_c], g.cpad)
+        acc = y if acc is None else acc + y
+        off += g.real_c
+    if off != W.shape[0]:
+        raise ValueError(f"linear {tuple(W.shape)} vs groups {off}")
+    g0 = groups[0]
+    return FGrid((acc + _vec(bias, g0.cpad)).view(g0.data.shape), g0.dims,
+                 W.shape[1], g0.cpad)
+
+
+def occ_mask_folded(out: FGrid, dtype: torch.dtype = torch.bfloat16
+                    ) -> FGrid:
+    """occ logit (channel 0) > 0, strictly, as a 0/1 mask FGrid of
+    ``dtype`` (:554): sigmoid(x) > 0.5, and a zero logit stays inactive."""
+    s = _sv(out.data, out.cpad)
+    m = (s[..., :1] > 0).to(dtype).expand(s.shape)
+    return FGrid(m.reshape(out.data.shape), out.dims, out.cpad, out.cpad)
+
+
+def head_gate_composed(up: FGrid, fm: FGrid, W2: torch.Tensor,
+                       b2: torch.Tensor) -> tuple:
+    """The composed refinement tail after its n2 BN (folded_train.py:
+    320-327, folded_flow.py:277-282): the occ|sdf heads in f32, the
+    occupancy gate times the unfiltered fine mask ``fm`` -> (masked feats,
+    masked heads in the grid's type, new mask, raw f32 heads)."""
+    dt = up.data.dtype
+    out2 = linear_folded(up, W2, b2)
+    new_fm = mask_and(occ_mask_folded(out2, dt), fm)
+    return (mask_and(up, new_fm),
+            out2.with_data(out2.data.to(dt) * new_fm.data), new_fm, out2)

@@ -7,8 +7,9 @@ sharded results against unsharded ones. ``tools/dryrun_multichip.py`` and
 package's ``shard_map``s.
 
 - ``serve_folded``: the folded serving forward of one scene, z-sharded
-  over every rank (``GenModelFolded(space=...)``), with each kernel's
-  launches, and optionally the forward's ms and the exchanges' share;
+  over every rank (``GenModelFolded(space=...)``), in its only-surface or
+  level-output form, with each kernel's launches, and optionally the
+  forward's ms and the exchanges' share;
 - ``serve_dense``: the dense flow's serving or training-mode forward of
   one scene, z-sharded over the space axis of a data x space grid;
 - ``serve_scenes``: data-parallel serving, a scene a rank through
@@ -79,13 +80,15 @@ def _timed(fn, dev: torch.device, reps: int) -> tuple[float, float]:
 
 def serve_folded(cfg_kw: dict, weights: tuple, locs: np.ndarray,
                  feats: np.ndarray, dims: tuple, device: str,
-                 reps: int = 0, num_space: int | None = None) -> dict:
+                 reps: int = 0, num_space: int | None = None,
+                 want_level_outputs: bool = False) -> dict:
     """One scene (``locs [N, 4]``, ``feats [N, 1]`` of the GLOBAL
     ``dims``) through ``GenModelFolded`` z-sharded over ``num_space``
     ranks (all by default; each group of that many serves the scene):
-    this rank's slabs of the surface and coarse outputs, its kernels'
-    launches in that forward, and with ``reps`` its ms per forward and the
-    exchanges' ms of it."""
+    this rank's slabs of the surface and coarse outputs, with
+    ``want_level_outputs`` of each level's raw heads and unfiltered mask
+    too, its kernels' launches in that forward, and with ``reps`` its ms
+    per forward and the exchanges' ms of it."""
     from sgnn_tpu_torch.models.folded_flow import GenModelFolded
     from sgnn_tpu_torch.ops import kernels as K
     from sgnn_tpu_torch.params import load_jax_params
@@ -100,14 +103,17 @@ def serve_folded(cfg_kw: dict, weights: tuple, locs: np.ndarray,
     ft = torch.from_numpy(np.asarray(feats, np.float32)).to(g.device)
 
     def fwd():
-        return model(lt, ft, tuple(dims), space=g.space)
+        return model(lt, ft, tuple(dims), space=g.space,
+                     want_level_outputs=want_level_outputs)
     K.reset_launch_counts()
     out = fwd()
     _sync(g.device)
     res = {"launches": K.launch_counts(), "rank": g.rank,
            "coarse_out": _np(out.coarse_out), "surf_sdf": _np(out.surf_sdf),
            "surf_mask": _np(out.surf_mask),
-           "level_active": [int(a) for a in out.level_active]}
+           "level_active": [int(a) for a in out.level_active],
+           "refine_outs": _np(out.refine_outs),
+           "refine_masks_unfilt": _np(out.refine_masks_unfilt)}
     if reps:
         res["ms"], res["exchange_ms"] = _timed(fwd, g.device, reps)
     return res

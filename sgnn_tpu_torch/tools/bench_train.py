@@ -15,7 +15,8 @@ after an epoch's end holds the loader's restart; ``step_ms`` is their
 median and ``chunks_per_sec`` all timed chunks over all timed seconds.
 
     python -m sgnn_tpu_torch.tools.bench_train [--steps 30]
-        [--batch_size 8] [--execution folded|sparse|dense_flow] [--cpu]
+        [--batch_size 8] [--execution folded|sparse|dense_flow]
+        [--no_fuse_train_bn] [--cpu]
 
 Prints one JSON line {"step_ms": ..., "chunks_per_sec": ..., ...}. Runs on
 the card; ``--cpu`` runs the plain versions on the host. The default
@@ -82,7 +83,8 @@ def write_chunks(root: str, n: int, dims: tuple, seed: int = 0) -> list:
 
 
 def full_level_trainer(files: list, save: str, device, *, dims,
-                       batch_size: int, execution: str, compute_dtype: str):
+                       batch_size: int, execution: str, compute_dtype: str,
+                       fuse_train_bn: bool = True):
     """(Trainer with every level and the surface active, its BatchLoader
     over ``files``): the JAX tools' training configuration (L=4, full
     width, lr 1e-3, no checkpoints or prediction dumps)."""
@@ -95,7 +97,8 @@ def full_level_trainer(files: list, save: str, device, *, dims,
         input_dim=tuple(dims), num_hierarchy_levels=NUM_LEVELS,
         num_iters_per_level=1, batch_size=batch_size, max_epoch=1000,
         lr=1e-3, execution=execution, compute_dtype=compute_dtype,
-        ckpt_every=0, save_epoch=0, save=save, device=str(device))
+        fuse_train_bn=fuse_train_bn, ckpt_every=0, save_epoch=0, save=save,
+        device=str(device))
     trainer = Trainer(opts)
     trainer.iteration = 10 * NUM_LEVELS  # past the fade-in: all active
     lw = S.get_loss_weights(trainer.iteration, NUM_LEVELS, 1,
@@ -122,16 +125,12 @@ def parse_args(argv=None):
     ap.add_argument("--compute_dtype", default="bfloat16",
                     choices=["float32", "bfloat16"])
     ap.add_argument("--no_fuse_train_bn", action="store_true",
-                    help="refused: the composed BN -> op ablation is not "
-                         "ported")
+                    help="folded: the composed BN -> op ablation (the "
+                         "training CLI's --fuse_train_bn 0)")
     ap.add_argument("--dims", type=int, nargs=3, default=[128, 64, 64],
                     help="chunk dims")
     C.device_arg(ap)
-    args = ap.parse_args(argv)
-    if args.no_fuse_train_bn:  # the training CLI's refusal
-        ap.error("--fuse_train_bn 0 (the composed BN -> op ablation) is not "
-                 "ported")
-    return args
+    return ap.parse_args(argv)
 
 
 def _timed_steps(args, device, tmp: str) -> tuple:
@@ -141,7 +140,8 @@ def _timed_steps(args, device, tmp: str) -> tuple:
     trainer, loader = full_level_trainer(
         files, os.path.join(tmp, "logs"), device, dims=args.dims,
         batch_size=args.batch_size, execution=args.execution,
-        compute_dtype=args.compute_dtype)
+        compute_dtype=args.compute_dtype,
+        fuse_train_bn=not args.no_fuse_train_bn)
     times, metrics = [], None
     total = args.steps + args.warmup
     t_prev = time.perf_counter()
@@ -179,6 +179,7 @@ def main(argv=None) -> dict:
         "loss": float(metrics["loss"]),
         "times_ms": [float(t * 1e3) for t in steady],
         "execution": args.execution,
+        "fuse_train_bn": not args.no_fuse_train_bn,
         "peak_memory": P.device_memory_stats(),
         "device": P.device_entry(device),
     }

@@ -13,7 +13,9 @@ ranks of ``torch.distributed``, each printing one line.
 3. the dense flow on a data x space grid of ranks (2 x N/2 when N is even):
    one scene's forward z-sharded over the space axis;
 4. the folded forward z-sharded over 2 ranks (each pair of ranks serves
-   the scene).
+   the scene) in its level-output form, the JAX dry run's default: the
+   surface and each level's unfiltered sites, summed over the slabs,
+   against the unsharded forward's.
 
 Tiny shapes (encoder_dim 4, nf 8), as the JAX dry run has them; the
 serving phases' weights are the first seed (from 0) whose random gates
@@ -100,6 +102,19 @@ def _open_weights(cfg: SGNNConfig, dense: bool = False, scenes: int = 1):
     raise RuntimeError(f"no seed's gates leave a surface at {cfg.input_dim}")
 
 
+def _level_sites(cfg, w) -> list:
+    """Each refinement level's unfiltered sites in the unsharded
+    level-output form of the folded forward on the scene of seed 0."""
+    from sgnn_tpu_torch.models.folded_flow import GenModelFolded
+
+    locs, feats = _rows(cfg.input_dim)
+    model = GenModelFolded(cfg)
+    load_jax_params(model, *w)
+    out = model(torch.from_numpy(locs), torch.from_numpy(feats),
+                cfg.input_dim, want_level_outputs=True)
+    return [int(m.sum()) for m in out.refine_masks_unfilt]
+
+
 def _surface(cfg, w, scene_seed, dense):
     from sgnn_tpu_torch.models.dense_flow import GenModelDense
     from sgnn_tpu_torch.models.folded_flow import GenModelFolded
@@ -173,8 +188,9 @@ def plan(n: int) -> tuple[list, dict]:
         locs, feats = _rows(fcfg["input_dim"])
         jobs.append(("serve_folded", (fcfg, w4, locs, feats,
                                       fcfg["input_dim"]),
-                     dict(num_space=2)))
-        info["folded"] = (fcfg["input_dim"], surf4)
+                     dict(num_space=2, want_level_outputs=True)))
+        info["folded"] = (fcfg["input_dim"], surf4,
+                          _level_sites(SGNNConfig(**fcfg), w4))
     return jobs, info
 
 
@@ -202,12 +218,16 @@ def report(n: int, backend: str, res: list, info: dict) -> None:
           f" grid: scene {dims[0]}x{dims[1]}x{dims[2]}, surf voxels="
           f"{per_data[0]}", flush=True)
     if "folded" in info:
-        dims, surf = info["folded"]
+        dims, surf, sites = info["folded"]
         got = int(sum(r[3]["surf_mask"].sum() for r in res[:2]))
         assert got == surf, f"sharded surface {got} voxels, unsharded {surf}"
+        lv = [int(sum(r[3]["refine_masks_unfilt"][h].sum() for r in res[:2]))
+              for h in range(len(sites))]
+        assert lv == sites, f"sharded level sites {lv}, unsharded {sites}"
         print(f"[dryrun_multichip] spatial FOLDED ok on 2-way z-sharded "
               f"ranks: scene {dims[0]}x{dims[1]}x{dims[2]}, surf voxels="
-              f"{got} (the unsharded forward's {surf})", flush=True)
+              f"{got} (the unsharded forward's {surf}), level sites {lv}",
+              flush=True)
 
 
 def main(argv=None) -> int:

@@ -13,7 +13,8 @@ records and aggregate, and its JSON layout.
 with every kernel's plain PyTorch version. Without ``--cpu`` a missing
 CUDA device is an error. ``--execution dense_flow`` and ``folded`` serve
 through ``GenModelFolded``, ``sparse`` through ``GenModelSparse``, as the
-scene CLI maps them (``tools/test_scene.py``). The metrics (the
+scene CLI maps them (``tools/test_scene.py``), the folded model with the
+serving ablations that CLI reads from the environment. The metrics (the
 reference's loss.py:84-231, ``losses.py``) are computed from the
 inferencer's surface on the device the forward ran on. Each scene's
 ``seconds`` is its forward and the copy of its surface to the host.

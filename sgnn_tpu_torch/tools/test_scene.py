@@ -15,9 +15,10 @@ CUDA device is an error. ``--execution dense_flow`` and ``folded`` run
 the folded forward (``GenModelFolded``), the TPU's mapping of both;
 ``--execution sparse`` runs the coordinate-list execution
 (``GenModelSparse``, its sparse convs on K10), with level capacities
-sized by ``--occupancy_fractions``. ``SGNN_NO_SURFPACK=1`` builds the
-folded model with the summed surface head instead of the multi-scale
-one, as it selects that branch in the JAX package.
+sized by ``--occupancy_fractions``. The JAX package's serving ablations,
+``SGNN_NO_SURFPACK``, ``SGNN_NO_UPCONV``, ``SGNN_NO_HEADK`` and
+``SGNN_NO_MASKFUSE`` (set non-empty), build the folded model with the
+composed sites they select there (``folded_flow.ablations_from_env``).
 """
 
 from __future__ import annotations
@@ -122,15 +123,15 @@ def select_device(cpu: bool, gpu: int, prog: str) -> torch.device:
 def build_model(cfg, params, stats, device):
     """The serving model of ``cfg.execution`` (module docstring), filled
     with (params, stats) and moved to ``device``."""
-    from sgnn_tpu_torch.models.folded_flow import GenModelFolded
+    from sgnn_tpu_torch.models.folded_flow import (GenModelFolded,
+                                                    ablations_from_env)
     from sgnn_tpu_torch.models.sgnn import GenModelSparse
     from sgnn_tpu_torch.params import load_jax_params
 
     if cfg.execution == "sparse":
         model = GenModelSparse(cfg)
     else:
-        model = GenModelFolded(
-            cfg, surf_pack=not os.environ.get("SGNN_NO_SURFPACK"))
+        model = GenModelFolded(cfg, **ablations_from_env())
     load_jax_params(model, params, stats)
     return model.to(device)
 

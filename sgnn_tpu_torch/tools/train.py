@@ -14,9 +14,11 @@ error. ``--num_devices N`` > 1 trains data-parallel on N ranks
 the host has is refused), or with ``--cpu`` on N host processes over
 gloo; ``--batch_size`` is the global batch and must divide by N. Every
 ``--save_epoch`` epochs, once every level is active, the predictions on
-one batch are written under ``--save``. Not ported, and refused with a
-message: ``--fuse_train_bn 0``, ``--ckpt_backend orbax`` and
-``--rss_restart_gb`` > 0.
+one batch are written under ``--save``. ``--fuse_train_bn 0`` trains the
+folded execution's composed BN -> op ablation (the eval and the
+prediction dump take that branch whatever the flag). Not ported, and
+refused with a message: ``--ckpt_backend orbax`` and ``--rss_restart_gb``
+> 0.
 """
 
 from __future__ import annotations
@@ -110,7 +112,8 @@ def parse_args(argv=None):
                    help="dtype float batch arrays are shipped to the device "
                         "in (the loss math stays f32)")
     p.add_argument("--fuse_train_bn", type=int, default=1,
-                   help="1 only (the composed BN -> op path is not ported)")
+                   help="folded execution: 1 = fused BN -> op training "
+                        "sites, 0 = the composed ablation")
     p.add_argument("--rss_restart_gb", type=float, default=0.0,
                    help="0 only (not ported)")
     p.set_defaults(logweight_target_sdf=True, use_loss_masking=True)
@@ -122,8 +125,6 @@ def parse_args(argv=None):
     if args.num_hierarchy_levels <= 1:
         p.error("--num_hierarchy_levels must be > 1")
     refusals = [
-        (not args.fuse_train_bn,
-         "--fuse_train_bn 0 (the composed BN -> op ablation) is not ported"),
         (args.ckpt_backend != "npz",
          "--ckpt_backend orbax is not ported; use npz"),
         (args.rss_restart_gb > 0,
@@ -234,7 +235,8 @@ def run(args, device: str, groups=None):
         compute_dtype=args.compute_dtype,
         transfer_dtype=args.transfer_dtype,
         scheduler_step_size=args.scheduler_step_size,
-        save_epoch=args.save_epoch, execution=args.execution, device=device,
+        save_epoch=args.save_epoch, execution=args.execution,
+        fuse_train_bn=bool(args.fuse_train_bn), device=device,
         num_devices=max(1, args.num_devices),
     )
     trainer = Trainer(opts, groups)

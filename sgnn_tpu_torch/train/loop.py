@@ -76,6 +76,9 @@ class TrainOptions:
     ckpt_every: int = 2000
     save_epoch: int = 1  # prediction dump every N epochs (0 = never)
     execution: str = "folded"
+    # folded execution: the fused BN -> op training sites (False: the
+    # composed BN -> op ablation, as the JAX trainer's flag)
+    fuse_train_bn: bool = True
     device: str = "cuda"
     num_devices: int = 1  # > 1: data parallelism over the ranks
 
@@ -114,6 +117,7 @@ class Trainer:
             occupancy_fractions=tuple(opts.occupancy_fractions),
             execution=opts.execution,
             compute_dtype=opts.compute_dtype,
+            fuse_train_bn=opts.fuse_train_bn,
         )
         self.model = TS.train_model(self.cfg, seed=opts.seed).to(self.device)
         self.opt = ST.make_optimizer(self.model, opts.lr, opts.weight_decay)

@@ -13,7 +13,10 @@ bit-equal; the raw heads are compared on the level's unfiltered sites
 (the raw grid's halo is unspecified; the unfolded grids hold interiors
 only). Also: the port's level-output form keeps the only-surface form's
 surface bit for bit (also in int8), and the folded ``SceneInferencer``
-with ``want_levels`` returns the JAX ``SceneInferencer``'s levels.
+with ``want_levels`` returns the JAX ``SceneInferencer``'s levels. The
+serving ablations (the JAX package's SGNN_NO_UPCONV, SGNN_NO_HEADK,
+SGNN_NO_MASKFUSE, and the first two together) are held to the same
+reference at the same tolerances.
 """
 
 import os
@@ -31,7 +34,9 @@ from sgnn_tpu.ops.sparse import make_sparse
 from sgnn_tpu_torch.config import SGNNConfig
 from sgnn_tpu_torch.infer import SceneInferencer, synthetic_scene
 from sgnn_tpu_torch.models.dense_flow import GenModelDense
-from sgnn_tpu_torch.models.folded_flow import GenModelFolded
+from sgnn_tpu_torch.models.folded_flow import (GenModelFolded,
+                                                HeadComposed,
+                                                ablations_from_env)
 from sgnn_tpu_torch.params import init_params, load_jax_params
 
 CFG = dict(encoder_dim=4, input_dim=(16, 16, 16), nf_coarse=8, nf=8,
@@ -111,7 +116,10 @@ def test_level_outputs_match_jax(full, jax_scene):
     sites (in C order) equal, its raw heads there within 2e-3, the coarse
     output within 1e-4, the surface (cropped as the inferencer crops it)
     equal with its sdf within 2e-3."""
-    got, ref = full, jax_scene
+    _assert_matches_jax(full, jax_scene)
+
+
+def _assert_matches_jax(got, ref):
     np.testing.assert_allclose(got.coarse_out[0].numpy(),
                                ref["levels"][0]["dense_out"], rtol=1e-4,
                                atol=1e-4)
@@ -189,11 +197,39 @@ def test_partial_forwards_are_prefixes(case, full, nra, do_surf):
     assert not got.surf_mask.any() and not got.surf_sdf.any()
 
 
+@pytest.mark.parametrize("off", [("upconv",), ("head_kernel",),
+                                 ("mask_fuse",), ("upconv", "head_kernel")],
+                         ids="+".join)
+def test_ablations_match_jax(case, jax_scene, off):
+    """Each serving ablation (GenModelFolded's options for SGNN_NO_UPCONV,
+    SGNN_NO_HEADK, SGNN_NO_MASKFUSE; the first two together) in its
+    level-output form against JAX's reference at the tolerances above,
+    and its only-surface form with the same surface, bit for bit."""
+    weights, _, (locs, feats) = case
+    model = GenModelFolded(SGNNConfig(**CFG), **{o: False for o in off})
+    load_jax_params(model, *weights)
+    got = model(locs, feats, CFG["input_dim"], want_level_outputs=True)
+    _assert_matches_jax(got, jax_scene)
+    surf = model(locs, feats, CFG["input_dim"])
+    assert torch.equal(got.surf_mask, surf.surf_mask)
+    assert torch.equal(got.surf_sdf, surf.surf_sdf)
+
+
+def test_ablations_from_env():
+    """One reader for the JAX package's four variables: set non-empty, an
+    option is off."""
+    assert ablations_from_env({}) == dict(
+        surf_pack=True, upconv=True, head_kernel=True, mask_fuse=True)
+    assert ablations_from_env({"SGNN_NO_HEADK": "1", "SGNN_NO_UPCONV": "",
+                               "SGNN_NO_MASKFUSE": "yes"}) == dict(
+        surf_pack=True, upconv=True, head_kernel=False, mask_fuse=False)
+
+
 def test_forward_refuses(case):
     with pytest.raises(ValueError, match="num_refine_active"):
         _port(case, num_refine_active=L_REF + 1)
-    with pytest.raises(NotImplementedError, match="level outputs"):
-        _port(case, want_level_outputs=True, space=object())
+    with pytest.raises(ValueError, match="composed head"):
+        HeadComposed(8)(None, None, 2, False)
 
 
 def test_inferencer_levels_match_jax(case, jax_scene):

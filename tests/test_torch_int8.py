@@ -16,7 +16,8 @@ value on a rounding boundary can quantize one apart. Masks and halo
 rings bit-equal. The affines are JAX's own constants on both sides. The whole
 int8 model is held against JAX's int8 forward (surface IoU >= 0.99) and
 against the port's own exact forward at the JAX package's bounds
-(tests/test_folded_model.py::test_folded_int8_close_to_exact).
+(tests/test_folded_model.py::test_folded_int8_close_to_exact), and so is
+the int8 forward under SGNN_NO_UPCONV, whose n1 sites run exact.
 """
 
 import dataclasses
@@ -507,8 +508,8 @@ def jax_int8(interpret_pallas):
             jax.device_get((params, stats)), (locs[:n], feats[:n]))
 
 
-def _forward(q8, weights, rows):
-    model = GenModelFolded(SGNNConfig(**CFG, quantize_int8=q8))
+def _forward(q8, weights, rows, **ablations):
+    model = GenModelFolded(SGNNConfig(**CFG, quantize_int8=q8), **ablations)
     load_jax_params(model, *weights)
     locs = torch.zeros(len(rows[0]), 4, dtype=torch.int64)
     locs[:, :3] = torch.from_numpy(rows[0][:, :3].astype(np.int64))
@@ -539,6 +540,32 @@ def test_model_int8_close_to_exact(jax_int8):
     package's own bounds for the same comparison."""
     _, _, weights, rows = jax_int8
     exact, q = _forward(False, weights, rows), _forward(True, weights, rows)
+    me, mq = exact.surf_mask.numpy(), q.surf_mask.numpy()
+    assert me.any() and mq.any()
+    assert _iou(me, mq) > 0.95
+    both = me & mq
+    err = np.abs(exact.surf_sdf.numpy()[both] - q.surf_sdf.numpy()[both])
+    scale = max(np.abs(exact.surf_sdf.numpy()[both]).max(), 1e-3)
+    assert err.mean() / scale < 0.05
+    assert np.percentile(err, 95) / scale < 0.15
+    assert not torch.equal(exact.surf_sdf, q.surf_sdf)
+
+
+def test_model_int8_no_upconv(jax_int8):
+    """SGNN_NO_UPCONV under int8: each level's n1 site runs exact (one K1
+    call over the three upsampled groups; the JAX forward passes it no
+    quantize), no upsample site runs, every other site is int8, and the
+    surface stays as close to the exact forward as the JAX package holds
+    its int8 forward (tests/test_folded_model.py:150-192)."""
+    _, jcalls, weights, rows = jax_int8
+    exact = _forward(False, weights, rows)
+    with _Count(K_conv, ("conv_site", "conv_site_q")) as c1, \
+            _Count(K_up, ("upconv", "upconv_q")) as c3:
+        q = _forward(True, weights, rows, upconv=False)
+    L_ref = CFG["num_hierarchy_levels"] - 1
+    assert c1.calls == {"conv_site": L_ref, "conv_site_q": jcalls[
+        ("subm_conv_fused", True)]}
+    assert c3.calls == {"upconv": 0, "upconv_q": 0}
     me, mq = exact.surf_mask.numpy(), q.surf_mask.numpy()
     assert me.any() and mq.any()
     assert _iou(me, mq) > 0.95

@@ -21,8 +21,9 @@ CPU devices, and the inputs are made from seeds with numpy.
   False)``) at the single-device step's tolerances
   (test_torch_train_secondary.py): this settles the backward of the
   all-reduced moments; two folded data-parallel steps whose ranks hold the
-  same parameters, bit for bit; the folded z-sharded forward against the
-  port's unsharded forward of the same scene (masks bit-equal, 2e-4).
+  same parameters, bit for bit; the folded z-sharded forward in its
+  level-output form against the port's unsharded forward of the same
+  scene (the surface and each level's slabs: masks bit-equal, 2e-4).
 - ``device_batch`` and ``shard_files`` bit-equal to the JAX package's.
 - The training CLI with ``--cpu --num_devices 2`` and its refusals.
 
@@ -198,7 +199,8 @@ def _ranks2(dense_weights, dp_batch):
                       init_params(SGNNConfig(**CFG), seed=3),
                       [dp_batch, dp_batch], LW, LR), step),
         ("serve_folded", (FOLD_CFG, fold_w, flocs, ffeats,
-                          FOLD_CFG["input_dim"], "cpu"), {}),
+                          FOLD_CFG["input_dim"], "cpu"),
+         dict(want_level_outputs=True)),
     ]
     return _POOL.submit(PM.launch, PG.sequence, 2, "gloo", (jobs,))
 
@@ -468,13 +470,26 @@ def test_dp_ranks_hold_identical_parameters(ranks2, job):
 
 
 def test_folded_sharded_matches_unsharded(ranks2):
+    """The level-output form z-sharded over 2 ranks against the unsharded
+    one: the surface, the coarse output and each level's slabs, joined
+    (masks bit-equal, values within 2e-4; the raw heads on the level's
+    unfiltered sites)."""
     cfg = SGNNConfig(**FOLD_CFG)
     model = GenModelFolded(cfg)
     load_jax_params(model, *init_params(cfg, seed=FOLD_SEED))
     locs, feats = _fold_scene()
     ref = model(torch.from_numpy(locs), torch.from_numpy(feats),
-                cfg.input_dim)
+                cfg.input_dim, want_level_outputs=True)
     ranks = [r[4] for r in ranks2.result()]
+    assert len(ref.refine_outs) == cfg.num_refine_levels
+    for h, (want, wm) in enumerate(zip(ref.refine_outs,
+                                       ref.refine_masks_unfilt)):
+        m = np.concatenate([r["refine_masks_unfilt"][h] for r in ranks], 1)
+        np.testing.assert_array_equal(m, wm.numpy())
+        assert m.any(), f"degenerate case: level {h} has no sites"
+        got = np.concatenate([r["refine_outs"][h] for r in ranks], 1)
+        np.testing.assert_allclose(got[m], want.numpy()[m], rtol=2e-4,
+                                   atol=2e-4)
     mask = _cat(ranks, "surf_mask", 1)
     np.testing.assert_array_equal(mask, ref.surf_mask.numpy())
     assert mask.any()

@@ -355,10 +355,14 @@ def test_bench_mesh():
             "ms_per_scene", "scenes_per_sec"} <= set(res["runs"][0])
 
 
-def test_bench_train_refuses_composed_bn():
-    with pytest.raises(SystemExit) as e:
-        bench_train.main(["--no_fuse_train_bn", "--cpu"])
-    assert e.value.code == 2
+def test_bench_train_composed_bn():
+    """--no_fuse_train_bn times the folded composed BN -> op ablation."""
+    res = bench_train.main(["--no_fuse_train_bn", "--cpu", *TINY,
+                            "--batch_size", "1", "--num_chunks", "2",
+                            "--steps", "2", "--warmup", "0",
+                            "--compute_dtype", "float32"])
+    assert res["execution"] == "folded" and res["fuse_train_bn"] is False
+    assert res["steps"] == 2 and np.isfinite(res["loss"])
 
 
 @pytest.mark.parametrize("tool", [trace_forward, trace_train, roofline,

@@ -3,7 +3,9 @@ CPU: the port's trainer writes a ``.ckpt`` that JAX ``load_checkpoint``
 reads (with and without weight decay); JAX writes one, the port resumes
 from it (``retrain="auto"``); the CLI with ``--cpu`` trains 6 steps
 through the fade-in and its checkpoint serves a scene through
-``GenModelFolded``; the CLI refuses what is not ported.
+``GenModelFolded``; with ``--fuse_train_bn 0`` (the composed BN -> op
+ablation) it trains and writes a checkpoint both packages load; the CLI
+refuses what is not ported.
 """
 
 import os
@@ -141,8 +143,43 @@ def test_cli_cpu_trains_and_serves(chunks, tmp_path):
     assert np.isfinite(r["levels"][0]["dense_out"]).all()
 
 
+def test_cli_trains_composed_bn(chunks, tmp_path):
+    """--fuse_train_bn 0: the composed BN -> op ablation trains with
+    finite losses, its epoch's prediction dump runs through the eval form,
+    and its .ckpt loads into the JAX package's loader and the port's
+    serving model."""
+    from sgnn_tpu_torch.checkpoint import load_checkpoint
+    from sgnn_tpu_torch.infer import SceneInferencer, synthetic_scene
+    from sgnn_tpu_torch.models.folded_flow import GenModelFolded
+
+    d, _ = chunks
+    save = tmp_path / "logs"
+    tr = train_cli.main([
+        "--data_path", str(d), "--train_file_list", str(d / "train.txt"),
+        "--save", str(save), "--input_dim", "32", "--num_hierarchy_levels",
+        "3", "--encoder_dim", "4", "--coarse_feat_dim", "8",
+        "--refine_feat_dim", "8", "--batch_size", "2", "--max_steps", "4",
+        "--num_iters_per_level", "1", "--compute_dtype", "float32",
+        "--fuse_train_bn", "0", "--cpu"])
+    assert not tr.cfg.fuse_train_bn
+    losses = [loss for _, loss in tr.loss_history]
+    assert len(losses) == 4 and np.isfinite(losses).all()
+    dumps = [p for p in save.glob("iter*-epoch1/train/*.ply")]
+    assert dumps, sorted(os.listdir(save))
+    path = str(save / "model-epoch-1.ckpt")
+    cfg = SGNNConfig(**dict(CFG, batch_size=1))
+    _, meta = JC.load_checkpoint(path, JS.create_train_state(
+        *init_params(cfg, 0)))
+    assert meta["iteration"] == 4
+    ck = load_checkpoint(path, cfg)
+    model = GenModelFolded(cfg)
+    load_jax_params(model, ck.params, ck.stats)
+    r = SceneInferencer(model)(synthetic_scene(DIMS, seed=1))
+    assert np.isfinite(r["surf_sdf"]).all()
+
+
 @pytest.mark.parametrize("extra,msg", [
-    (["--fuse_train_bn", "0"], "fuse_train_bn"),
+    (["--no_pass_feats", "--no_pass_occ"], "exclude each other"),
     (["--ckpt_backend", "orbax"], "orbax"),
     (["--rss_restart_gb", "8"], "rss_restart_gb"),
     # data parallelism is ported: a batch (8) that the ranks cannot split
