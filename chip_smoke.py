@@ -116,7 +116,11 @@ where every phase passed prints the two JSON lines at the end):
    metrics (finite; -1 exactly where a scene has no surface), every
    kernel call held against its plain version; and the f32 evaluation of
    the smallest room (cut to 64 voxels in z) on the card and on the host
-   CPU (--cpu): the same surface, the metrics within 1e-5;
+   CPU (--cpu): the same surface, the metrics within 1e-5; then the
+   quality-run scripts (sgnn_tpu_torch/tools/run_quality_train.sh for one
+   epoch of its recipe on the chunks, eval_quality_run.sh on the rooms:
+   the scene CLI, the metrics and the converter round trip, byte for
+   byte), each exiting 0;
 10. train2: the coordinate lists and the dense flow train on phase 7's
    chunks (full width, batch 8, bf16, occupancy fractions (1.0, 0.5, 0.25,
    0.125)): one f32 coordinate-list step with K10 (forward and input
@@ -145,7 +149,13 @@ where every phase passed prints the two JSON lines at the end):
    through SceneInferencer, bit-equal to the room served in this process;
    the level-output form z-sharded in f32 (LEVELS_EXPECTED launches a
    rank), each level's slabs joined against the unsharded level outputs
-   (masks bit-equal, raw heads within 2e-4);
+   (masks bit-equal, raw heads within 2e-4); the int8 forward z-sharded
+   in bf16 (each site's tiles and scales picked on the rank's slab, as
+   the JAX int8 bodies pick them under shard_map): INT8_EXPECTED
+   launches a rank, every kernel call of a second forward held to its
+   plain version on the rank (K1q, K2q, K3q bit-equal), ms per forward
+   and the exchanges' share, and its surface's IoU against the unsharded
+   int8 forward's, printed as a finding (so is the f32 int8 forward's);
 12. tools: the level-output form of the folded forward (phase 4's weights
    and scene, f32 and bf16): its launches (K4's gate only with the raw
    heads: LEVELS_EXPECTED), its surface against the only-surface form's
@@ -162,7 +172,11 @@ where every phase passed prints the two JSON lines at the end):
    summarize_train on phase 7's log, bench_stages (each stage's device
    time), bench_kernel (K8 against F.conv3d within 2 bf16 ulps),
    bench_backends (K10's and K8's launches), bench_mesh, bench_e2e
-   pipelined and --serial, and bench_train;
+   pipelined and --serial, and bench_train; then the JAX tools' other
+   forms: bench_e2e --int8 (the int8 sites' launches, no exact K1-K3)
+   and --execution sparse (K10 alone), each scene to PLY, and
+   bench_train --window 5 --dense_transfer (the sustained step time of
+   dense targets at a sync every 5 steps);
 13. composed: the folded execution's composed BN -> op forms. Serving:
    each ablation (GenModelFolded's options for the JAX package's
    SGNN_NO_MASKFUSE, SGNN_NO_UPCONV, SGNN_NO_HEADK, and the last two
@@ -3978,8 +3992,61 @@ def phase_drive(card: str, serve_weights) -> None:
         for k, v in rel.items():
             require(v <= DRIVE_METRIC_REL,
                     f"f32 {k}: card {rc[k]} host {rh[k]}")
+
+        # 6. the quality-run scripts on these rooms and chunks, one epoch
+        _quality_scripts(card, base)
     log(f"[drive] the phase took {time.perf_counter() - t_phase:.1f} s; "
         f"{card}")
+
+
+def _quality_scripts(card: str, base: str) -> None:
+    """Phase 9's last step: sgnn_tpu_torch/tools/run_quality_train.sh for
+    one epoch of its recipe (L=4, full width, batch 8, bf16) on the
+    drive's chunks, the last TRAIN_BATCH of them held out for validation,
+    then eval_quality_run.sh on the drive's rooms: each a subprocess on
+    the card, its exit code 0 and its own checks passed (the training
+    completed; scenes meshed; metrics written; the converter round trip
+    byte-identical)."""
+    tools = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                         "sgnn_tpu_torch", "tools")
+    data, run = os.path.join(base, "quality"), os.path.join(base, "qrun")
+    os.makedirs(data)
+    for d in ("chunks", "incomplete", "complete"):
+        os.symlink(os.path.join(base, d), os.path.join(data, d))
+    lists = {}
+    for name in ("chunks.txt", "scenes.txt"):
+        with open(os.path.join(base, name)) as fh:
+            lists[name] = [ln for ln in fh.read().splitlines() if ln]
+    files = lists["chunks.txt"]
+    for name, part in (("chunks_train.txt", files[:-TRAIN_BATCH]),
+                       ("chunks_val.txt", files[-TRAIN_BATCH:]),
+                       ("scenes_val.txt", lists["scenes.txt"])):
+        with open(os.path.join(data, name), "w") as fh:
+            fh.writelines(f + "\n" for f in part)
+    env = dict(os.environ, PYTHON=sys.executable, MAX_TRIES="1")
+    for script, argv, marks in (
+            ("run_quality_train.sh", ["900", "1", run, data],
+             ("[supervisor] training completed",)),
+            ("eval_quality_run.sh", [run, data],
+             ("round trip: byte-identical",))):
+        t0 = time.perf_counter()
+        p = subprocess.run(["bash", os.path.join(tools, script), *argv],
+                           env=env, capture_output=True, text=True,
+                           timeout=900)
+        wall = time.perf_counter() - t0
+        tail = "\n".join((p.stdout + p.stderr).splitlines()[-12:])
+        require(p.returncode == 0 and all(m in p.stdout for m in marks),
+                f"{script}: exit {p.returncode}\n{tail}")
+        log(f"[drive] {script} {' '.join(argv[:2])}: exit 0 in {wall:.1f} "
+            f"s; {card}")
+    with open(os.path.join(run, "eval", "metrics.json")) as fh:
+        m = json.load(fh)
+    require(len(m["scenes"]) == len(lists["scenes.txt"]),
+            f"eval_quality_run: {len(m['scenes'])} scenes scored")
+    log(f"[drive] quality run, one epoch: {len(files) - TRAIN_BATCH} "
+        f"training and {TRAIN_BATCH} validation chunks; held-out metrics "
+        f"{m['aggregate']}; the checkpoint's .pth round trip "
+        f"byte-identical")
 
 
 # ----------------------------------------------------------------- phase 11
@@ -4050,10 +4117,12 @@ def phase_multi(weights, serve_weights) -> None:
 
     # the unsharded references, in this process, with phase 4's weights or
     # the first seed's whose gates leave a surface on this scene in both
-    # types
+    # types and in the bf16 int8 forward
     models = {dt: GenModelFolded(SGNNConfig(compute_dtype=dt,
                                             **serve_kw)).cuda()
               for dt in ("float32", "bfloat16")}
+    models["int8"] = GenModelFolded(SGNNConfig(
+        compute_dtype="bfloat16", quantize_int8=True, **serve_kw)).cuda()
     for seed in (None, *range(8)):
         if seed is not None:
             weights = init_params(models["float32"].cfg, seed)
@@ -4062,7 +4131,7 @@ def phase_multi(weights, serve_weights) -> None:
             load_jax_params(model, *weights)
             surfs.append(int(model(locs, feats, MULTI_SCENE).surf_mask.sum()))
         log(f"[multi] weights {'of phase 4' if seed is None else seed}: "
-            f"surface {surfs} voxels (f32, bf16)")
+            f"surface {surfs} voxels (f32, bf16, bf16 int8)")
         if min(surfs) > 0:
             break
     require(min(surfs) > 0, "every seed closed the surface")
@@ -4072,11 +4141,20 @@ def phase_multi(weights, serve_weights) -> None:
         ms = _P().cuda_ms(lambda: model(locs, feats, MULTI_SCENE),
                           "cuda", MULTI_REPS)
         refs[dt] = (out.surf_mask.cpu().numpy(), out.surf_sdf.cpu().numpy(),
-                    out.coarse_out.cpu().numpy(), ms)
+                    out.coarse_out.cpu().numpy(), ms,
+                    [int(a) for a in out.level_active])
         log(f"[multi] unsharded folded {dt}: active per level "
             f"{[int(a) for a in out.level_active]}, {ms:.2f} ms per forward "
             f"(CUDA events, mean of {MULTI_REPS})")
         del out
+    # the f32 int8 forward's, for the finding below
+    models["int8 f32"] = GenModelFolded(SGNNConfig(
+        compute_dtype="float32", quantize_int8=True, **serve_kw)).cuda()
+    load_jax_params(models["int8 f32"], *weights)
+    out = models["int8 f32"](locs, feats, MULTI_SCENE)
+    refs["int8 f32"] = (out.surf_mask.cpu().numpy(),
+                        out.surf_sdf.cpu().numpy(), None, 0.0,
+                        [int(a) for a in out.level_active])
     # the level-output form's unsharded reference (f32)
     out = models["float32"](locs, feats, MULTI_SCENE,
                             want_level_outputs=True)
@@ -4162,6 +4240,14 @@ def phase_multi(weights, serve_weights) -> None:
         ("serve_folded", (dict(fkw, compute_dtype="float32"), weights, hl, hf,
                           MULTI_SCENE), dict(device="cuda:0",
                                              want_level_outputs=True)),
+        ("serve_folded", (dict(fkw, compute_dtype="bfloat16",
+                               quantize_int8=True), weights, hl, hf,
+                          MULTI_SCENE), dict(device="cuda:0",
+                                             reps=MULTI_REPS,
+                                             check=MainPathCheck)),
+        ("serve_folded", (dict(fkw, compute_dtype="float32",
+                               quantize_int8=True), weights, hl, hf,
+                          MULTI_SCENE), dict(device="cuda:0")),
     ]
     t0 = time.perf_counter()
     res = PM.launch(PG.sequence, n, "gloo", args=(jobs,), timeout_s=600)
@@ -4174,7 +4260,7 @@ def phase_multi(weights, serve_weights) -> None:
         mask = np.concatenate([r["surf_mask"] for r in ranks], 1)
         sdf = np.concatenate([r["surf_sdf"] for r in ranks], 1)
         coarse = np.concatenate([r["coarse_out"] for r in ranks], 1)
-        rmask, rsdf, rcoarse, rms = refs[dt]
+        rmask, rsdf, rcoarse, rms, _ = refs[dt]
         for r in ranks:
             got = {k: r["launches"][k] for k in FOLDED_PATH}
             require(all(got[k] == EXPECTED[k] for k in FOLDED_PATH)
@@ -4207,6 +4293,54 @@ def phase_multi(weights, serve_weights) -> None:
         log(f"[multi] z-sharded folded {dt} vs unsharded ({rms:.2f} ms): "
             f"surface {int(mask.sum())} voxels, {msg}; "
             f"{'bit-equal' if bits else 'not bit-equal'}")
+
+    # the int8 forward z-sharded (bf16): each int8 site picks its tiles
+    # and scales on the rank's slab, as the JAX int8 bodies do under
+    # shard_map, so the surface need not be the unsharded one's
+    ranks = [r[9] for r in res]
+    for r in ranks:
+        require(r["launches"] == INT8_EXPECTED,
+                f"int8 sharded forward, rank {r['rank']}: launches "
+                f"{ {k: v for k, v in r['launches'].items() if v} }, "
+                f"expected {INT8_EXPECTED}")
+        log(f"[multi] z-sharded int8 bfloat16, rank {r['rank']}: launches "
+            f"{ {k: v for k, v in r['launches'].items() if v} }; "
+            f"{r['ms']:.2f} ms per forward (CUDA events, mean of "
+            f"{MULTI_REPS}, the other rank sharing the card), halo "
+            f"exchanges {r['exchange_ms']:.2f} ms of a forward timed with a "
+            f"synchronisation at each (host clock, host-staged over gloo)")
+        for name, st in r["check"].items():
+            require(st["calls"] == INT8_EXPECTED[name],
+                    f"int8 sharded, rank {r['rank']}: {name} checked "
+                    f"{st['calls']} times, expected {INT8_EXPECTED[name]}")
+            if st["calls"]:
+                log(f"[multi] z-sharded int8, rank {r['rank']}, main-path "
+                    f"inputs, {name}: {st['calls']} calls, max |kernel - "
+                    f"plain| {st['err']:.3e} (at most {st['ratio']:.2f} of "
+                    f"its tolerance), gate flips {st['flips']}")
+    for j, key in ((9, "int8"), (10, "int8 f32")):
+        ranks = [r[j] for r in res]
+        mask = np.concatenate([r["surf_mask"] for r in ranks], 1)
+        sdf = np.concatenate([r["surf_sdf"] for r in ranks], 1)
+        rmask, rsdf, _, _, ract = refs[key]
+        for r in ranks:
+            require(r["launches"] == INT8_EXPECTED,
+                    f"{key} sharded forward, rank {r['rank']}: launches "
+                    f"{r['launches']}")
+        require(mask.any() and np.isfinite(sdf[mask]).all(),
+                f"{key} sharded surface: {int(mask.sum())} voxels, finite "
+                f"{bool(np.isfinite(sdf[mask]).all())}")
+        inter, union = (mask & rmask).sum(), (mask | rmask).sum()
+        both = mask & rmask
+        diff = np.abs(sdf[both] - rsdf[both])
+        act = np.sum([r["level_active"] for r in ranks], 0).tolist()
+        log(f"[multi] z-sharded {key} vs the unsharded {key} forward: "
+            f"active per level {act} vs {ract}, surface {int(mask.sum())} vs "
+            f"{int(rmask.sum())} voxels, IoU {float(inter / max(union, 1)):.5f}"
+            f", max |sdf diff| on the common surface "
+            f"{float(diff.max()) if diff.size else 0.0:.3e} (a finding, not "
+            f"a gate: the scales follow the slabs, as JAX's under "
+            f"shard_map)")
 
     # the level-output form z-sharded: each level's slabs joined against
     # the unsharded level outputs
@@ -4308,6 +4442,11 @@ TOOL_REPS = 2  # traced or timed forwards and steps a tool
 TOOL_SCENES = 3  # bench_e2e's and bench_mesh's scenes
 TOOL_STEPS, TOOL_WARMUP = 4, 2  # bench_train: timed steps after warm-up
 TOOL_CHUNKS = 6 * TRAIN_BATCH  # one epoch holds every bench_train step
+# bench_train --window: a fetch every TOOL_WINDOW steps, the first window
+# from the first fetch on, so TOOL_WINDOW_STEPS after the warm-up give
+# two windows
+TOOL_WINDOW = 5
+TOOL_WINDOW_STEPS = 3 * TOOL_WINDOW - TOOL_WARMUP
 # the hand-written kernels of one serving forward by their profiler labels
 # (ops.kernels.KERNEL_NAMES), launches as EXPECTED
 FORWARD_LABELS = {"K1": 37, "K2": 11, "K3": 3, "K4 gate and raw": 3,
@@ -4432,6 +4571,8 @@ def _per_forward(res: dict, labels: dict, what: str) -> None:
 def phase_tools(results: dict, weights, card: str, train_log: str) -> None:
     """Phase 12: the level-output form, then each measuring tool's main."""
     from sgnn_tpu_torch.config import SGNNConfig
+    from sgnn_tpu_torch.ops import kernels as K
+    from sgnn_tpu_torch.tools import _common as tools_common
     from sgnn_tpu_torch.tools import (bench_backends, bench_e2e, bench_kernel,
                                       bench_mesh, bench_stages, bench_train,
                                       roofline, summarize_train,
@@ -4549,6 +4690,43 @@ def phase_tools(results: dict, weights, card: str, train_log: str) -> None:
                                 str(TOOL_CHUNKS)])
         require(res["steps"] > 0 and np.isfinite(res["loss"]),
                 f"bench_train {res}")
+
+        # the JAX tools' other forms: scene to PLY through the int8
+        # forward and through the coordinate lists, and the sustained
+        # step time at a sync every TOOL_WINDOW steps with dense targets
+        for argv, want in ((["--int8"], INT8_EXPECTED),
+                           (["--execution", "sparse"],
+                            {k: SECONDARY["gather_gemm"]
+                             if k == "gather_gemm" else 0
+                             for k in EXPECTED})):
+            K.reset_launch_counts()
+            res = bench_e2e.main(["--scenes", str(TOOL_SCENES), *argv])
+            counts = K.launch_counts()
+            # the seed search's forwards, the warm-up and the scenes
+            n = res["seed"] + 2 + TOOL_SCENES
+            require(res["pred_mesh_files"] == TOOL_SCENES
+                    and counts == {k: v * n for k, v in want.items()},
+                    f"bench_e2e {argv}: {res}; launches {counts}, "
+                    f"expected {n} x {want}")
+            log(f"[tools] bench_e2e {' '.join(argv)}: "
+                f"{res['e2e_scenes_per_sec']:.3f} scenes/s, "
+                f"{res['mean_scene_ms']:.1f} ms per scene ({res['mode']}, "
+                f"host clock, {TOOL_SCENES} scenes "
+                f"{'x'.join(map(str, tools_common.SCENE_DIM))}), surface "
+                f"{res['surf_voxels_scene0']} voxels; launches per forward "
+                f"{ {k: v // n for k, v in counts.items() if v} }; {card}")
+        res = bench_train.main(["--steps", str(TOOL_WINDOW_STEPS),
+                                "--warmup", str(TOOL_WARMUP), "--num_chunks",
+                                str(TOOL_CHUNKS), "--window",
+                                str(TOOL_WINDOW), "--dense_transfer"])
+        require(res["steps"] > 0 and res["window"] == TOOL_WINDOW
+                and res["targets"] == "dense grids"
+                and np.isfinite(res["loss"]), f"bench_train window {res}")
+        log(f"[tools] bench_train --window {TOOL_WINDOW} --dense_transfer: "
+            f"{res['step_ms']:.1f} ms per step (median of {res['steps']} "
+            f"windows, host clock), {res['chunks_per_sec']:.2f} chunks/s, "
+            f"windows {' '.join(f'{t:.1f}' for t in res['times_ms'])} ms "
+            f"per step; targets as {res['targets']}; {card}")
     log(f"[tools] the phase took {time.perf_counter() - t_phase:.1f} s; "
         f"{card}")
 

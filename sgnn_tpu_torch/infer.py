@@ -31,6 +31,15 @@ file order, sorted, as the JAX inferencer cuts them. Three forwards serve:
   ``want_levels`` says, and for the sparse execution each level's
   compaction ``overflows``.
 
+``compact=False`` is the JAX inferencer's dense fetch (``compact=False``,
+its ``_postprocess_dense``) for the folded and dense-flow forwards: the
+folded forward runs its level-output form whatever ``want_levels`` says
+(JAX's ``want_level_outputs=not compact or want_levels``), every output
+grid is copied to the host whole, and the surface and levels are
+extracted there. By default (``compact=True``) they are extracted on the
+device and only the voxels found are copied. The coordinate-list
+execution ignores it, as the JAX inferencer does.
+
 ``measured_fractions`` is the JAX inferencer's calibration record
 (``sgnn_tpu/infer.py:327-337``): per padded scene shape, the most sites
 each refinement level ran on over the scenes served, over the level's
@@ -90,14 +99,16 @@ class SceneInferencer:
     ``impl="plain"`` runs every kernel's plain PyTorch version (on the
     card too); the default launches the CUDA kernels for a model on the
     card and the plain versions for a model on the CPU. ``want_levels``
-    picks the folded forward's form (module docstring)."""
+    picks the folded forward's form, ``compact`` where the outputs are
+    extracted (module docstring)."""
 
     def __init__(self, model: GenModelFolded | GenModelSparse
                  | GenModelDense, impl: str | None = None,
-                 want_levels: bool = True):
+                 want_levels: bool = True, compact: bool = True):
         self.model = model
         self.impl = impl
         self.want_levels = want_levels
+        self.compact = compact or isinstance(model, GenModelSparse)
         self._side = None  # the card's stream for collect()
         # padded dims -> {level: the most sites seen}
         self.observed_counts = {}
@@ -126,7 +137,8 @@ class SceneInferencer:
         locs, feats = locs.to(device), feats.to(device)
         if folded:
             out = self.model(locs, feats, dims, batch_size=1, impl=self.impl,
-                             want_level_outputs=self.want_levels)
+                             want_level_outputs=(self.want_levels
+                                                 or not self.compact))
         else:
             out = self.model(make_sparse(locs, feats, len(locs3), dims, 1),
                              impl=self.impl)
@@ -141,8 +153,8 @@ class SceneInferencer:
         """Crop, extract and copy one dispatched scene to the host. On
         the card this runs on a stream of its own that waits only for
         this scene's forward, so a scene dispatched later keeps running."""
-        if handle["done"] is None:
-            res = self._extract(handle)
+        if handle["done"] is None or not self.compact:
+            res = self._extract(handle, on_host=not self.compact)
         else:
             if self._side is None:
                 self._side = torch.cuda.Stream(
@@ -180,7 +192,10 @@ class SceneInferencer:
         return res
 
     @staticmethod
-    def _extract(handle: dict) -> dict:
+    def _extract(handle: dict, on_host: bool = False) -> dict:
+        """The surface and levels where the output lies, or with
+        ``on_host`` (the dense fetch) after every output grid is copied
+        to the host whole."""
         sample, out = handle["sample"], handle["out"]
         locs3, in_sdf = handle["locs3"], handle["in_sdf"]
         orig = np.asarray(sample["orig_dims"])
@@ -200,13 +215,19 @@ class SceneInferencer:
                 levels.append({"locs": lv_locs, "out": lv_out})
             res["overflows"] = [int(o) for o in out.overflows]
         else:
-            sm = out.surf_mask[0].clone()
+            grids = [out.surf_mask, out.surf_sdf, out.refine_outs,
+                     out.refine_masks_unfilt]
+            if on_host:
+                grids = [[g.cpu() for g in x] if isinstance(x, list)
+                         else x.cpu() for x in grids]
+            surf_mask, surf_sdf, refine_outs, refine_masks = grids
+            sm = surf_mask[0].clone()
             sm[int(orig[0]):] = False
             sm[:, int(orig[1]):] = False
             sm[:, :, int(orig[2]):] = False
             surf_locs = torch.nonzero(sm).to(torch.int32).cpu().numpy()
-            surf_sdf = out.surf_sdf[0][sm].cpu().numpy()
-            for grid, mask in zip(out.refine_outs, out.refine_masks_unfilt):
+            surf_sdf = surf_sdf[0][sm].cpu().numpy()
+            for grid, mask in zip(refine_outs, refine_masks):
                 m = mask[0]
                 levels.append({
                     "locs": torch.nonzero(m).to(torch.int32).cpu().numpy(),

@@ -609,8 +609,13 @@ class GenModelFolded(nn.Module):
         (``sharded_trunk``); every other op is slab-local, and the outputs
         are this rank's z-slabs, the level outputs too (each level's raw
         heads and unfiltered mask inside the slab). Z must divide by 32
-        times the group's size; the int8 forward is refused (its per-tile
-        scales would be picked on the slab, not on the scene)."""
+        times the group's size. Under ``cfg.quantize_int8`` each int8
+        site picks its tiles on the slab it is given and takes each
+        tile's amax over the slab's window, ring rows included once they
+        are exchanged, as the JAX int8 bodies do on each device's slab
+        under ``shard_map``: the activation scales follow the slabs, so
+        the answer is the JAX package's sharded one, not the unsharded
+        forward's."""
         cfg, dt = self.cfg, self.dtype
         L_ref = cfg.num_refine_levels
         n_active = L_ref if num_refine_active is None else num_refine_active
@@ -631,10 +636,6 @@ class GenModelFolded(nn.Module):
             if dims[0] % (32 * n_sp):
                 raise ValueError(f"spatial folded: Z={dims[0]} must divide "
                                  f"by 32*{n_sp}")
-            if cfg.quantize_int8:
-                raise ValueError("spatial folded: the int8 forward is not "
-                                 "sharded (tile_amax's tiles would be picked"
-                                 " on each slab, not on the scene)")
 
             def ex(g):
                 return FO.halo_exchange_z(g, space)

@@ -91,9 +91,10 @@ def masked_moments(x: torch.Tensor, mask: torch.Tensor | None,
 def batch_norm(params: dict, stats: dict, x: torch.Tensor,
                mask: torch.Tensor | None = None, *, training: bool,
                eps: float = SPARSE_BN_EPS, momentum: float = BN_MOMENTUM,
-               group=None):
-    """BN + ReLU over the last axis of ``x [..., C]`` with parameter
-    tensors (ops/bn.py:batch_norm, relu=True). Training: the batch moments
+               group=None, relu: bool = True):
+    """BN + ReLU (BN alone without ``relu``) over the last axis of ``x
+    [..., C]`` with parameter tensors (ops/bn.py:batch_norm; every model
+    site takes the ReLU). Training: the batch moments
     of the rows where ``mask [...]`` is True (over the ranks of ``group``
     too, as ``axis_name`` there), and the running stats updated with the
     unbiased variance (detached); eval: the running stats. The output is
@@ -111,7 +112,8 @@ def batch_norm(params: dict, stats: dict, x: torch.Tensor,
     else:
         mean, var, new_stats = stats["mean"], stats["var"], stats
     inv = torch.rsqrt(var + eps) * params["scale"]
-    y = torch.relu((x.float() - mean) * inv + params["bias"]).to(x.dtype)
+    y = (x.float() - mean) * inv + params["bias"]
+    y = (torch.relu(y) if relu else y).to(x.dtype)
     if mask is not None:
         y = torch.where(mask[..., None], y, 0)
     return y, new_stats
@@ -119,10 +121,12 @@ def batch_norm(params: dict, stats: dict, x: torch.Tensor,
 
 def batch_norm_dense(params: dict, stats: dict, x: torch.Tensor, *,
                      training: bool, eps: float = DENSE_BN_EPS,
-                     momentum: float = BN_MOMENTUM, group=None):
-    """BN + ReLU over the last axis of ``x [..., C]``, every voxel counted
-    (ops/bn.py:batch_norm_dense, relu=True): ``batch_norm`` without a mask
-    at the dense eps. Returns (y in x's type, new stats). The clamps are
-    torch.relu: gradient 0 at exactly 0."""
+                     momentum: float = BN_MOMENTUM, group=None,
+                     relu: bool = True):
+    """BN + ReLU (``relu`` False: ``nn.BatchNorm3d`` alone) over the last
+    axis of ``x [..., C]``, every voxel counted (ops/bn.py:
+    batch_norm_dense): ``batch_norm`` without a mask at the dense eps.
+    Returns (y in x's type, new stats). The clamps are torch.relu:
+    gradient 0 at exactly 0."""
     return batch_norm(params, stats, x, training=training, eps=eps,
-                      momentum=momentum, group=group)
+                      momentum=momentum, group=group, relu=relu)

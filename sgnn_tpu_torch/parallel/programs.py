@@ -8,8 +8,9 @@ package's ``shard_map``s.
 
 - ``serve_folded``: the folded serving forward of one scene, z-sharded
   over every rank (``GenModelFolded(space=...)``), in its only-surface or
-  level-output form, with each kernel's launches, and optionally the
-  forward's ms and the exchanges' share;
+  level-output form, exact or int8 (``quantize_int8`` in its config),
+  with each kernel's launches, and optionally the forward's ms and the
+  exchanges' share, and a check of its kernel calls;
 - ``serve_dense``: the dense flow's serving or training-mode forward of
   one scene, z-sharded over the space axis of a data x space grid;
 - ``serve_scenes``: data-parallel serving, a scene a rank through
@@ -81,14 +82,20 @@ def _timed(fn, dev: torch.device, reps: int) -> tuple[float, float]:
 def serve_folded(cfg_kw: dict, weights: tuple, locs: np.ndarray,
                  feats: np.ndarray, dims: tuple, device: str,
                  reps: int = 0, num_space: int | None = None,
-                 want_level_outputs: bool = False) -> dict:
+                 want_level_outputs: bool = False, check=None) -> dict:
     """One scene (``locs [N, 4]``, ``feats [N, 1]`` of the GLOBAL
     ``dims``) through ``GenModelFolded`` z-sharded over ``num_space``
     ranks (all by default; each group of that many serves the scene):
     this rank's slabs of the surface and coarse outputs, with
     ``want_level_outputs`` of each level's raw heads and unfiltered mask
     too, its kernels' launches in that forward, and with ``reps`` its ms
-    per forward and the exchanges' ms of it."""
+    per forward and the exchanges' ms of it. ``cfg_kw`` with
+    ``quantize_int8`` serves the int8 sites: the weights are quantized
+    once, at load, from the whole weights (as unsharded), and each site
+    picks its tiles and scales on this rank's slab. ``check``: a context
+    manager class entered around one more forward (chip_smoke.py's
+    MainPathCheck holds each kernel call to its plain version); its
+    instance's ``stats`` come back as ``check``."""
     from sgnn_tpu_torch.models.folded_flow import GenModelFolded
     from sgnn_tpu_torch.ops import kernels as K
     from sgnn_tpu_torch.params import load_jax_params
@@ -116,6 +123,11 @@ def serve_folded(cfg_kw: dict, weights: tuple, locs: np.ndarray,
            "refine_masks_unfilt": _np(out.refine_masks_unfilt)}
     if reps:
         res["ms"], res["exchange_ms"] = _timed(fwd, g.device, reps)
+    if check is not None:
+        with check() as chk:
+            fwd()
+        _sync(g.device)
+        res["check"] = chk.stats
     return res
 
 

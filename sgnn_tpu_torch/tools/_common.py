@@ -38,19 +38,29 @@ def rows(scene: dict, device) -> tuple:
     return locs.to(device), feats[:, None].to(device)
 
 
-def serving_model(cfg, scene: dict, device) -> tuple:
-    """(GenModelFolded of ``cfg`` on ``device``, its (params, stats), seed):
-    the first of SEEDS whose random weights leave a surface on ``scene``
+def serving_model(cfg, scene: dict, device, sparse: bool = False
+                  ) -> tuple:
+    """(the serving model of ``cfg`` on ``device``, its (params, stats),
+    seed): GenModelFolded, or with ``sparse`` GenModelSparse, with the
+    weights of the first of SEEDS that leave a surface on ``scene``
     (random gates can close every level; chip_smoke.py phase 4 picks its
     weights the same way), else the last tried."""
+    from sgnn_tpu_torch.infer import SceneInferencer
     from sgnn_tpu_torch.models.folded_flow import GenModelFolded
+    from sgnn_tpu_torch.models.sgnn import GenModelSparse
     from sgnn_tpu_torch.params import init_params, load_jax_params
 
-    model = GenModelFolded(cfg).to(device)
+    model = (GenModelSparse(cfg) if sparse else GenModelFolded(cfg)
+             ).to(device)
     locs, feats = rows(scene, device)
     for seed in SEEDS:
         weights = init_params(cfg, seed)
         load_jax_params(model, *weights)
-        if int(model(locs, feats, cfg.input_dim).surf_mask.sum()):
+        if sparse:
+            res = SceneInferencer(model, want_levels=False)(scene)
+            surface = len(res["surf_locs"])
+        else:
+            surface = int(model(locs, feats, cfg.input_dim).surf_mask.sum())
+        if surface:
             break
     return model, weights, seed

@@ -13,18 +13,30 @@ or one after another with ``--serial``; the host clock runs from the
 first dispatch to the last PLY, after a warm-up scene.
 
     python -m sgnn_tpu_torch.tools.bench_e2e [--scenes 12] [--serial]
-        [--cpu]
+        [--execution folded|sparse|dense_flow] [--compute_dtype bfloat16]
+        [--int8] [--no_compact] [--keep_output DIR] [--cpu]
 
-The forward is bench.py's: the folded execution in bf16 at occupancy
-fractions (1.0, 0.4, 0.2, 0.1), seeded random weights that leave a
-surface, its only-surface form; the surface is always extracted on the
-device (``infer.py``). Prints one JSON line {"e2e_scenes_per_sec": ...,
-...}. Runs on the card; ``--cpu`` runs the plain versions on the host.
+The forward is bench.py's by default: the folded execution in bf16 at
+occupancy fractions (1.0, 0.4, 0.2, 0.1), seeded random weights that
+leave a surface, its only-surface form, the surface extracted on the
+device (``infer.py``). The JAX tool's options pick another form:
+``--execution sparse`` serves through the coordinate lists
+(``GenModelSparse``, its level capacities from those fractions);
+``dense_flow`` is the folded forward, as in the port's scene CLI (the
+TPU's mapping of both); ``--compute_dtype``; ``--int8`` the folded
+forward's int8 sites (``cfg.quantize_int8``); ``--no_compact`` the dense
+fetch (every output grid, the level outputs too, copied to the host and
+extracted there; ``SceneInferencer(compact=False)``), labelled
+``+dense_fetch`` in ``mode`` where the default is ``+compact_fetch``;
+``--keep_output DIR`` writes the PLYs there and keeps them. Prints one
+JSON line {"e2e_scenes_per_sec": ..., ...}. Runs on the card; ``--cpu``
+runs the plain versions on the host.
 """
 
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
 import os
 import tempfile
@@ -67,9 +79,24 @@ def parse_args(argv=None):
     ap.add_argument("--scenes", type=int, default=12)
     ap.add_argument("--serial", action="store_true",
                     help="no dispatch/mesh overlap (the naive loop)")
+    ap.add_argument("--no_compact", action="store_true",
+                    help="fetch the whole output grids and extract on the "
+                         "host (the dense fetch)")
+    ap.add_argument("--execution", default="folded",
+                    choices=["folded", "sparse", "dense_flow"])
+    ap.add_argument("--compute_dtype", default="bfloat16",
+                    choices=["float32", "bfloat16"])
+    ap.add_argument("--int8", action="store_true",
+                    help="the folded forward's int8 sites")
+    ap.add_argument("--keep_output", default="",
+                    help="write the PLYs into this directory and keep them")
     ap.add_argument("--dims", type=int, nargs=3, default=list(C.SCENE_DIM))
     C.device_arg(ap)
-    return ap.parse_args(argv)
+    args = ap.parse_args(argv)
+    if args.int8 and args.execution == "sparse":
+        ap.error("--int8 serves the folded forward; the coordinate lists "
+                 "have no int8 mode")
+    return args
 
 
 def main(argv=None) -> dict:
@@ -83,11 +110,19 @@ def main(argv=None) -> dict:
     dims = tuple(args.dims)
     cfg = SGNNConfig(input_dim=dims, batch_size=1,
                      occupancy_fractions=C.FRACTIONS,
-                     compute_dtype="bfloat16")
+                     execution=args.execution,
+                     compute_dtype=args.compute_dtype,
+                     quantize_int8=args.int8)
     scenes = [synthetic_scene(dims, s) for s in range(args.scenes)]
-    model, _, seed = C.serving_model(cfg, scenes[0], device)
-    with tempfile.TemporaryDirectory(prefix="bench_e2e_") as out_dir:
-        inf = SceneInferencer(model, want_levels=False)
+    model, _, seed = C.serving_model(cfg, scenes[0], device,
+                                     sparse=args.execution == "sparse")
+    if args.keep_output:
+        os.makedirs(args.keep_output, exist_ok=True)
+    with contextlib.ExitStack() as stack:
+        out_dir = args.keep_output or stack.enter_context(
+            tempfile.TemporaryDirectory(prefix="bench_e2e_"))
+        inf = SceneInferencer(model, want_levels=False,
+                              compact=not args.no_compact)
 
         # warm-up on scene 0 (the kernels' first launches, the allocator)
         t0 = time.perf_counter()
@@ -129,7 +164,10 @@ def main(argv=None) -> dict:
         "pred_mesh_mb": mesh_bytes / 1e6,
         "compile_plus_first_s": first_s,
         "mode": ("serial" if args.serial else "pipelined")
-        + "+compact_fetch",
+        + ("+dense_fetch" if args.no_compact else "+compact_fetch"),
+        "execution": args.execution,
+        "compute_dtype": args.compute_dtype,
+        "int8": args.int8,
         "seed": seed,
         "device": P.device_entry(device),
     }

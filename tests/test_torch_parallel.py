@@ -503,17 +503,17 @@ def test_folded_sharded_matches_unsharded(ranks2):
 
 
 def test_folded_sharding_refusals(monkeypatch):
-    """Z that two slabs of 32 do not tile, and the int8 forward."""
+    """Z that two slabs of 32 do not tile (the int8 forward is sharded:
+    tests/test_torch_parallel_int8.py)."""
     from sgnn_tpu_torch.parallel import comm
 
     monkeypatch.setattr(comm, "size", lambda g: 1 if g is None else 2)
     args = (torch.zeros(1, 4, dtype=torch.long), torch.zeros(1, 1))
-    model = GenModelFolded(SGNNConfig(**FOLD_CFG))
-    with pytest.raises(ValueError, match="must divide by 32"):
-        model(*args, (96, 16, 32), space="space")
-    model = GenModelFolded(SGNNConfig(**dict(FOLD_CFG, quantize_int8=True)))
-    with pytest.raises(ValueError, match="int8"):
-        model(*args, FOLD_CFG["input_dim"], space="space")
+    for q8 in (False, True):
+        model = GenModelFolded(SGNNConfig(**dict(FOLD_CFG,
+                                                 quantize_int8=q8)))
+        with pytest.raises(ValueError, match="must divide by 32"):
+            model(*args, (96, 16, 32), space="space")
 
 
 # ----------------------------------------------------- per-rank batches

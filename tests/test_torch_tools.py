@@ -377,3 +377,149 @@ def test_tool_needs_a_card(tool):
     with pytest.raises(SystemExit) as e:
         tool.main([])
     assert "no CUDA device" in str(e.value.code)
+
+
+# ------------------------------------------- the JAX tools' other options
+
+
+def _count_calls(monkeypatch, mod, names) -> dict:
+    """Counts the calls of ``mod``'s functions ``names`` from now on."""
+    calls = dict.fromkeys(names, 0)
+    for n in names:
+        def counted(*a, _n=n, _f=getattr(mod, n), **k):
+            calls[_n] += 1
+            return _f(*a, **k)
+        monkeypatch.setattr(mod, n, counted)
+    return calls
+
+
+def test_bench_e2e_int8_runs_the_int8_sites(monkeypatch):
+    """--int8 serves the folded forward's int8 sites, K1q, K2q and K3q,
+    and no exact conv, down or upsample site (on the CPU their plain
+    versions take the scales themselves, without tile_amax's wrapper)."""
+    from sgnn_tpu_torch.ops.kernels import conv_site, downconv, upconv
+
+    counters = [_count_calls(monkeypatch, mod, names) for mod, names in (
+        (conv_site, ("conv_site", "conv_site_q")),
+        (downconv, ("downconv", "downconv_q")),
+        (upconv, ("upconv", "upconv_q")))]
+    res = bench_e2e.main(["--cpu", *TINY, "--scenes", "1", "--int8"])
+    calls = {k: v for c in counters for k, v in c.items()}
+    assert res["int8"] is True and res["pred_mesh_files"] == 1
+    # the seed search's forwards, the warm-up and the scene, 37 / 11 / 3
+    # sites each
+    n = res["seed"] + 3
+    assert calls == {"conv_site": 0, "conv_site_q": 37 * n, "downconv": 0,
+                     "downconv_q": 11 * n, "upconv": 0, "upconv_q": 3 * n}
+
+
+def test_bench_e2e_sparse_serves_the_coordinate_lists(monkeypatch):
+    """--execution sparse serves GenModelSparse alone; --compute_dtype
+    sets the served model's type."""
+    from sgnn_tpu_torch.models.folded_flow import GenModelFolded
+    from sgnn_tpu_torch.models.sgnn import GenModelSparse
+
+    calls, dtypes = {}, set()
+    for cls in (GenModelFolded, GenModelSparse):
+        calls[cls.__name__] = 0
+
+        def counted(self, *a, _f=cls.forward, _n=cls.__name__, **k):
+            calls[_n] += 1
+            dtypes.add(self.cfg.compute_dtype)
+            return _f(self, *a, **k)
+        monkeypatch.setattr(cls, "forward", counted)
+    res = bench_e2e.main(["--cpu", *TINY, "--scenes", "1", "--execution",
+                          "sparse", "--compute_dtype", "float32"])
+    assert res["execution"] == "sparse" and res["pred_mesh_files"] == 1
+    assert calls == {"GenModelFolded": 0,
+                     "GenModelSparse": res["seed"] + 3}
+    assert dtypes == {"float32"} and res["compute_dtype"] == "float32"
+
+
+def test_bench_e2e_dense_fetch_keeps_output(tmp_path):
+    """--no_compact labels the run +dense_fetch as the JAX tool does;
+    --keep_output leaves the PLYs in the given directory."""
+    out = tmp_path / "keep"
+    res = bench_e2e.main(["--cpu", *TINY, "--scenes", "1", "--no_compact",
+                          "--keep_output", str(out)])
+    assert res["mode"] == "pipelined+dense_fetch"
+    assert sorted(os.listdir(out)) == ["synth000__cmpinput-mesh.ply",
+                                       "synth000__cmppred-mesh.ply"]
+
+
+def test_dense_fetch_extracts_what_the_device_does():
+    """SceneInferencer(compact=False), the JAX inferencer's dense fetch:
+    the same surface and levels as the extraction on the device, from the
+    level-output form whatever want_levels says."""
+    from sgnn_tpu_torch.config import SGNNConfig
+    from sgnn_tpu_torch.infer import SceneInferencer, synthetic_scene
+    from sgnn_tpu_torch.models.folded_flow import GenModelFolded
+    from sgnn_tpu_torch.params import init_params, load_jax_params
+
+    cfg = SGNNConfig(encoder_dim=4, input_dim=(32, 32, 32), nf_coarse=8,
+                     nf=8, num_hierarchy_levels=3, batch_size=1,
+                     compute_dtype="float32")
+    model = GenModelFolded(cfg)
+    load_jax_params(model, *init_params(cfg, seed=1))
+    scene = synthetic_scene((32, 32, 32), seed=0, orig_dims=(30, 31, 29))
+    dev = SceneInferencer(model, want_levels=True)(scene)
+    host = SceneInferencer(model, want_levels=False, compact=False)(scene)
+    assert len(dev["surf_locs"]) > 0
+    for k in ("surf_locs", "surf_sdf", "input_locs", "input_sdf"):
+        np.testing.assert_array_equal(host[k], dev[k], err_msg=k)
+    assert host["level_active"] == dev["level_active"]
+    assert len(host["levels"]) == len(dev["levels"]) == 3
+    for a, b in zip(host["levels"], dev["levels"]):
+        assert a.keys() == b.keys()
+        for k in a:
+            np.testing.assert_array_equal(a[k], b[k], err_msg=k)
+
+
+def _bench_train(argv: list) -> dict:
+    return bench_train.main(["--cpu", *TINY, "--batch_size", "1",
+                             "--num_chunks", "3", "--compute_dtype",
+                             "float32", *argv])
+
+
+def test_bench_train_window_and_log_every(monkeypatch):
+    """--window 2: a fetch every 2 steps, windows from the first fetch on
+    (the JAX tool's window keys); --log_every 2: the metrics step every
+    second iteration."""
+    from sgnn_tpu_torch.train.loop import Trainer
+
+    seen = []
+    run_step = Trainer.run_step
+
+    def spy(self, batch, with_metrics=False, dev_batch=None):
+        seen.append(with_metrics)
+        return run_step(self, batch, with_metrics, dev_batch)
+    monkeypatch.setattr(Trainer, "run_step", spy)
+    res = _bench_train(["--steps", "5", "--warmup", "1", "--window", "2",
+                        "--log_every", "2"])
+    # fetches after steps 2, 4 and 6: the windows (2, 4] and (4, 6]
+    assert res["window"] == 2 and res["steps"] == 2
+    assert len(res["times_ms"]) == 2 and res["log_every"] == 2
+    assert res["step_ms"] == pytest.approx(np.median(res["times_ms"]))
+    assert seen == [True, False] * 3  # iterations 40 to 45
+
+
+def test_bench_train_dense_transfer(monkeypatch):
+    """--dense_transfer collates the dense target grids (the dataset's
+    sparse_targets off); --transfer_dtype ships the batch's floats in
+    that type."""
+    from sgnn_tpu_torch.train import step as TS
+
+    dtypes = []
+    to_device = TS.to_device
+
+    def spy(batch, device, transfer_dtype=torch.float32, *a, **k):
+        dtypes.append(transfer_dtype)
+        assert ("sdf" in batch) and ("target_locs" not in batch)
+        return to_device(batch, device, transfer_dtype, *a, **k)
+    monkeypatch.setattr(TS, "to_device", spy)
+    res = _bench_train(["--steps", "2", "--warmup", "0", "--dense_transfer",
+                        "--transfer_dtype", "bfloat16"])
+    assert res["targets"] == "dense grids"
+    assert res["transfer_dtype"] == "bfloat16" and res["steps"] == 2
+    assert dtypes and set(dtypes) == {torch.bfloat16}
+    assert np.isfinite(res["loss"])
