@@ -165,7 +165,7 @@ where every phase passed prints the two JSON lines at the end):
    measuring tool of sgnn_tpu_torch/tools in-process at full width with
    short counts: trace_forward in both forms and with --int8 (each
    hand-written kernel's launches per forward in the attribution, the
-   idle share over the same forwards' unprofiled window), trace_train
+   idle share over the traced forwards' own window), trace_train
    (K7's launches per folded step), roofline --measure (its families'
    calls as EXPECTED, its floors of phase 3's calls equal to their
    bounds, the roofline share) and --int8 (its families' calls),
@@ -437,8 +437,7 @@ def _shell(dims, width):
 def _P():
     """The package's profiling helpers (sgnn_tpu_torch/utils/profiling.py):
     CUDA-event times (cuda_ms), profiles with their warm-up cycle, lead-in
-    pad, retries and unprofiled window (profile_window), attribution and
-    report."""
+    pad and retries (profile_window), attribution and report."""
     from sgnn_tpu_torch.utils import profiling
 
     return profiling
@@ -463,8 +462,8 @@ def _kernels_ms(kernels, call, reps: int = 5):
     from sgnn_tpu_torch.ops.kernels import KERNEL_NAMES
 
     P = _P()
-    prof, _ = P.profile_window(lambda: [call(None) for _ in range(reps)],
-                               "cuda", warm=lambda: call(None))
+    prof = P.profile_window(lambda: [call(None) for _ in range(reps)],
+                            "cuda", warm=lambda: call(None))
     cats = P.attribution(prof, reps)["categories"]
     labels = [KERNEL_NAMES[k] for k in kernels]
     if cats == P.NOT_MEASURED or not all(lb in cats for lb in labels):
@@ -2818,9 +2817,9 @@ def phase_int8(results: dict, weights) -> None:
     # the device's busy time against the host clock: the forward is
     # launched from Python, so the CUDA-event times include host gaps
     for label, m in (("int8", model), ("exact", exact)):
-        prof, window = _P().profile_window(
+        prof = _P().profile_window(
             lambda m=m: m(locs, feats, SCENE), "cuda")
-        _P().report(prof, window, 1, 14, f"profile of one bfloat16 forward, "
+        _P().report(prof, 1, 14, f"profile of one bfloat16 forward, "
                     f"{label} sites", tag="int8")
 
     # every kernel call of one forward against its plain version there
@@ -3267,9 +3266,9 @@ def phase_secondary(results: dict, weights) -> None:
     for label, model in timed.items():
         infer = SceneInferencer(model, want_levels=False)
         if label != "folded":
-            prof, window = _P().profile_window(lambda: infer.dispatch(s0),
-                                               "cuda")
-            _P().report(prof, window, 1, 8, f"profile of one bfloat16 "
+            prof = _P().profile_window(lambda: infer.dispatch(s0),
+                                       "cuda")
+            _P().report(prof, 1, 8, f"profile of one bfloat16 "
                         f"forward, {label}", tag="secondary")
         for impl in (None, "plain", "plain", None):
             infer.impl = impl
@@ -3472,8 +3471,8 @@ def _step_ms(tag: str, what: str, model, dev: dict, lw, peak: int,
             b.record()
             b.synchronize()
             times[label].append(a.elapsed_time(b))
-    prof, window = _P().profile_window(lambda: _step(model, dev, lw), "cuda")
-    _P().report(prof, window, 1, 14, f"profile of {what}", tag=tag)
+    prof = _P().profile_window(lambda: _step(model, dev, lw), "cuda")
+    _P().report(prof, 1, 14, f"profile of {what}", tag=tag)
     ms = {k: float(np.median(v)) for k, v in times.items() if v}
     each = {k: " ".join(f"{t:.1f}" for t in v) for k, v in times.items()}
     B = model.cfg.batch_size
@@ -4553,16 +4552,15 @@ def _per_forward(res: dict, labels: dict, what: str) -> None:
     cats = res["categories"]
     require(cats != "not measured", f"{what}: no device events recorded")
     require(0 <= res["idle_share"] < 1 and res["device_ms"]
-            <= res["window_ms"], f"{what}: {res['device_ms']} ms of device "
-            f"time in a {res['window_ms']} ms window, idle share "
-            f"{res['idle_share']}")
+            <= res["profiled_window_ms"], f"{what}: {res['device_ms']} ms "
+            f"of device time in a {res['profiled_window_ms']} ms window, "
+            f"idle share {res['idle_share']}")
     for label, n in labels.items():
         got = cats.get(label, {}).get("launches", 0)
         require(got == n, f"{what}: {label} {got} launches, expected {n}")
     log(f"[tools] {what}: device {res['device_ms']:.3f} ms, idle share "
-        f"{res['idle_share']:.4f}, window {res['window_ms']:.3f} ms "
-        f"(host clock, unprofiled; {res['profiled_window_ms']:.3f} ms "
-        f"profiled); hand-written kernels "
+        f"{res['idle_share']:.4f}, window {res['profiled_window_ms']:.3f} "
+        f"ms (host clock, under the profiler); hand-written kernels "
         + "; ".join(f"{k} {v['ms']:.3f} ms {v['launches']:g} launches"
                     for k, v in cats.items() if k[0] == "K" or k ==
                     "tile_amax"))
@@ -4870,7 +4868,7 @@ def phase_composed(weights) -> None:
 
         def fwd():
             return m(locs, feats, SCENE)
-        prof, _ = _P().profile_window(fwd, "cuda")
+        prof = _P().profile_window(fwd, "cuda")
         d = _P().attribution(prof)["device_ms"]
         require(isinstance(d, float), f"{name}: no device events profiled")
         dev.setdefault(name, []).append(d)

@@ -28,8 +28,9 @@ names mirror the JAX package so each module's counterpart is easy to find:
                          process groups and per-rank batches, the
                          collectives with their gradients, z-sharded
                          grids, the per-rank programs
-  utils/profiling.py     trace, StepTimer, device memory, and where a
-                         profile's device time goes (idle share)
+  utils/profiling.py     the program's spans and counters, trace, device
+                         memory, and where a profile's device time goes
+                         (idle share, idle gaps)
   tools/                 the CLIs: test_scene, evaluate, train,
                          convert_checkpoint, make_synthetic_scenes,
                          generate_scans, make_chunks, dryrun_multichip;

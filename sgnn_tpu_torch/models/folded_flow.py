@@ -53,6 +53,7 @@ from sgnn_tpu_torch.ops import folded as FO
 from sgnn_tpu_torch.ops import quant as Q
 from sgnn_tpu_torch.ops.folded import MAXC, FGrid
 from sgnn_tpu_torch.parallel import comm
+from sgnn_tpu_torch.utils import profiling as P
 
 CPAD = 16  # lane budget of every level but the encoder's first
 
@@ -622,15 +623,25 @@ class GenModelFolded(nn.Module):
         if not 0 <= n_active <= L_ref:
             raise ValueError(f"num_refine_active {n_active} of {L_ref} "
                              f"refinement levels")
+        with P.span("forward"):
+            return self._forward(locs, feats, dims, batch_size, impl, space,
+                                 n_active, do_surf, want_level_outputs)
+
+    def _forward(self, locs, feats, dims, batch_size, impl, space, n_active,
+                 do_surf, want_level_outputs) -> FoldedOutput:
+        """The forward's levels, each under its span: ``encoder`` (the input
+        scatter and the encoder levels), ``trunk`` (the coarse trunk and
+        its gate), one ``refine`` a refinement level and ``surface``;
+        ``trunk`` and each ``refine`` count the voxels their gate kept
+        (``kept``, the level's ``level_active`` entry)."""
+        cfg, dt = self.cfg, self.dtype
+        L_ref = cfg.num_refine_levels
         X = dims[2]
         # level 0 runs at cpad 8 when its widths allow: 16 voxels per row
         cpad0 = 8 if (cfg.input_nf <= 8 and cfg.nf_per_level[0] <= 8
                       and X % 16 == 0) else CPAD
         if space is None:
             ex = _same
-            x, m = FO.scatter_sparse(locs, feats, locs.shape[0], dims,
-                                     batch_size, cpad=cpad0, dtype=dt,
-                                     feat_bound=cfg.truncation, impl=impl)
         else:
             n_sp = comm.size(space)
             if dims[0] % (32 * n_sp):
@@ -639,62 +650,72 @@ class GenModelFolded(nn.Module):
 
             def ex(g):
                 return FO.halo_exchange_z(g, space)
-            x, m = FO.scatter_sparse_sharded(
-                locs, feats, locs.shape[0], dims, batch_size, space,
-                cpad=cpad0, dtype=dt, feat_bound=cfg.truncation, impl=impl)
-            m = ex(m)
 
-        # ---- encoder levels
-        skips = []
-        for lvl, layer in enumerate(self.encoder):
-            widen = lvl == 0 and cpad0 != CPAD
-            x, m, ft2 = layer([x], m, cpad_out=CPAD if widen else None,
-                              impl=impl, ex=ex)
-            if widen:  # the full-res skip is consumed at cpad 16
-                ft2 = (FO.repack_cpad(ft2[0], CPAD), ft2[1])
-            skips.append(ft2)
-        skips.append((x, m))
+        with P.span("encoder"):
+            if space is None:
+                x, m = FO.scatter_sparse(locs, feats, locs.shape[0], dims,
+                                         batch_size, cpad=cpad0, dtype=dt,
+                                         feat_bound=cfg.truncation,
+                                         impl=impl)
+            else:
+                x, m = FO.scatter_sparse_sharded(
+                    locs, feats, locs.shape[0], dims, batch_size, space,
+                    cpad=cpad0, dtype=dt, feat_bound=cfg.truncation,
+                    impl=impl)
+                m = ex(m)
+            skips = []
+            for lvl, layer in enumerate(self.encoder):
+                widen = lvl == 0 and cpad0 != CPAD
+                x, m, ft2 = layer([x], m, cpad_out=CPAD if widen else None,
+                                  impl=impl, ex=ex)
+                if widen:  # the full-res skip is consumed at cpad 16
+                    ft2 = (FO.repack_cpad(ft2[0], CPAD), ft2[1])
+                skips.append(ft2)
+            skips.append((x, m))
 
-        # ---- coarse dense trunk (1/8 res)
-        y, coarse_out, _ = sharded_trunk(
-            lambda t: (*self.trunk(t), None), FO.unfold(x), space)
-        cur_mask = torch.sigmoid(coarse_out[..., 0]) > 0.5
-        cur_fm = ex(FO.fold_mask(cur_mask, CPAD, dt))
-        cur = []
-        if cfg.pass_occ:
-            o = FO.fold(coarse_out.to(dt), CPAD)
-            cur.append(o.with_data(o.data * cur_fm.data))
-        if cfg.pass_feats:
-            f = FO.fold(y, CPAD)
-            cur.append(f.with_data(f.data * cur_fm.data))
-        active = [cur_mask.sum()]
+        with P.span("trunk"):  # the coarse dense trunk (1/8 res)
+            y, coarse_out, _ = sharded_trunk(
+                lambda t: (*self.trunk(t), None), FO.unfold(x), space)
+            cur_mask = torch.sigmoid(coarse_out[..., 0]) > 0.5
+            cur_fm = ex(FO.fold_mask(cur_mask, CPAD, dt))
+            cur = []
+            if cfg.pass_occ:
+                o = FO.fold(coarse_out.to(dt), CPAD)
+                cur.append(o.with_data(o.data * cur_fm.data))
+            if cfg.pass_feats:
+                f = FO.fold(y, CPAD)
+                cur.append(f.with_data(f.data * cur_fm.data))
+            active = [cur_mask.sum()]
+            P.count("kept", active[-1])
 
-        # ---- refinement levels
         out = FoldedOutput(coarse_out, None, None, active)
         for h, ref in enumerate(self.refinement[:n_active]):
-            if cfg.use_skip_sparse:
-                sk = skips[L_ref - h][0]
-                cur = [*cur, sk.with_data(sk.data * cur_fm.data)]
-            upm, o2m, cur_fm, raw, fm_unfilt = ref(
-                cur, cur_fm, impl=impl, ex=ex, levels=want_level_outputs)
-            cur = [upm] * cfg.pass_feats + [o2m] * cfg.pass_occ
-            # inside the slab: under sharding the ring holds a neighbour's
-            active.append((cur_fm.data[:, 1:-1, ..., ::CPAD] > 0).sum())
-            if want_level_outputs:
-                out.refine_outs.append(FO.unfold(raw).float())
-                out.refine_masks_unfilt.append(
-                    FO.unfold(fm_unfilt)[..., 0] > 0.5)
+            with P.span("refine"):
+                if cfg.use_skip_sparse:
+                    sk = skips[L_ref - h][0]
+                    cur = [*cur, sk.with_data(sk.data * cur_fm.data)]
+                upm, o2m, cur_fm, raw, fm_unfilt = ref(
+                    cur, cur_fm, impl=impl, ex=ex, levels=want_level_outputs)
+                cur = [upm] * cfg.pass_feats + [o2m] * cfg.pass_occ
+                # inside the slab (under sharding the ring holds a
+                # neighbour's)
+                active.append((cur_fm.data[:, 1:-1, ..., ::CPAD] > 0).sum())
+                P.count("kept", active[-1])
+                if want_level_outputs:
+                    out.refine_outs.append(FO.unfold(raw).float())
+                    out.refine_masks_unfilt.append(
+                        FO.unfold(fm_unfilt)[..., 0] > 0.5)
 
-        # ---- surface prediction
-        if do_surf and n_active == L_ref:
-            if cfg.use_skip_sparse:
-                sk = skips[0][0]
-                cur = [*cur, sk.with_data(sk.data * cur_fm.data)]
-            out.surf_sdf, out.surf_mask = self.surface(cur, cur_fm,
-                                                       impl=impl, ex=ex)
-        else:  # the JAX forward's zeros (folded_flow.py:365-367)
-            shape = (batch_size, *skips[0][1].dims)
-            out.surf_sdf = torch.zeros(shape, device=coarse_out.device)
-            out.surf_mask = torch.zeros(shape, dtype=torch.bool,
-                                        device=coarse_out.device)
+        with P.span("surface"):
+            if do_surf and n_active == L_ref:
+                if cfg.use_skip_sparse:
+                    sk = skips[0][0]
+                    cur = [*cur, sk.with_data(sk.data * cur_fm.data)]
+                out.surf_sdf, out.surf_mask = self.surface(cur, cur_fm,
+                                                           impl=impl, ex=ex)
+            else:  # the JAX forward's zeros (folded_flow.py:365-367)
+                shape = (batch_size, *skips[0][1].dims)
+                out.surf_sdf = torch.zeros(shape, device=coarse_out.device)
+                out.surf_mask = torch.zeros(shape, dtype=torch.bool,
+                                            device=coarse_out.device)
         return out

@@ -76,10 +76,10 @@ def main(argv=None) -> dict:
         launches = {k: v for k, v in K.launch_counts().items() if v}
         ms = wall = idle = P.NOT_MEASURED  # no device time on the host
         if device.type == "cuda":
-            prof, window = P.profile_window(reps, device, warm=fwd)
+            prof = P.profile_window(reps, device, warm=fwd)
             ms = P.attribution(prof, args.reps)["device_ms"]
             wall = P.cuda_ms(fwd, device, args.reps)
-            idle = P.idle_share(prof, window)
+            idle = P.idle_share(prof)
         timed = isinstance(ms, float)
         row = {"stage": name, "cum_ms": ms,
                "delta_ms": ms - prev if timed else ms, "wall_ms": wall,

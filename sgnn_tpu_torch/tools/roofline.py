@@ -32,8 +32,8 @@ the gates' compares between the sites.
 ``--measure`` (card only) also traces ``--reps`` forwards and prints
 the forward's roofline share (the sum of the floors over the forward's
 device time) and idle share, both from a trace without the Recorder's
-profiler ranges (the idle share's window from the same forwards run
-before the profiler starts), then each family's device ms (the kernels
+profiler ranges (the idle share's window that of the traced forwards
+themselves), then each family's device ms (the kernels
 launched inside its calls, nested calls counted once, in the outermost)
 beside its floor, from a second trace with the ranges.
 
@@ -386,12 +386,12 @@ def main(argv=None) -> dict:
                 fwd()
         # the forward's device time and idle share from a trace without
         # the Recorder's ranges; each family's from a second one with them
-        prof, window = P.profile_window(reps, device, args.out, warm=fwd)
+        prof = P.profile_window(reps, device, args.out, warm=fwd)
         att = P.attribution(prof, args.reps)
         res["forward_device_ms"] = att["device_ms"]
-        res["idle_share"] = P.idle_share(prof, window)
+        res["idle_share"] = P.idle_share(prof)
         with Recorder(price=False):
-            ranged, _ = P.profile_window(reps, device, warm=fwd)
+            ranged = P.profile_window(reps, device, warm=fwd)
         spans = P.range_device_ms(ranged, "roofline::")
         for fam, f in fams.items():
             f["device_ms"] = (spans.get(fam, 0.0) / args.reps

@@ -12,8 +12,9 @@ time per forward by kernel and by category (each hand-written kernel by
 its CUDA name, cuDNN convs, GEMMs, elementwise and reduce, copies and
 memsets), each kernel wrapper's launches per forward, and the forward's
 idle share: 1 - (union of the device's kernel and copy intervals in the
-trace) / (the median host-clock window of the same forwards, three
-runs before the profiler starts: it slows the host's launches). A
+trace) / (the host-clock window of the traced forwards themselves), and
+the longest idle gaps, each named by the program's span (``sgnn::<name>``,
+``profiling.span``) open on the host at its start. A
 profiler session that misses device events is tried again
 (``profiling.profile_window``); when none of its sessions recorded any,
 the device numbers print as "not measured".
@@ -77,11 +78,11 @@ def main(argv=None) -> dict:
     def traced():
         for _ in range(args.reps):
             fwd()
-    prof, window = P.profile_window(traced, device, args.out, warm=fwd)
+    prof = P.profile_window(traced, device, args.out, warm=fwd)
     launches = {k: v / args.reps for k, v in prof.launches.items() if v}
     what = (f"{'int8 ' if args.int8 else ''}forward {dims}"
             f"{' with level outputs' if args.full_outputs else ''}")
-    att = P.report(prof, window, args.reps, args.top, what)
+    att = P.report(prof, args.reps, args.top, what)
     res = {"device": P.device_entry(device), "what": what, "seed": seed,
            "reps": args.reps, "trace": os.path.join(args.out, "trace.json"),
            "launches": launches, "acc": float(sum(acc[-args.reps:])), **att}

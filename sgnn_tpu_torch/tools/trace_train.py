@@ -10,9 +10,10 @@ traced by torch.profiler into ``--out``; it prints what
 ``trace_forward`` prints for them: the device time per step by kernel
 and by category, each kernel wrapper's launches per step, and the step's
 idle share (1 - (union of the device's kernel and copy intervals in the
-trace) / (the median host-clock window of the same steps, three runs
-before the profiler starts), "not measured" when the profiler recorded no device
-events).
+trace) / (the host-clock window of the traced steps themselves), "not
+measured" when the profiler recorded no device events) and the longest
+idle gaps, each named by the step's span (``sgnn::<phase>``,
+``profiling.span``) that held the host.
 
     python -m sgnn_tpu_torch.tools.trace_train
         [--execution folded|sparse|dense_flow] [--reps 3] [--out DIR]
@@ -86,12 +87,12 @@ def main(argv=None) -> dict:
                 m, _ = trainer.run_step(batch, args.with_metrics, dev)
                 losses.append(m["loss"])
         reps = len(batches) - 1
-        prof, window = P.profile_window(traced, device, args.out, warm=warm)
+        prof = P.profile_window(traced, device, args.out, warm=warm)
     launches = {k: v / reps for k, v in prof.launches.items() if v}
     what = (f"{args.execution} train step, batch {args.batch_size} "
             f"{tuple(args.dims)} {args.compute_dtype}"
             f"{' with metrics' if args.with_metrics else ''}")
-    att = P.report(prof, window, reps, args.top, what)
+    att = P.report(prof, reps, args.top, what)
     res = {"device": P.device_entry(device), "what": what, "reps": reps,
            "trace": os.path.join(args.out, "trace.json"),
            "launches": launches, "loss": float(losses[-1]),

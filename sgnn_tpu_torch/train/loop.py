@@ -35,6 +35,9 @@ from sgnn_tpu_torch.config import SGNNConfig
 from sgnn_tpu_torch.params import export_params, load_jax_params
 from sgnn_tpu_torch.train import state as ST
 from sgnn_tpu_torch.train import step as TS
+from sgnn_tpu_torch.utils import profiling as P
+
+_END = object()  # the end of a loader's batches, in _prefetch
 
 
 @dataclasses.dataclass
@@ -173,7 +176,10 @@ class Trainer:
     def _prefetch(self, loader):
         """Yield (host batch, device batch), the next batch's copy enqueued
         before the current one is handed out (under data parallelism this
-        rank's slice, through ``parallel.mesh.prefetch_to_device``)."""
+        rank's slice, through ``parallel.mesh.prefetch_to_device``). On
+        one device the wait for the loader's next batch is the span
+        ``batch_wait`` and its copy's enqueue ``to_device``
+        (``profiling.span``)."""
         if self.groups is not None:
             from sgnn_tpu_torch.parallel import mesh as PM
 
@@ -183,9 +189,14 @@ class Trainer:
                 self.groups.data_index, self.device,
                 transfer_dtype=self.transfer_dtype)
             return
-        pending = None
-        for b in loader:
-            nxt = (b, TS.to_device(b, self.device, self.transfer_dtype))
+        pending, batches = None, iter(loader)
+        while True:
+            with P.span("batch_wait"):
+                b = next(batches, _END)
+            if b is _END:
+                break
+            with P.span("to_device"):
+                nxt = (b, TS.to_device(b, self.device, self.transfer_dtype))
             if pending is not None:
                 yield pending
             pending = nxt

@@ -32,6 +32,7 @@ from sgnn_tpu_torch.models.sgnn import (GenModelSparseTrain,
 from sgnn_tpu_torch.ops.sparse import make_sparse
 from sgnn_tpu_torch.parallel import comm
 from sgnn_tpu_torch.train.state import set_lr
+from sgnn_tpu_torch.utils import profiling as P
 
 # the trainable model of each execution (cfg.execution)
 TRAIN_MODELS = {m.EXECUTION: m for m in (
@@ -286,43 +287,55 @@ def train_step(model, opt, batch: dict, loss_weights, lr: float, *,
     as device tensors: loss, per_level (L + 1 entries, -1 inactive) and,
     with ``with_metrics``, iou / l1pred / l1tgt. ``group``: data
     parallelism over its ranks (module docstring); the batch is this
-    rank's slice and ``model.cfg.batch_size`` its size."""
+    rank's slice and ``model.cfg.batch_size`` its size. Its spans
+    (``profiling.span``): ``train_step`` over ``prepare``,
+    ``forward_loss`` (the forward and the loss), ``backward`` (the
+    gradients, a level's zeros and their mean over ``group``),
+    ``optimizer`` (Adam, the BN stats and the loss's mean) and,
+    ``with_metrics``, ``metrics``."""
     cfg = model.cfg
-    inputs, targets, known = _prepare(cfg, batch, use_loss_masking)
-    lw = [float(w) for w in loss_weights]
-    total, (per_level, out, new_stats) = _forward_loss(
-        model.param_tree(), model.stat_tree(), cfg, inputs, targets, lw,
-        known, num_refine_active=num_refine_active, do_surf=do_surf,
-        use_log_transform=use_log_transform,
-        weight_missing_geo=weight_missing_geo,
-        use_loss_masking=use_loss_masking, training=True, group=group)
-    opt.zero_grad(set_to_none=True)
-    total.backward()
-    for p in model.weights:
-        # a level the fade-in has not reached gets a zero gradient, as from
-        # jax.grad: Adam then steps every parameter, its count is global
-        # and a level's first moments decay from the step it joins
-        if p.grad is None:
-            p.grad = torch.zeros_like(p)
-    if group is not None:
-        grads = _mean([p.grad for p in model.weights], group)
-        for p, g in zip(model.weights, grads):
-            p.grad.copy_(g)
-    set_lr(opt, lr)
-    opt.step()
-    model.set_stats(new_stats)
-    total, per = _mean([total.detach(),
-                        torch.stack([p.detach() for p in per_level])], group)
-    metrics = {"loss": total, "per_level": per,
-               # rows the coordinate lists' compactions dropped at a
-               # capacity (train/step.py:349-356); 0 for a dense output
-               "overflow": max(getattr(out, "overflows", None) or [0])}
-    if with_metrics:
-        with torch.no_grad():
-            metrics.update(_mean_metrics(_metrics(
-                cfg, out, targets, known,
-                num_refine_active=num_refine_active, do_surf=do_surf,
-                use_loss_masking=use_loss_masking), group))
+    with P.span("train_step"):
+        with P.span("prepare"):
+            inputs, targets, known = _prepare(cfg, batch, use_loss_masking)
+        lw = [float(w) for w in loss_weights]
+        with P.span("forward_loss"):
+            total, (per_level, out, new_stats) = _forward_loss(
+                model.param_tree(), model.stat_tree(), cfg, inputs, targets,
+                lw, known, num_refine_active=num_refine_active,
+                do_surf=do_surf, use_log_transform=use_log_transform,
+                weight_missing_geo=weight_missing_geo,
+                use_loss_masking=use_loss_masking, training=True,
+                group=group)
+        with P.span("backward"):
+            opt.zero_grad(set_to_none=True)
+            total.backward()
+            for p in model.weights:
+                # a level the fade-in has not reached gets a zero gradient,
+                # as from jax.grad: Adam then steps every parameter, its
+                # count is global and a level's first moments decay from
+                # the step it joins
+                if p.grad is None:
+                    p.grad = torch.zeros_like(p)
+            if group is not None:
+                grads = _mean([p.grad for p in model.weights], group)
+                for p, g in zip(model.weights, grads):
+                    p.grad.copy_(g)
+        with P.span("optimizer"):
+            set_lr(opt, lr)
+            opt.step()
+            model.set_stats(new_stats)
+            total, per = _mean([total.detach(), torch.stack(
+                [p.detach() for p in per_level])], group)
+        metrics = {"loss": total, "per_level": per,
+                   # rows the coordinate lists' compactions dropped at a
+                   # capacity (train/step.py:349-356); 0 for a dense output
+                   "overflow": max(getattr(out, "overflows", None) or [0])}
+        if with_metrics:
+            with P.span("metrics"), torch.no_grad():
+                metrics.update(_mean_metrics(_metrics(
+                    cfg, out, targets, known,
+                    num_refine_active=num_refine_active, do_surf=do_surf,
+                    use_loss_masking=use_loss_masking), group))
     return metrics
 
 

@@ -3,25 +3,22 @@ sgnn_tpu_torch/tools: trace_forward, trace_train, roofline,
 summarize_train, bench_stages, bench_kernel, bench_backends, bench_mesh,
 bench_e2e, bench_train) on the CPU at tiny sizes.
 
-``summarize_train`` prints the JAX tool's bytes and ``StepTimer`` its
-statistics; every tool's ``main`` runs with ``--cpu`` (the plain
-versions; device numbers "not measured") and, without it on a host with no
-CUDA device, exits non-zero with a message; the roofline's kernel families
-are called as often as the JAX tool's, and its bytes and operations are a
-hand count's.
+``summarize_train`` prints the JAX tool's bytes; every tool's ``main``
+runs with ``--cpu`` (the plain versions; device numbers "not measured")
+and, without it on a host with no CUDA device, exits non-zero with a
+message; the roofline's kernel families are called as often as the JAX
+tool's, and its bytes and operations are a hand count's.
 """
 
 import json
 import os
 import subprocess
 import sys
-import time
 
 import numpy as np
 import pytest
 import torch
 
-from sgnn_tpu.utils import profiling as JP
 from sgnn_tpu_torch.ops import folded as FO
 from sgnn_tpu_torch.tools import (bench_backends, bench_e2e, bench_kernel,
                                   bench_mesh, bench_stages, bench_train,
@@ -105,22 +102,6 @@ def test_summarize_train_bytes(tmp_path, val, every):
 # ---------------------------------------------------------- profiling
 
 
-def test_step_timer_matches_jax(monkeypatch):
-    """The same step durations (an injected clock) give JAX's summary."""
-    ticks = [0.0, 0.5, 1.0, 1.25, 2.0, 2.75, 3.0, 3.1, 4.0, 4.5, 5.0, 5.2]
-    summaries = []
-    for T in (JP.StepTimer, P.StepTimer):
-        clock = iter(ticks)
-        monkeypatch.setattr(time, "perf_counter", lambda: next(clock))
-        t = T(warmup=2)
-        for _ in range(len(ticks) // 2):
-            with t.step():
-                pass
-        summaries.append(t.summary())
-    assert summaries[0] == summaries[1] and summaries[1]["steps"] == 4
-    assert P.StepTimer().summary() == JP.StepTimer().summary()
-
-
 def test_memory_stats_and_trace(tmp_path):
     """No CUDA device here: no memory stats, as JAX gives on the CPU; a
     trace writes a Chrome trace json reads, whose CPU events the reader
@@ -131,7 +112,8 @@ def test_memory_stats_and_trace(tmp_path):
     with open(tmp_path / "trace.json") as f:
         assert json.load(f)["traceEvents"]
     assert P.attribution(prof)["device_ms"] == P.NOT_MEASURED
-    assert P.idle_share(prof, 1.0) == P.NOT_MEASURED
+    assert P.idle_share(prof) == P.NOT_MEASURED
+    assert P.idle_gaps(prof) == []
     assert P.device_entry("cpu") == CPU
 
 
@@ -168,6 +150,7 @@ def test_attribution_and_idle_share(capsys):
     events = [ev(k1, 0, 2), ev(k1, 1, 3), ev("Memset (Device)", 5, 6),
               ev("ProfilerStep#2", 0, 10), ev("roofline::conv-site", 0, 9,
                                               annot=True),
+              ev("sgnn::refine", 4, 7, annot=True),
               ev("aten::mm", 0, 10, dev=DeviceType.CPU)]
     rows = {}
     for e in events:  # key_averages: one row per key
@@ -182,17 +165,19 @@ def test_attribution_and_idle_share(capsys):
         "K1": {"ms": pytest.approx(4e-3 / 2), "launches": 1.0},
         "copies and memsets": {"ms": pytest.approx(1e-3 / 2),
                                "launches": 0.5}}
-    # busy 0-3 and 5-6 us of a 10 us window
-    assert P.idle_share(prof, 10e-6) == pytest.approx(0.6)
+    # busy 0-3 and 5-6 us of the traced stretch's own 10 us window
+    prof.profiled_window_s = 10e-6
+    assert P.idle_share(prof) == pytest.approx(0.6)
     # a range's device work: the kernels and copies inside its GPU span
     assert P.range_device_ms(prof, "roofline::") == {
         "conv-site": pytest.approx(4e-3)}
-    # the report: the idle share over the unprofiled window it is given,
-    # the profiled one beside it, every line led by the tag
+    # the report: the idle share over the traced stretch's window, each
+    # span's device work per run, every line led by the tag
     prof.profiled_window_s = 40e-6
-    rep = P.report(prof, 10e-6, 2, 5, "two runs", tag="t")
-    assert rep["idle_share"] == pytest.approx(0.6)
-    assert rep["window_ms"] == pytest.approx(5e-3 / 2 * 2)
+    rep = P.report(prof, 2, 5, "two runs", tag="t")
+    assert rep["idle_share"] == pytest.approx(0.9)
+    assert rep["idle_gaps"] == [("host", pytest.approx(2e-3))]
+    assert rep["span_device_ms"] == {"refine": pytest.approx(1e-3 / 2)}
     assert rep["profiled_window_ms"] == pytest.approx(20e-3)
     out = capsys.readouterr().out.splitlines()
     assert out and all(line.startswith("[t] ") for line in out)
