@@ -52,12 +52,17 @@ where every phase passed prints the two JSON lines at the end):
    weights) answers three synthetic sphere scenes through
    sgnn_tpu_torch.infer.SceneInferencer; every kernel of that path must
    have been launched in that run (the summed surface head, head_sum, not
-   at all); then every kernel call of one forward is held against its
-   plain version on the forward's own inputs; one scene runs with
-   impl="plain" and the two surfaces are compared, in f32 and bf16; in
-   bf16 the plain forward also runs a second time on the card and once on
-   the host CPU, which shows how far the surface moves with no
-   hand-written kernel involved; one scene runs through the summed surface
+   at all), every conv_site launch by its tensor-core body
+   (conv_site.mma_launches); then every kernel call of one forward is held
+   against its plain version on the forward's own inputs; one scene runs
+   with impl="plain" and the two surfaces are compared, in f32 (IoU >=
+   0.999) and bf16 (printed); in bf16 the plain forward also runs a second
+   time on the card and once on the host CPU, which shows how far the
+   surface moves with no hand-written kernel involved, and the kernels'
+   forward (and, printed, the plain one) is held to the benchmark's f32
+   reference (h100bench.serve.check_room: gate_rms, sdf_rms) under
+   limits of its own (REF_LIMITS_BF16), which the int8 forward, a
+   precision below, must exceed; one scene runs through the summed surface
    head (surf_pack=False, head_sum's path); and with cuDNN at PyTorch's
    process defaults, two kernel forwards of one scene must give the same
    bits and the dense trunk's f32 output must match the host CPU's;
@@ -137,7 +142,7 @@ where every phase passed prints the two JSON lines at the end):
    pinned host memory; NCCL's path needs a card a rank): the 192^3 sphere
    scene z-sharded at full width through the folded forward in f32 (masks
    bit-equal to the unsharded forward here, values within 2e-4) and bf16
-   (surface IoU against phase 4's bar, or bit-equal), each rank's kernel
+   (surface IoU >= MIN_IOU_BF16, or bit-equal), each rank's kernel
    launches required (phase 4's per forward), ms per forward and the
    halo exchanges' share; the dense flow z-sharded in f32 (within 2e-4 of
    the unsharded dense flow, IoU >= 0.999); data-parallel folded
@@ -184,7 +189,7 @@ where every phase passed prints the two JSON lines at the end):
    scene, its launches required (ABLATION_EXPECTED), every kernel call of
    one forward held against its plain version (K1's three-group n1 site
    over the upsampled grid, K4 at scale 1), its f32 surface against the
-   fused form's (IoU >= 0.999) and its bf16 one against phase 4's bar;
+   fused form's (IoU >= 0.999) and its bf16 one at IoU >= MIN_IOU_BF16;
    device ms per forward of each form beside the fused form's; the int8
    forward under no_upconv (INT8_NO_UPCONV_EXPECTED, its n1 sites exact).
    Training at phase 7's configuration with fuse_train_bn off: an f32
@@ -200,8 +205,8 @@ where every phase passed prints the two JSON lines at the end):
    PyTorch call where one computes the same function, and the card's bound
    for the same work), then the status line {"ok": true, "device": {...}}.
 
-Imports torch, numpy and sgnn_tpu_torch only. Needs one card; fails when
-torch.cuda.is_available() is false.
+Imports torch, numpy, sgnn_tpu_torch and the benchmark's h100bench only.
+Needs one card; fails when torch.cuda.is_available() is false.
 """
 
 from __future__ import annotations
@@ -348,12 +353,22 @@ FLIP_FRAC = 1e-4
 # difference from another f32 summation order flips coarse gates that then
 # grow into regions: the plain forward on the card and on the host CPU,
 # with no hand-written kernel in either, agree only to IoU 0.81645 on
-# scene 0 (PERF.md, Findings). The kernels' surface is held against both
-# plain runs just below that reading; each bf16 kernel call is also checked
-# on the main path's own inputs.
+# scene 0, and equally valid orders draw 0.775-0.830 (PERF.md, Findings).
+# So phase 4 holds the bf16 forward to the benchmark's f32 reference,
+# which follows its gate decisions (_reference_check), and each bf16
+# kernel call to its plain version on the main path's own inputs. The
+# sharded forward (phase 11, unless bit-equal) and the serving ablations
+# (phase 13) are held against the unsharded and fused forwards' surfaces
+# at MIN_IOU_BF16, a reading of that cascade.
 MIN_IOU_F32 = 0.999
 MAX_SDF_REL_F32 = 1e-3
 MIN_IOU_BF16 = 0.81
+# phase 4's limits against the f32 reference on its scene, about midway
+# (geometrically) between what the sound bf16 forwards read there (plain
+# gate_rms 0.00124, sdf_rms 0.0122; kernels 0.00132, 0.0116) and what the
+# int8 forward, a precision below, reads (0.0133, 0.0622), which must
+# exceed one of them (PERF.md, §6)
+REF_LIMITS_BF16 = {"gate_rms": 0.004, "sdf_rms": 0.03}
 # the secondary executions' bf16 surfaces: the plain versions' agreement
 # with themselves is itself one draw of the gate cascade (card vs host
 # CPU 0.75 for the dense flow, 0.98 for the coordinate lists on an H100,
@@ -724,15 +739,18 @@ class KernelChecks:
         fm16 = self.mask(fine, 16)
         g16 = [self.grid(SCENE, c, 16, fine) for c in widths]
         res16 = self.grid(SCENE, 16, 16, fine)
-        w = FO.prep_conv_weights(self.weights(27, 26, 16), widths,
-                                 torch.float32).to(self.dev)
+        # K1's weights in the compute type, as every caller prepares them
+        # (a bf16 site reads its weights as bf16)
+        w = {dt: FO.prep_conv_weights(self.weights(27, 26, 16), widths,
+                                      dt).to(self.dev)
+             for dt in (torch.float32, torch.bfloat16)}
         aff = self.affines(widths)
 
         def conv16(dt):
             grp, m, r = [cast(g, dt) for g in g16], cast(fm16, dt), \
                 cast(res16, dt)
             return lambda impl: (FO.subm_conv_fused(
-                grp, m, w, 16, aff=aff, residual=r, impl=impl).data,)
+                grp, m, w[dt], 16, aff=aff, residual=r, impl=impl).data,)
         n16 = _active(fm16.data, 16)
         act16 = _rl().voxels(fm16)
 
@@ -740,7 +758,7 @@ class KernelChecks:
             # the groups only at active voxels (relu(.) * 0 elsewhere); the
             # mask and the residual in full
             return (_rl().grid_bytes(g16, dt, act16) + _rl().grid_bytes(
-                [fm16, res16], dt) + _rl().nbytes(w, aff),
+                [fm16, res16], dt) + _rl().nbytes(w[dt], aff),
                     2 * 27 * sum(widths) * 16 * n16)
         self.run("conv_site", "cpad16 G3 affine+residual", conv16, [0],
                  resid=res16, work=conv16_work,
@@ -750,14 +768,15 @@ class KernelChecks:
         # K1 at level 0: cpad 8
         fm8 = self.mask(fine, 8)
         x8 = self.grid(SCENE, 8, 8, fine)
-        w8 = FO.prep_conv_weights(self.weights(27, 8, 8), [8],
-                                  torch.float32).to(self.dev)
+        w8 = {dt: FO.prep_conv_weights(self.weights(27, 8, 8), [8],
+                                       dt).to(self.dev)
+              for dt in (torch.float32, torch.bfloat16)}
         aff8 = self.affines([8])
 
         def conv8(dt):
             x, m = cast(x8, dt), cast(fm8, dt)
             return lambda impl: (FO.subm_conv_fused(
-                [x], m, w8, 8, aff=aff8, residual=x, impl=impl).data,)
+                [x], m, w8[dt], 8, aff=aff8, residual=x, impl=impl).data,)
         self.run("conv_site", "cpad8 G1 affine+residual", conv8, [0],
                  resid=x8)
 
@@ -990,10 +1009,8 @@ class KernelChecks:
             aff = self.affines(widths) if has_aff else None
 
             def conv(dt, fm=fm, gs=gs, res=res, w27=w27, aff=aff,
-                     widths=widths, cpad=cpad, i=i):
-                w = FO.prep_conv_weights(
-                    w27, widths, torch.float32 if i % 2 == 0 else dt
-                ).to(self.dev)
+                     widths=widths, cpad=cpad):
+                w = FO.prep_conv_weights(w27, widths, dt).to(self.dev)
                 grp = [g.with_data(g.data.to(dt)) for g in gs]
                 m = fm.with_data(fm.data.to(dt))
                 r = res.with_data(res.data.to(dt)) if res is not None \
@@ -2249,13 +2266,14 @@ class KernelChecks:
             fm = slab(dims, cpad, cpad, m, mask_grid=True)
             gs = [slab(dims, c, cpad, m if has_aff else None) for c in widths]
             res = slab(dims, cpad, cpad)
-            w = FO.prep_conv_weights(self.weights(27, sum(widths), cpad),
-                                     widths, torch.float32).to(self.dev)
+            w27 = self.weights(27, sum(widths), cpad)
             aff = self.affines(widths) if has_aff else None
 
-            def conv(dt, gs=gs, fm=fm, res=res, w=w, aff=aff, cpad=cpad):
+            def conv(dt, gs=gs, fm=fm, res=res, w27=w27, aff=aff, cpad=cpad,
+                     widths=widths):
                 grp, mm = [cast(g, dt) for g in gs], cast(fm, dt)
                 r = cast(res, dt)
+                w = FO.prep_conv_weights(w27, widths, dt).to(self.dev)
                 return lambda impl: (FO.subm_conv_fused(
                     grp, mm, w, cpad, aff=aff, residual=r, impl=impl).data,)
             self.run("conv_site", f"z ring filled: cpad{cpad} G{len(widths)}"
@@ -2487,6 +2505,43 @@ def _surface_agreement(a: dict, b: dict):
     return iou, diff, float(np.abs(b["surf_sdf"]).max())
 
 
+def _reference_check(model, weights, locs, feats, dims, impl=None) -> dict:
+    """One forward of ``model`` on the rows held to the benchmark's plain
+    f32 reference as a serving cell holds a room (h100bench.serve
+    .check_room): the reference follows the forward's gate decisions (the
+    coarse gate from coarse_out, the middle levels' kept masks read by
+    hooks on model.refinement, the finest from the surface) and reports
+    how far each decision lies on the wrong side of its own logit
+    (gate_gap, gate_rms) and the surface's sdf from its own (sdf_gap,
+    sdf_rms), over the reference's RMS."""
+    from h100bench.reference import sgnn as R
+    from h100bench.serve import check_room
+
+    cfg = model.cfg
+    fms = {}
+    hooks = [ref.register_forward_hook(
+        lambda _m, _i, out, h=h: fms.__setitem__(h, out[2]))
+        for h, ref in enumerate(model.refinement)]
+    try:
+        with torch.no_grad():
+            out = model(locs, feats, dims, impl=impl)
+    finally:
+        for hk in hooks:
+            hk.remove()
+    sm = out.surf_mask[0]
+    kept = {"coarse_out": out.coarse_out,
+            "fm": [fms[h] for h in range(len(hooks) - 1)],
+            "surf_locs": torch.nonzero(sm).to(torch.int32).cpu().numpy(),
+            "surf_sdf": out.surf_sdf[0][sm].float().cpu().numpy()}
+    net = R.Net(encoder_dim=cfg.encoder_dim, nf_coarse=cfg.nf_coarse,
+                nf=cfg.nf, num_hierarchy_levels=cfg.num_hierarchy_levels,
+                truncation=cfg.truncation)
+    P, S = (R.tree_map(lambda _, v: torch.as_tensor(
+        np.asarray(v, np.float32), device=locs.device), t) for t in weights)
+    room = {"locs": locs, "feats": feats, "dims": dims}
+    return check_room(net, P, S, room, kept, locs.device)["numbers"]
+
+
 def phase_forward(results: dict) -> tuple:
     """Phase 4; returns (model, weights) for the serve phase."""
     import dataclasses
@@ -2530,7 +2585,14 @@ def phase_forward(results: dict) -> tuple:
         torch.cuda.synchronize()
         host_ms.append((time.perf_counter() - t0) * 1e3)
     counts = K.launch_counts()
+    mma = K.conv_site.mma_launches
     peak = torch.cuda.max_memory_allocated()
+    log(f"[forward] conv_site's tensor-core body: {mma} launches over "
+        f"{N_SCENES} scenes = {mma / N_SCENES:g} per forward (expected "
+        f"every bf16 conv_site launch, {EXPECTED['conv_site']})")
+    require(mma == counts["conv_site"] == EXPECTED["conv_site"] * N_SCENES,
+            f"conv_site: {mma} tensor-core launches of "
+            f"{counts['conv_site']}")
     for name, n in counts.items():
         log(f"[forward] {name}: {n} launches over {N_SCENES} scenes = "
             f"{n / N_SCENES:g} per forward (expected {EXPECTED[name]})")
@@ -2600,15 +2662,35 @@ def phase_forward(results: dict) -> tuple:
     log(f"[forward] bfloat16 plain forward on the host CPU: "
         f"{time.perf_counter() - t1:.1f} s ({torch.get_num_threads()} "
         f"threads; the three runs on the card {t1 - t0:.1f} s)")
-    ious = {pair: _agreement("bfloat16", *pair, runs[pair[0]],
-                             runs[pair[1]])[0]
-            for pair in (("kernels", "plain"), ("plain again", "plain"),
-                         ("plain on the host CPU", "plain"),
-                         ("kernels", "plain on the host CPU"))}
-    worst = min(ious[("kernels", "plain")],
-                ious[("kernels", "plain on the host CPU")])
-    require(worst >= MIN_IOU_BF16,
-            f"bf16 surface IoU {worst} < {MIN_IOU_BF16}")
+    for pair in (("kernels", "plain"), ("plain again", "plain"),
+                 ("plain on the host CPU", "plain"),
+                 ("kernels", "plain on the host CPU")):
+        _agreement("bfloat16", *pair, runs[pair[0]], runs[pair[1]])
+    # the bf16 forward's gates and surface against the benchmark's f32
+    # reference, following the forward's own decisions (the surfaces above
+    # are draws of the gate cascade, printed as findings); the plain
+    # forward read beside it, and the int8 forward as the control the
+    # limits must refuse
+    model8 = GenModelFolded(dataclasses.replace(
+        cfg, quantize_int8=True)).cuda()
+    load_jax_params(model8, *weights)
+    got = {}
+    for what, m, impl in (("plain", model, "plain"), ("kernels", model, None),
+                          ("int8 control", model8, None)):
+        got[what] = _reference_check(m, weights, locs, feats, SCENE, impl)
+        log(f"[forward] bfloat16 {what} vs the f32 reference (h100bench"
+            f".serve.check_room): " + ", ".join(
+                f"{k} {v:.6f}" for k, v in got[what].items())
+            + f"; limits {REF_LIMITS_BF16}")
+    del model8
+    for k, limit in REF_LIMITS_BF16.items():
+        require(got["kernels"][k] <= limit,
+                f"bf16 forward: {k} {got['kernels'][k]} > {limit} against "
+                f"the f32 reference")
+    require(any(got["int8 control"][k] > limit
+                for k, limit in REF_LIMITS_BF16.items()),
+            f"the int8 control passes the limits {REF_LIMITS_BF16}: "
+            f"{got['int8 control']}")
 
     results["head_sum"]["launches"] = _summed_branch(cfg, weights, s0,
                                                      runs["kernels"], model)
@@ -3520,11 +3602,15 @@ def phase_train(results: dict) -> str:
         K.reset_launch_counts()
         m, _ = _step(model, dev, lw)
         counts = K.launch_counts()
+        mma = K.conv_site.mma_launches
         peak = torch.cuda.max_memory_allocated()
         want = train_launches(cfg16)
         log(f"[train] bfloat16 step: loss {float(m['loss']):.5f}; launches "
-            f"{counts} (expected {want}); peak device memory "
-            f"{peak / 2**20:.1f} MiB")
+            f"{counts} (expected {want}); conv_site's tensor-core body "
+            f"{mma}; peak device memory {peak / 2**20:.1f} MiB")
+        require(mma == counts["conv_site"] == want["conv_site"],
+                f"conv_site: {mma} tensor-core launches per train step, "
+                f"expected {want['conv_site']}")
         for name, n in counts.items():
             require(n == want[name], f"{name}: {n} launches per train step, "
                                      f"expected {want[name]}")

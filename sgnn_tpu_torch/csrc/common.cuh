@@ -156,6 +156,12 @@ __device__ __forceinline__ void cp_async16(unsigned s, const void* p, int n) {
                "l"(p), "r"(n));
 }
 
+// 4 bytes, likewise (n = 4 or 0)
+__device__ __forceinline__ void cp_async4(unsigned s, const void* p, int n) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(s),
+               "l"(p), "r"(n));
+}
+
 __device__ __forceinline__ void cp_async_commit() {
   asm volatile("cp.async.commit_group;\n" ::);
 }
@@ -451,6 +457,90 @@ __device__ __forceinline__ bool own_chunks_nonzero(const unsigned char* buf) {
     any |= u.x | u.y | u.z | u.w;
   }
   return (any & MAG) != 0;
+}
+
+// ----------------------------------- implicit GEMM over 3^3 taps (K1, K7)
+//
+// bf16 products on the tensor cores (mma_bf16, f32 sums) of 16-row tiles
+// of voxels with 27 taps w [27][MAXC][MAXC] (f32 holding bf16 values), over
+// a staged window whose slots hold CPAD channels as 16-byte chunks at
+// chunk_off: A rows are the slots of a row's tap neighbours, by ldmatrix;
+// K runs over (tap, ci), one tap a k16 step at cpad 16 and two at cpad 8
+// (a 28th tap of zero weights pads the last); N is CPAD, in 8-wide tiles.
+template <int CPAD>
+struct TapGemm {
+  static constexpr int NC = CPAD * 2 / 16;  // 16-byte chunks a slot
+  static constexpr int TPK = 16 / CPAD;     // taps a k16 step
+  static constexpr int KSTEPS = (27 + TPK - 1) / TPK;
+  static constexpr int NT = CPAD / 8;       // 8-wide N tiles
+  static constexpr int FRAGS = KSTEPS * NT * 32;  // B fragments (uint2)
+};
+
+// wf[0, FRAGS) = the B fragments of taps w in bf16 (input channels >= cin
+// and the padding tap zero): for k16 step j and N tile nt, lane l's uint2
+// at (j NT + nt) 32 + l holds rows 2 (l % 4) .. and 8 + 2 (l % 4) .. of
+// column 8 nt + l / 4. The block's threads share the work.
+template <int CPAD>
+__device__ __forceinline__ void tap_fragments(uint2* wf,
+                                              const float* __restrict__ w,
+                                              int cin) {
+  using G = TapGemm<CPAD>;
+  for (int q = threadIdx.x; q < G::FRAGS; q += THREADS) {
+    const int lane = q % 32, nt = q / 32 % G::NT, j = q / (32 * G::NT);
+    const int n = nt * 8 + lane / 4;
+    unsigned v[2];
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      unsigned word = 0;
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const int k = 8 * h + 2 * (lane % 4) + e;  // row of the k16 step
+        const int tap = G::TPK * j + k / CPAD, ci = k % CPAD;
+        const float f =
+            tap < 27 && ci < cin ? __ldg(w + (tap * MAXC + ci) * MAXC + n)
+                                 : 0.f;
+        word |= static_cast<unsigned>(
+                    __bfloat16_as_ushort(__float2bfloat16_rn(f)))
+                << (16 * e);
+      }
+      v[h] = word;
+    }
+    wf[q] = make_uint2(v[0], v[1]);
+  }
+}
+
+// acc[t] += the products of M tile t with the B fragments wf over the
+// window at shared address base, for each of the MT tiles with act[t];
+// this lane addresses the centre slot cs[t] of its ldmatrix row (row
+// (lane & 7) + 8 (lane >> 3 & 1), k half lane >> 4).
+template <int CPAD, int MT>
+__device__ __forceinline__ void tap_mma(unsigned base, const uint2* wf,
+                                        const int* cs, const bool* act,
+                                        float (*acc)[TapGemm<CPAD>::NT][4]) {
+  using G = TapGemm<CPAD>;
+  const int lane = threadIdx.x % 32, h = lane >> 4;
+#pragma unroll  // the taps' offsets become constants
+  for (int j = 0; j < G::KSTEPS; ++j) {
+    // cpad 16: tap j, channels 8 h ..; cpad 8: tap 2 j + h, all 8
+    const int tap = G::TPK * j + (CPAD == 8 ? h : 0);
+    const int c = CPAD == 16 ? h : 0;
+    const int off = tap < 27 ? tap_offset(tap) : 0;
+    unsigned b[G::NT][2];
+#pragma unroll
+    for (int nt = 0; nt < G::NT; ++nt) {
+      const uint2 u = wf[(j * G::NT + nt) * 32 + lane];
+      b[nt][0] = u.x;
+      b[nt][1] = u.y;
+    }
+#pragma unroll
+    for (int t = 0; t < MT; ++t) {
+      if (!act[t]) continue;
+      unsigned a[4];
+      ldmatrix_x4(a, base + chunk_off<G::NC>(cs[t] + off, c));
+#pragma unroll
+      for (int nt = 0; nt < G::NT; ++nt) mma_bf16(acc[t][nt], a, b[nt]);
+    }
+  }
 }
 
 }  // namespace sgnn

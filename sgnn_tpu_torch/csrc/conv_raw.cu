@@ -60,12 +60,9 @@ struct RawSmem {
   static constexpr int NC = CPAD * static_cast<int>(sizeof(T)) / 16;
   static constexpr int BUF = NH * NC * 16;  // one staged brick
   static constexpr bool TC = sizeof(T) == 2;  // bf16: the tensor cores
-  static constexpr int TPK = 16 / CPAD;       // taps per k16 step
-  static constexpr int KSTEPS = (27 + TPK - 1) / TPK;
-  static constexpr int NT = CPAD / 8;         // 8-wide N tiles
   static constexpr int IN = 0;                // brick i in buffer i % 2
-  static constexpr int WF = IN + 2 * BUF;     // uint2 [KSTEPS][NT][32]
-  static constexpr int OUT = WF + (TC ? KSTEPS * NT * 32 * 8 : 0);
+  static constexpr int WF = IN + 2 * BUF;     // uint2 [FRAGS]
+  static constexpr int OUT = WF + (TC ? TapGemm<CPAD>::FRAGS * 8 : 0);
   static constexpr int BYTES = OUT + (TC ? NV * CPAD * 2 : 0);  // bf16 out
 };
 
@@ -91,84 +88,33 @@ __device__ __forceinline__ void stage_brick(unsigned buf,
   cp_async_commit();
 }
 
-// The B fragments of every k16 step and N tile, bf16 from the f32 taps
-// (input channels >= cin and the padding tap zero).
-template <int CPAD>
-__device__ __forceinline__ void stage_weights(uint2* wf,
-                                              const float* __restrict__ w,
-                                              int cin) {
-  using S = RawSmem<__nv_bfloat16, CPAD>;
-  for (int q = threadIdx.x; q < S::KSTEPS * S::NT * 32; q += THREADS) {
-    const int lane = q % 32, nt = q / 32 % S::NT, j = q / (32 * S::NT);
-    const int n = nt * 8 + lane / 4;
-    unsigned v[2];
-#pragma unroll
-    for (int h = 0; h < 2; ++h) {
-      unsigned word = 0;
-#pragma unroll
-      for (int e = 0; e < 2; ++e) {
-        const int k = 8 * h + 2 * (lane % 4) + e;  // row of the k16 step
-        const int tap = S::TPK * j + k / CPAD, ci = k % CPAD;
-        const float f =
-            tap < 27 && ci < cin ? __ldg(w + (tap * MAXC + ci) * MAXC + n)
-                                 : 0.f;
-        word |= static_cast<unsigned>(
-                    __bfloat16_as_ushort(__float2bfloat16_rn(f)))
-                << (16 * e);
-      }
-      v[h] = word;
-    }
-    wf[q] = make_uint2(v[0], v[1]);
-  }
-}
-
 // bf16: warp w's brick row through the tensor cores into the out tile
 // (bf16 [NV][CPAD] in shared memory).
 template <int CPAD>
 __device__ __forceinline__ void mma_row(const unsigned char* buf,
                                         const uint2* wf,
                                         __nv_bfloat16* otile) {
-  using S = RawSmem<__nv_bfloat16, CPAD>;
+  constexpr int NT = TapGemm<CPAD>::NT;
   const int lane = threadIdx.x % 32, warp = threadIdx.x / 32;
-  // the A row this lane addresses for ldmatrix, and its 8-wide k half
-  const int r = (lane & 7) + (lane >> 3 & 1) * 8, h = lane >> 4;
-  const unsigned base = smem_addr(buf);
+  // the A row this lane addresses for ldmatrix
+  const int r = (lane & 7) + (lane >> 3 & 1) * 8;
   int cs[2];
-  float acc[2][S::NT][4];
+  const bool act[2] = {true, true};
+  float acc[2][NT][4];
 #pragma unroll
   for (int mt = 0; mt < 2; ++mt) {
     cs[mt] = center_slot(warp * BX + mt * 16 + r);
 #pragma unroll
-    for (int nt = 0; nt < S::NT; ++nt)
+    for (int nt = 0; nt < NT; ++nt)
 #pragma unroll
       for (int e = 0; e < 4; ++e) acc[mt][nt][e] = 0.f;
   }
-#pragma unroll  // the taps' offsets become constants
-  for (int j = 0; j < S::KSTEPS; ++j) {
-    // cpad 16: tap j, channels 8 h ..; cpad 8: tap 2 j + h, all 8
-    const int tap = S::TPK * j + (CPAD == 8 ? h : 0);
-    const int c = CPAD == 16 ? h : 0;
-    const int off = tap < 27 ? tap_offset(tap) : 0;
-    unsigned b[S::NT][2];
-#pragma unroll
-    for (int nt = 0; nt < S::NT; ++nt) {
-      const uint2 u = wf[(j * S::NT + nt) * 32 + lane];
-      b[nt][0] = u.x;
-      b[nt][1] = u.y;
-    }
-#pragma unroll
-    for (int mt = 0; mt < 2; ++mt) {
-      unsigned a[4];
-      ldmatrix_x4(a, base + chunk_off<S::NC>(cs[mt] + off, c));
-#pragma unroll
-      for (int nt = 0; nt < S::NT; ++nt) mma_bf16(acc[mt][nt], a, b[nt]);
-    }
-  }
+  tap_mma<CPAD, 2>(smem_addr(buf), wf, cs, act, acc);
   const int gid = lane / 4, tig = lane % 4;
 #pragma unroll
   for (int mt = 0; mt < 2; ++mt) {
 #pragma unroll
-    for (int nt = 0; nt < S::NT; ++nt) {
+    for (int nt = 0; nt < NT; ++nt) {
 #pragma unroll
       for (int hi = 0; hi < 2; ++hi) {
         const int v = warp * BX + mt * 16 + gid + 8 * hi;
@@ -229,7 +175,7 @@ __global__ void __launch_bounds__(THREADS, 2)
   const int tid = threadIdx.x;
   const int Zp = Z + 2, Yp = Y + 2;
   if constexpr (S::TC) {  // visible after the first brick's barrier
-    stage_weights<CPAD>(reinterpret_cast<uint2*>(smem + S::WF), w, cin);
+    tap_fragments<CPAD>(reinterpret_cast<uint2*>(smem + S::WF), w, cin);
   }
   int brick = blockIdx.x;
   if (brick < nbricks) {

@@ -94,6 +94,7 @@ def launch_counts() -> dict:
 def reset_launch_counts() -> None:
     for m, a in _COUNTERS.values():
         setattr(m, a, 0)
+    conv_site.mma_launches = 0  # in launch_counts() as conv_site's
 
 
 # wrapper name -> its module, for plain_versions

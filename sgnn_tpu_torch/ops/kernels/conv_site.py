@@ -8,7 +8,10 @@ Port of sgnn_tpu/ops/pallas/conv3d_folded.py ``fused_conv_folded`` (:593):
 Grids are FGrids ``[B, Z+2, Y+2, xq, 128]`` at lane budget ``cpad``. The
 prepared weights ``w [G, 27, 16, 16]`` hold each group's taps (C order over
 (dz, dy, dx)) zero-padded to 16 channels and rounded to the compute type;
-``aff [G, 2, 16]`` holds each group's eval-BN (scale, bias).
+``aff [G, 2, 16]`` holds each group's eval-BN (scale, bias). bf16 grids
+take bf16-valued weights: the tensor cores read each weight as bf16, so one
+that is no bf16 value counts as its nearest one, where ``conv_site_plain``
+multiplies it in f32.
 
 ``conv_site_q`` is the int8 mode (K1q, ``quantize=True``, :413-451): each
 group's f32 input ``tf`` (the affine's value before any rounding) is
@@ -28,6 +31,9 @@ from sgnn_tpu_torch.ops.kernels import build, tile_amax as K_amax
 
 LANES = 128
 launches = 0  # kernel launches since the last reset_launch_counts()
+# the bf16 launches among them: the bf16 mode has one body, the tensor
+# cores', so this follows the grids' type
+mma_launches = 0
 q_launches = 0  # the same for the int8 mode
 
 
@@ -50,7 +56,7 @@ def conv_site(xs: list, mask: torch.Tensor, w: torch.Tensor, cins: list,
               cpad: int, *, aff: torch.Tensor | None = None,
               residual: torch.Tensor | None = None,
               impl: str | None = None) -> torch.Tensor:
-    global launches
+    global launches, mma_launches
     G = len(xs)
     _check("conv_site", xs, mask, cins, cpad, aff, residual)
     build.check_f32("w", w, (G, 27, 16, 16), mask)
@@ -66,6 +72,7 @@ def conv_site(xs: list, mask: torch.Tensor, w: torch.Tensor, cins: list,
         build.stream(mask),
     )
     launches += 1
+    mma_launches += build.is_bf16(mask)
     build.check(rc, "conv_site")
     return out
 

@@ -233,6 +233,7 @@ def test_dispatch_rule():
     FO.subm_conv_fused([x], fm, w, 4)
     FO.subm_conv_fused([x], fm, w, 4, impl="plain")
     assert set(K.launch_counts().values()) == {0}
+    assert K.conv_site.mma_launches == 0
     with pytest.raises(ValueError):
         FO.subm_conv_fused([x], fm, w, 4, impl="cuda")
     with pytest.raises(ValueError):

@@ -136,6 +136,94 @@ def test_conv_site_edges(cpad, widths, affine, resid, kind):
     assert np.abs(out).max() > 0.1 or (kind == "empty" and not resid)
 
 
+def _k1_sums(groups, fm, w, cpad, aff, order):
+    """K1's f32 sums over the interior [B, Z, Y, Xs, cpad] of a bf16 site
+    (conv_site_plain's inputs: the affine, mask and rounding, weights that
+    hold bf16 values), in ``order``: "fma", one f32 addition a product in
+    (group, tap, channel) order, the FMA body's; "mma", per group, one k16
+    step at a time (a tap's 16 channels at cpad 16, two taps' 8 at cpad 8,
+    a 28th tap of zero weights), the step's 16 products summed pairwise and
+    then added, the tensor cores' implicit GEMM. Products of bf16 values
+    are exact in f32, so only the additions round."""
+    B, Zp, Yp, xq, _ = fm.data.shape
+    Xs = xq * (128 // cpad)
+    m = fm.data.view(B, Zp, Yp, Xs, cpad)[..., 0].float()
+    acc = torch.zeros(B, Zp - 2, Yp - 2, Xs, cpad)
+    for g, grp in enumerate(groups):
+        t = grp.data.view(B, Zp, Yp, Xs, cpad).float()
+        if aff is not None:
+            t = (t * aff[g, 0, :cpad] + aff[g, 1, :cpad]).clamp_min(0.0)
+            t = (t * m[..., None]).to(torch.bfloat16).float()
+        t = t * (torch.arange(cpad) < grp.real_c)  # dead lanes meet zeros
+        t = torch.nn.functional.pad(t, (0, 0, 1, 1))
+        # products [taps, B, Z, Y, Xs, ci, co]
+        prod = torch.stack([
+            t[:, dz:dz + Zp - 2, dy:dy + Yp - 2, dx:dx + Xs, :, None]
+            * w[g, (dz * 3 + dy) * 3 + dx, :cpad, :cpad]
+            for dz in range(3) for dy in range(3) for dx in range(3)])
+        if order == "fma":
+            for tap in range(27):
+                for ci in range(cpad):
+                    acc = acc + prod[tap, ..., ci, :]
+            continue
+        tpk = 16 // cpad  # taps a k16 step
+        steps = torch.cat([prod, torch.zeros_like(prod[:(-27) % tpk])])
+        steps = steps.movedim(0, -3).reshape(*acc.shape[:-1], -1, 16, cpad)
+        for j in range(steps.shape[-3]):
+            s = steps[..., j, :, :]
+            while s.shape[-2] > 1:
+                s = s[..., 0::2, :] + s[..., 1::2, :]
+            acc = acc + s[..., 0, :]
+    return acc, m[:, 1:-1, 1:-1, :, None]
+
+
+@pytest.mark.parametrize("cpad", [8, 16])
+@pytest.mark.parametrize("resid", [False, True])
+@pytest.mark.parametrize("G", [1, 3])
+def test_conv_site_summation_orders(cpad, resid, G):
+    """The tolerance a reordered K1 sum needs: the bf16 site summed in the
+    FMA body's order and in the tensor cores' (_k1_sums) gives outputs
+    that agree within chip_smoke.py's per-call bound (_tol: one inner ulp
+    plus two outer half ulps, capped at 2 ulps of the output's plus the
+    residual's scale), which the card holds every bf16 K1 call to against
+    its plain version; the FMA order is conv_site_plain's site within it.
+    Three groups with the affine, one without."""
+    from chip_smoke import _tol
+
+    from sgnn_tpu_torch.ops.kernels.conv_site import conv_site_plain
+
+    rng = np.random.RandomState(3 * cpad + 2 * G + resid)
+    dims = (6, 8, 40)
+    widths = {1: [cpad], 3: [cpad, 1, cpad // 2]}[G]
+    affine = G == 3
+    m, fm = _mask(rng, dims, cpad, "random")
+    bf = torch.bfloat16
+    fm = fm.with_data(fm.data.to(bf))
+    groups = [_grid(rng, dims, c, cpad, m if affine else None)
+              for c in widths]
+    groups = [g.with_data(g.data.to(bf)) for g in groups]
+    w27 = (0.2 * rng.randn(27, sum(widths), cpad)).astype(np.float32)
+    w = FO.prep_conv_weights(w27, widths, bf)
+    aff = FO.prep_affines(*_bn(rng, sum(widths)), widths) if affine else None
+    res = _grid(rng, dims, cpad, cpad) if resid else None
+    r = res.data.to(bf) if resid else None
+    B, Zp, Yp, xq, _ = fm.data.shape
+    ri = (r.view(B, Zp, Yp, -1, cpad)[:, 1:-1, 1:-1] if resid else None)
+    outs, accs = {}, {}
+    for order in ("fma", "mma"):
+        accs[order], mi = _k1_sums(groups, fm, w, cpad, aff, order)
+        o = (accs[order] * mi).to(bf)
+        outs[order] = (o.float() + ri.float()).to(bf) if resid else o
+    assert not torch.equal(accs["fma"], accs["mma"])  # two orders apart
+    plain = conv_site_plain([g.data for g in groups], fm.data, w, widths,
+                            cpad, aff=aff, residual=r)
+    plain = plain.view(B, Zp, Yp, -1, cpad)[:, 1:-1, 1:-1]
+    for got, ref in ((outs["mma"], outs["fma"]), (outs["fma"], plain)):
+        d = (got.float() - ref.float()).abs()
+        assert (d <= _tol(ref, got, ri)).all()
+    assert float(outs["mma"].float().abs().max()) > 0.1
+
+
 @pytest.mark.parametrize("cpad,cpad_out,affine,kind", [
     (8, 16, False, "random"),   # cross mode: the encoder's level-0 exit
     (8, 16, False, "dense"),
